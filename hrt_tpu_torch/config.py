@@ -1,0 +1,68 @@
+"""Render configuration, field for field the JAX package's RenderConfig.
+
+Keeping every field (and its default) lets one config object describe
+the same frame to both packages.  Knobs that only steer TPU speed
+(`shade_pallas`, `block_reorder`, `shadow_interleave`,
+`shadow_from_light`, `tri_chunk`, `leaf_size`) are accepted and do not
+change this package's output.  Features outside the ported slice are
+refused by `require_slice`.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    width: int = 800
+    height: int = 600
+    spp: int = 1
+    max_depth: int = 2
+    light_threshold: float = 1e-4
+    sky: bool = False
+    jitter: bool = False
+    indirect: bool = False
+    russian_roulette: bool = True
+    rr_start_depth: int = 2
+    normal_offset: float = 1e-4
+    bounce_offset: float = 1e-3
+    t_min: float = 1e-3
+    traversal: str = "auto"          # bruteforce | bvh | pallas | auto
+    leaf_size: int = 0
+    tri_chunk: int = 512
+    block_reorder: bool = True
+    sort_bounces: bool = False
+    brdf: str = "disney"             # disney | pbr
+    shade_pallas: bool = True
+    light_samples: int = 0
+    denoise: bool = False
+    upscale: int = 1
+    upscale_mode: str = "spatial"
+    light_sampler: str = "auto"
+    accumulate: bool = False
+    shadow_interleave: bool = True
+    shadow_from_light: bool = False
+
+    @property
+    def num_pixels(self) -> int:
+        return self.width * self.height
+
+
+def require_slice(config: RenderConfig) -> None:
+    """Raise NotImplementedError for any feature this package does not
+    render yet: the port covers the direct-lighting frame (primary
+    closest hit, Disney BRDF, one shadow ray per light, sky on miss)."""
+    unsupported = {
+        "indirect": config.indirect,
+        "jitter": config.jitter,
+        "light_samples>0": config.light_samples > 0,
+        "denoise": config.denoise,
+        "upscale>1": config.upscale > 1,
+        "brdf='pbr'": config.brdf == "pbr",
+        "sort_bounces": config.sort_bounces,
+        "traversal='bruteforce'": config.traversal == "bruteforce",
+    }
+    names = [k for k, v in unsupported.items() if v]
+    if names:
+        raise NotImplementedError(
+            "not ported yet: " + ", ".join(names))

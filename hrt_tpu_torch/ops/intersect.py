@@ -1,0 +1,90 @@
+"""Ray-triangle intersection and the brute-force tracers (the oracle
+the traversal tests check against), as hrt_tpu/ops/intersect.py.
+Arrays keep the JAX package's (..., 3) layout."""
+from __future__ import annotations
+
+import torch
+
+INF = 1e32      # ref: shaders/constants.slang (INFINITE)
+TMIN = 1e-3
+_DET_EPS = 1e-12
+
+
+def _cross(a, b):
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def _dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] \
+        + a[..., 2] * b[..., 2]
+
+
+def moller_trumbore(ray_o, ray_d, v0, e1, e2, t_min, t_max):
+    """Batched Möller-Trumbore over broadcast (..., 3) arguments.
+    Returns (hit, t, u, v).  Degenerate (zero-padded) triangles never
+    hit.  No culling: the reference traces without backface flags."""
+    pvec = _cross(ray_d, e2)
+    det = _dot(e1, pvec)
+    ok = torch.abs(det) > _DET_EPS
+    inv_det = torch.where(ok, 1.0 / det, 0.0)
+    tvec = ray_o - v0
+    u = _dot(tvec, pvec) * inv_det
+    qvec = _cross(tvec, e1)
+    v = _dot(ray_d, qvec) * inv_det
+    t = _dot(e2, qvec) * inv_det
+    hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) \
+        & (t > t_min) & (t < t_max)
+    return hit, t, u, v
+
+
+def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
+    """1/d with components below 1e-20 in magnitude clamped to +-1e-20."""
+    tiny = 1e-20
+    safe = torch.where(torch.abs(d) < tiny,
+                       torch.where(d < 0, -tiny, tiny), d)
+    return 1.0 / safe
+
+
+def closest_hit_bruteforce(ray_o, ray_d, tri_v0, tri_e1, tri_e2,
+                           t_min=TMIN, t_max=INF, chunk: int = 512):
+    """O(rays x tris) closest hit.  ray_o/ray_d (N, 3), tri_* (T, 3).
+    Returns (t, tri (-1 = miss), u, v), each (N,)."""
+    n = ray_o.shape[0]
+    best_t = torch.broadcast_to(torch.as_tensor(
+        t_max, dtype=torch.float32, device=ray_o.device), (n,)).clone()
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=ray_o.device)
+    best_u = torch.zeros(n, device=ray_o.device)
+    best_v = torch.zeros(n, device=ray_o.device)
+    for base in range(0, tri_v0.shape[0], chunk):
+        sl = slice(base, base + chunk)
+        hit, t, u, v = moller_trumbore(
+            ray_o[:, None], ray_d[:, None], tri_v0[None, sl],
+            tri_e1[None, sl], tri_e2[None, sl], t_min, best_t[:, None])
+        t = torch.where(hit, t, INF)
+        tj, j = torch.min(t, dim=1)
+        improved = tj < best_t
+        take = lambda a: torch.gather(a, 1, j[:, None])[:, 0]
+        best_i = torch.where(improved, (base + j).to(torch.int32), best_i)
+        best_u = torch.where(improved, take(u), best_u)
+        best_v = torch.where(improved, take(v), best_v)
+        best_t = torch.where(improved, tj, best_t)
+    return best_t, best_i, best_u, best_v
+
+
+def any_hit_bruteforce(ray_o, ray_d, tri_v0, tri_e1, tri_e2,
+                       t_min=TMIN, t_max=INF, chunk: int = 512):
+    """Occlusion: True where any triangle blocks (t_min, t_max)."""
+    n = ray_o.shape[0]
+    t_max = torch.broadcast_to(torch.as_tensor(
+        t_max, dtype=torch.float32, device=ray_o.device), (n,))
+    occluded = torch.zeros(n, dtype=torch.bool, device=ray_o.device)
+    for base in range(0, tri_v0.shape[0], chunk):
+        sl = slice(base, base + chunk)
+        hit, _, _, _ = moller_trumbore(
+            ray_o[:, None], ray_d[:, None], tri_v0[None, sl],
+            tri_e1[None, sl], tri_e2[None, sl], t_min, t_max[:, None])
+        occluded |= hit.any(dim=1)
+    return occluded

@@ -1,0 +1,124 @@
+"""The CUDA kernels of hrt_tpu_torch against their plain PyTorch versions,
+on a card.  Every test here is marked `cuda` and skips without a CUDA
+device: the kernels have no CPU mode.  The file imports neither jax nor
+hrt_tpu, so it runs wherever the port runs:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from hrt_tpu_torch import renderer
+from hrt_tpu_torch.config import RenderConfig
+from hrt_tpu_torch.models.camera import Camera
+from hrt_tpu_torch.models.materials import MatP
+from hrt_tpu_torch.models.scene import bench_scene
+from hrt_tpu_torch.ops import lbvh, shade_kernel, traversal_wide8
+from hrt_tpu_torch.ops.intersect import (any_hit_bruteforce,
+                                         closest_hit_bruteforce)
+from hrt_tpu_torch.ops.v3 import V3
+from hrt_tpu_torch.utils.image import psnr
+
+pytestmark = pytest.mark.cuda
+
+BENCH_CAM = dict(position=(0.0, -1.0, -6.0), rotation=(-0.15, 0.0, 0.0))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rays(seed, n, device):
+    """Rays from a box around the bench scene toward its middle."""
+    rs = np.random.RandomState(seed)
+    o = rs.uniform(-6, 6, (n, 3)).astype(np.float32)
+    d = rs.uniform(-2, 2, (n, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return t(o), t(d)
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_bvh8_kernel_matches_plain_and_bruteforce(cuda, closest):
+    scene = bench_scene().build(cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    o, d = _rays(3, 4096, cuda)
+    tmax = torch.full((4096,), 1e32 if closest else 5.0, device=cuda)
+    tmax[::17] = -1.0                                   # dead rays
+    planes = (*o.T.contiguous(), *d.T.contiguous(), tmax)
+    before = traversal_wide8.LAUNCHES["closest" if closest else "any_hit"]
+    k = traversal_wide8.trace_kernel(accel, *planes, 1e-3, closest)
+    p = traversal_wide8.trace_plain(accel, *planes, 1e-3, closest)
+    torch.cuda.synchronize()
+    assert traversal_wide8.LAUNCHES["closest" if closest else "any_hit"] \
+        == before + 1
+    if closest:
+        kt, ktri = k[0], k[1]
+        assert (ktri == p[1]).float().mean().item() >= 0.999
+        same = (ktri == p[1]) & (ktri >= 0)
+        torch.testing.assert_close(kt[same], p[0][same], rtol=1e-4,
+                                   atol=1e-5)
+        assert (ktri[::17] == -1).all()
+        bt, bi, _, _ = closest_hit_bruteforce(
+            o, d, scene.tri_v0, scene.tri_e1, scene.tri_e2, 1e-3, tmax)
+        orig = torch.where(ktri >= 0,
+                           accel.tri_perm[ktri.clamp(min=0).long()], -1)
+        # Ids agree up to equal-t ties (edges shared by two triangles).
+        tie = (orig >= 0) & (bi >= 0) & ((kt - bt).abs() <= 1e-5 * bt.abs())
+        assert ((orig == bi) | tie).float().mean().item() >= 0.999
+    else:
+        assert (k == p).float().mean().item() >= 0.999
+        assert not k[::17].any()
+        bocc = any_hit_bruteforce(o, d, scene.tri_v0, scene.tri_e1,
+                                  scene.tri_e2, 1e-3, tmax)
+        assert (k == bocc).float().mean().item() >= 0.999
+
+
+def test_brdf_kernel_matches_plain(cuda):
+    n, num_lights = 4096, 2
+    rs = np.random.RandomState(4)
+    plane = lambda: torch.as_tensor(rs.rand(n).astype(np.float32),
+                                    device=cuda)
+
+    def unit(m):
+        v = rs.normal(size=(3, m)).astype(np.float32)
+        v /= np.linalg.norm(v, axis=0)
+        return V3(*(torch.as_tensor(c, device=cuda) for c in v))
+
+    zero = torch.zeros(n, device=cuda)
+    mat = MatP(color=V3(plane(), plane(), plane()), subsurface=plane(),
+               metallic=plane(), roughness=plane(), specular=plane(),
+               specular_tint=plane(), anisotropic=plane(),
+               sheen_tint=plane(), clearcoat=plane(),
+               clearcoat_gloss=plane(), emissive=V3(zero, zero, zero),
+               emission_strength=zero, ior=zero, transmission=zero)
+    nrm, view, light = unit(n), unit(n), unit(n * num_lights)
+    rel = torch.as_tensor(rs.rand(n * num_lights) < 0.7, device=cuda)
+    args = (mat, nrm, view, light, rel, num_lights)
+    before = shade_kernel.LAUNCHES["brdf_light_major"]
+    k = shade_kernel.brdf_light_major_kernel(*args)
+    p = shade_kernel.brdf_light_major_plain(*args)
+    assert shade_kernel.LAUNCHES["brdf_light_major"] == before + 1
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+        assert (a[~rel] == 0).all()
+
+
+def test_kernel_frame_matches_plain_frame(cuda):
+    cfg = RenderConfig(width=256, height=192, max_depth=1, sky=True)
+    scene = bench_scene().build(cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, cuda)
+    before = (dict(traversal_wide8.LAUNCHES), dict(shade_kernel.LAUNCHES))
+    img = renderer.render_frames(scene, accel, cams, 0, 2, cfg)
+    assert traversal_wide8.LAUNCHES == {
+        m: c + 2 for m, c in before[0].items()}
+    assert shade_kernel.LAUNCHES == {m: c + 2 for m, c in before[1].items()}
+    ref = renderer.render_frames(scene, accel, cams, 0, 1, cfg, plain=True)
+    assert img.shape == (2, 192, 256, 3) and torch.isfinite(img).all()
+    assert psnr(img[0].clamp(0, 4).cpu().numpy(),
+                ref[0].clamp(0, 4).cpu().numpy(), peak=4.0) > 45.0
