@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the two CUDA kernels from hrt_tpu_torch/csrc/, then drives the
-port's main path: the bench scene (three icospheres + ground plane, two
+Builds the CUDA kernels from hrt_tpu_torch/csrc/, then drives the
+port's two paths.  The bench frame: the bench scene (three icospheres + ground plane, two
 point lights), SAH build with 32-triangle leaves and its BVH8 records,
 and `render_frames` of 32 frames at 512x384 (max_depth=1, sky on), plus
-one 1920x1080 frame.  Phases:
+one 1920x1080 frame.  The instanced frame: the JAX package's
+`instanced_tlas_512x384` scene through FrameLoop(two_level=True), the
+two-level build and K4, animated.  Phases:
 
   1. device facts (name, nvidia-smi power limit)
   2. kernel build, timed
@@ -23,6 +25,18 @@ one 1920x1080 frame.  Phases:
      demo_parity, demo_sky at 64x48) rendered through the kernels
   9. CUDA-event times (median of 7): each kernel vs its plain version at
      the 512x384 shapes, ms/frame and Mray/s at both sizes
+ 10. the instanced scene (16x16 grid of icosphere instances on a ground
+     plane, one light): two-level build on the card, timed
+ 11. K4 (two-level wide walk) closest and any-hit vs its plain version on
+     the 512x384 frame's primary and shadow batches; both vs brute force
+     over the flattened soup on 4096-ray subsets
+ 12. FrameLoop(two_level=True): 32 steps at 512x384, each after moving
+     one sphere (set_instance_transform); the launch counters must show
+     32 K4 closest, 32 K4 any-hit and 32 K2 launches; the last frame vs
+     the plain-path frame and vs the soup frame through K1
+ 13. one 1920x1080 two-level frame, same checks
+ 14. CUDA-event times (median of 7): K4 vs its plain version at the
+     512x384 shapes, one refit, ms/frame and Mray/s at both sizes
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails.  The line before the last is the kernels JSON; the last is
@@ -43,6 +57,8 @@ K1_SOURCE = "hrt_tpu_torch/csrc/bvh8_trace.cu"
 K1_REPLACES = "hrt_tpu/ops/traversal_wide8.py:679"
 K2_SOURCE = "hrt_tpu_torch/csrc/brdf_light_major.cu"
 K2_REPLACES = "hrt_tpu/ops/shade_pallas.py:98"
+K4_SOURCE = "hrt_tpu_torch/csrc/tlas8_trace.cu"
+K4_REPLACES = "hrt_tpu/ops/traversal_tlas8.py:438"
 
 
 class Smoke:
@@ -78,6 +94,33 @@ def psnr4(a, b) -> float:
 
     return psnr(a.clamp(0, 4).cpu().numpy(), b.clamp(0, 4).cpu().numpy(),
                 peak=4.0)
+
+
+def host_ms(fn, reps: int = 7) -> float:
+    """Median host-clock time of fn() in ms, each call ending in a
+    synchronize, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def soup_agreement(ids, inst, t, bi, bt, tri_inst) -> float:
+    """Share of rays whose closest hit agrees with brute force over the
+    flattened soup: same hit/miss, and the same instance (through the
+    soup's per-triangle instance table) unless the two hits tie in t."""
+    hit, bhit = ids >= 0, bi >= 0
+    oracle = tri_inst[bi.clamp(min=0).long()]
+    tie = hit & bhit & ((t - bt).abs() <= 1e-5 * bt.abs())
+    ok = (hit == bhit) & (~bhit | (inst == oracle) | tie)
+    return float(ok.float().mean())
 
 
 def main() -> int:
@@ -301,6 +344,213 @@ def main() -> int:
         print(f"  frame {k}: {v['ms_per_frame']:.4f} ms/frame, "
               f"{v['mrays_per_s']:.2f} Mray/s", flush=True)
 
+    print("phase 10: instanced scene + two-level build", flush=True)
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models.scene import instance_grid_scene
+    from hrt_tpu_torch.ops import tlas
+    from hrt_tpu_torch.ops import traversal_tlas8 as k4
+
+    grid = instance_grid_scene()
+    t0 = time.perf_counter()
+    tl = tlas.build_two_level_flat(grid, 32, device=dev)
+    torch.cuda.synchronize()
+    tl_facts = {
+        "build_s": time.perf_counter() - t0,
+        "instances": len(grid.instances),
+        "pool_slots": int(tl.tris.shape[0]),
+        "record_rows": int(tl.w8_nodes.shape[0]),
+        "w8_tlas_nw": tl.w8_tlas_nw, "tlas_depth": tl.tlas_depth,
+        "blas_depth": tl.blas_depth, "stack": tl.stack}
+    print(f"  {tl_facts}", flush=True)
+    g_scene = grid.build(dev)
+    print(f"  flattened soup: {g_scene.num_triangles} triangles", flush=True)
+    sm.check(tl_facts["instances"] == 257 and tl.w8_tlas_nw == 256,
+             "257 instances, 256-node TLAS region")
+
+    g_cfg = RenderConfig(width=512, height=384, max_depth=1, sky=True)
+    g_cams = renderer.camera_arrays(Camera(**BENCH_CAM), g_cfg, dev)
+    go, gd = renderer.primary_rays(g_cams, g_cfg.height, 0, g_cfg)
+    gn = go.x.shape[0]
+    g_prim = (go.x, go.y, go.z, gd.x, gd.y, gd.z,
+              torch.full((gn,), intersect.INF, device=dev))
+
+    print(f"phase 11: K4 on the instanced frame's batches ({gn} primary "
+          "rays)", flush=True)
+    kt4, ktri4, kinst4, _, _ = k4.trace_kernel(tl, *g_prim, g_cfg.t_min,
+                                               True)
+    pt4, ptri4, pinst4, _, _ = k4.trace_plain(tl, *g_prim, g_cfg.t_min,
+                                              True)
+    torch.cuda.synchronize()
+    same4 = (ktri4 == ptri4) & (kinst4 == pinst4)
+    hit4 = same4 & (ktri4 >= 0)
+    rel4 = ((kt4 - pt4).abs() / pt4.abs().clamp(min=1e-6))[hit4]
+    k4c_err = float((kt4 - pt4)[hit4].abs().max())
+    sm.check(float(same4.float().mean()) >= 0.999,
+             f"closest tri + inst ids agree on "
+             f"{float(same4.float().mean()):.6f} of rays")
+    sm.check(float(rel4.max()) <= 1e-4,
+             f"closest t rel err {float(rel4.max()):.3g} where ids agree "
+             f"(max abs {k4c_err:.3g})")
+    sm.check(float(hit4.float().mean()) > 0.3,
+             f"{float(hit4.float().mean()):.3f} of primary rays hit")
+
+    g_sh = renderer.surface_hits(g_scene, tl, go, gd, g_cfg)
+    g_lb = renderer.light_batch(g_scene, g_sh.normal, g_sh.world_pos, g_cfg,
+                                ray_mask=g_sh.hit)
+    g_shadow = (g_lb.origin.x, g_lb.origin.y, g_lb.origin.z, g_lb.l.x,
+                g_lb.l.y, g_lb.l.z, g_lb.t_max)
+    gns = g_lb.t_max.shape[0]
+    kocc4 = k4.trace_kernel(tl, *g_shadow, g_cfg.t_min, False)
+    pocc4 = k4.trace_plain(tl, *g_shadow, g_cfg.t_min, False)
+    agree4 = float((kocc4 == pocc4).float().mean())
+    k4a_err = float((kocc4.float() - pocc4.float()).abs().max())
+    sm.check(agree4 >= 0.999, f"any-hit occlusion agrees on {agree4:.6f} "
+             f"of {gns} shadow rays "
+             f"({float(pocc4.float().mean()):.3f} occluded)")
+
+    gsub = torch.arange(0, gn, max(1, gn // 4096), device=dev)[:4096]
+    bt4, bi4, _, _ = intersect.closest_hit_bruteforce(
+        torch.stack([go.x, go.y, go.z], 1)[gsub],
+        torch.stack([gd.x, gd.y, gd.z], 1)[gsub],
+        g_scene.tri_v0, g_scene.tri_e1, g_scene.tri_e2, g_cfg.t_min)
+    for who, ids, inst, tt in (("kernel", ktri4, kinst4, kt4),
+                               ("plain", ptri4, pinst4, pt4)):
+        a = soup_agreement(ids[gsub], inst[gsub], tt[gsub], bi4, bt4,
+                           g_scene.tri_inst)
+        sm.check(a >= 0.999, f"closest {who} vs soup brute force on 4096 "
+                 f"rays (hit, instance, modulo ties): {a:.6f}")
+    gssub = torch.arange(0, gns, max(1, gns // 4096), device=dev)[:4096]
+    bocc4 = intersect.any_hit_bruteforce(
+        torch.stack(g_shadow[0:3], 1)[gssub],
+        torch.stack(g_shadow[3:6], 1)[gssub],
+        g_scene.tri_v0, g_scene.tri_e1, g_scene.tri_e2, g_cfg.t_min,
+        g_lb.t_max[gssub])
+    for who, occ in (("kernel", kocc4), ("plain", pocc4)):
+        a = float((occ[gssub] == bocc4).float().mean())
+        sm.check(a >= 0.999, f"any-hit {who} vs soup brute force on 4096 "
+                 f"rays: {a:.6f}")
+    del bt4, bi4, bocc4
+
+    print("phase 12: animated FrameLoop(two_level=True), 32 steps at "
+          "512x384", flush=True)
+    loop = FrameLoop(instance_grid_scene(), g_cfg, two_level=True,
+                     device=dev)
+    cam = Camera(**BENCH_CAM)
+    home = [inst.position for inst in loop.scene_obj.instances]
+
+    def move(f: int) -> None:
+        """Frame f lifts and turns sphere 1 + 8f (a different one each
+        frame)."""
+        idx = 1 + (8 * f) % 256
+        x, y, z = home[idx]
+        loop.set_instance_transform(idx, position=(x, y - 0.4, z),
+                                    rotation=(0.1 * f, 0.2 * f, 0.0))
+
+    for c in (k1.LAUNCHES, k4.LAUNCHES, shade_kernel.LAUNCHES):
+        for key in c:
+            c[key] = 0
+    for f in range(32):
+        move(f)
+        img = loop.step(cam)
+    torch.cuda.synchronize()
+    launches4 = {"k4_closest": k4.LAUNCHES["closest"],
+                 "k4_any_hit": k4.LAUNCHES["any_hit"],
+                 "brdf_light_major": shade_kernel.LAUNCHES["brdf_light_major"],
+                 "k1": k1.LAUNCHES["closest"] + k1.LAUNCHES["any_hit"]}
+    sm.check(launches4 == {"k4_closest": 32, "k4_any_hit": 32,
+                           "brdf_light_major": 32, "k1": 0},
+             f"launch counters {launches4}")
+    sm.check(tuple(img.shape) == (384, 512, 3)
+             and bool(torch.isfinite(img).all()),
+             f"frame {tuple(img.shape)} finite")
+    ref4 = renderer.render_frames(loop.scene, loop.accel, g_cams, 0, 1,
+                                  g_cfg, plain=True)[0]
+    p4 = psnr4(img, ref4)
+    sm.check(p4 > 45.0, f"last frame vs plain frame PSNR {p4:.2f}")
+    t0 = time.perf_counter()
+    soup = loop.scene_obj.build(dev)
+    soup_accel = lbvh.build_bvh_sah(soup, leaf_size=32)
+    torch.cuda.synchronize()
+    print(f"  soup SAH build {time.perf_counter() - t0:.2f} s, "
+          f"{soup.num_triangles} triangles", flush=True)
+    soup_img = renderer.render_frames(soup, soup_accel, g_cams, 0, 1,
+                                      g_cfg)[0]
+    p4s = psnr4(img, soup_img)
+    sm.check(p4s > 45.0, f"last frame vs soup frame (K1) PSNR {p4s:.2f}")
+
+    print("phase 13: one 1920x1080 two-level frame", flush=True)
+    loop.set_resolution(1920, 1080)
+    hd_cfg = loop.config
+    before = (dict(k4.LAUNCHES), dict(shade_kernel.LAUNCHES))
+    img_hd4 = loop.step(cam)
+    torch.cuda.synchronize()
+    sm.check(k4.LAUNCHES == {m: c + 1 for m, c in before[0].items()}
+             and shade_kernel.LAUNCHES["brdf_light_major"]
+             == before[1]["brdf_light_major"] + 1,
+             "1080p frame launched K4 closest, K4 any-hit and K2 once")
+    sm.check(tuple(img_hd4.shape) == (1080, 1920, 3)
+             and bool(torch.isfinite(img_hd4).all()), "1080p frame finite")
+    hd_cams = renderer.camera_arrays(cam, hd_cfg, dev)
+    ref_hd4 = renderer.render_frames(loop.scene, loop.accel, hd_cams, 0, 1,
+                                     hd_cfg, plain=True)[0]
+    p4hd = psnr4(img_hd4, ref_hd4)
+    sm.check(p4hd > 45.0, f"1080p frame vs plain frame PSNR {p4hd:.2f}")
+    del ref_hd4
+    soup_hd = renderer.render_frames(soup, soup_accel, hd_cams, 0, 1,
+                                     hd_cfg)[0]
+    p4hds = psnr4(img_hd4, soup_hd)
+    sm.check(p4hds > 45.0, f"1080p frame vs soup frame (K1) PSNR "
+             f"{p4hds:.2f}")
+    del soup_hd
+
+    print("phase 14: instanced times (CUDA events, median of 7)",
+          flush=True)
+    times.update({
+        "k4_closest": time_ms(lambda: k4.trace_kernel(
+            tl, *g_prim, g_cfg.t_min, True)),
+        "k4_any_hit": time_ms(lambda: k4.trace_kernel(
+            tl, *g_shadow, g_cfg.t_min, False)),
+        # The plain walk takes most of a second per call: 3 reps.
+        "k4_closest_plain": time_ms(lambda: k4.trace_plain(
+            tl, *g_prim, g_cfg.t_min, True), reps=3),
+        "k4_any_hit_plain": time_ms(lambda: k4.trace_plain(
+            tl, *g_shadow, g_cfg.t_min, False), reps=3),
+    })
+    nf = [0]
+
+    def refit_once():
+        move(nf[0] % 32)
+        nf[0] += 1
+
+    refit_ms = host_ms(refit_once)
+    loop.set_resolution(512, 384)
+    nl4 = g_scene.lights.shape[0]
+    rays4 = {"512x384": 512 * 384 * g_cfg.spp * (1 + nl4),
+             "1920x1080": 1920 * 1080 * g_cfg.spp * (1 + nl4)}
+    frame4 = {}
+    for size, (w, h) in (("512x384", (512, 384)),
+                         ("1920x1080", (1920, 1080))):
+        loop.set_resolution(w, h)
+        k = 8 if w == 512 else 1
+        still = time_ms(lambda: [loop.step(cam) for _ in range(k)],
+                        reps=5) / k
+        animated = time_ms(lambda: [(refit_once(), loop.step(cam))
+                                    for _ in range(k)], reps=5) / k
+        frame4[size] = {"ms_per_frame": still,
+                        "mrays_per_s": rays4[size] / still / 1e3,
+                        "animated_ms_per_frame": animated,
+                        "animated_mrays_per_s": rays4[size] / animated / 1e3}
+    for key in ("k4_closest", "k4_closest_plain", "k4_any_hit",
+                "k4_any_hit_plain"):
+        print(f"  {key}: {times[key]:.4f} ms", flush=True)
+    print(f"  refit (set_instance_transform, host clock): {refit_ms:.4f} ms",
+          flush=True)
+    for size, v in frame4.items():
+        print(f"  instanced frame {size}: {v['ms_per_frame']:.4f} ms/frame, "
+              f"{v['mrays_per_s']:.2f} Mray/s; with a refit per frame "
+              f"{v['animated_ms_per_frame']:.4f} ms/frame, "
+              f"{v['animated_mrays_per_s']:.2f} Mray/s", flush=True)
+
     kernels = [
         {"name": "bvh8_trace_closest", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["closest"],
@@ -314,6 +564,14 @@ def main() -> int:
          "replaces": K2_REPLACES, "launches": launches["brdf_light_major"],
          "max_abs_err": k2_err, "ms": times["k2"],
          "plain_ms": times["k2_plain"]},
+        {"name": "tlas8_trace_closest", "route": "cuda", "source": K4_SOURCE,
+         "replaces": K4_REPLACES, "launches": launches4["k4_closest"],
+         "max_abs_err": k4c_err, "ms": times["k4_closest"],
+         "plain_ms": times["k4_closest_plain"]},
+        {"name": "tlas8_trace_any_hit", "route": "cuda", "source": K4_SOURCE,
+         "replaces": K4_REPLACES, "launches": launches4["k4_any_hit"],
+         "max_abs_err": k4a_err, "ms": times["k4_any_hit"],
+         "plain_ms": times["k4_any_hit_plain"]},
     ]
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} check(s) failed: "

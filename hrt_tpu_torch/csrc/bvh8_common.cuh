@@ -1,0 +1,98 @@
+// Shared pieces of the BVH8 walks (K1 bvh8_trace.cu, K4 tlas8_trace.cu):
+// the ray with its slab-test terms, the record decode and slab test of
+// one child slot, and Möller-Trumbore over the (T, 12) v0|e1|e2|pad
+// triangle table.  Both walks run exactly this arithmetic.
+//
+// Record layout (hrt_tpu_torch/ops/wide8.py): child j of wide node q is
+// the 8 int32 words at (q / 16) * 1024 + j * 128 + (q % 16) * 8: six box
+// floats as bits, the meta word (> 0 leaf payload + 1, < 0 internal of
+// rank -(meta + 1), 0 empty), and on slot 0 the id of the node's first
+// internal child.  Slots are leaf-first, then internal, then empty.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace hrt {
+
+constexpr int kRowWords = 1024;   // 16 nodes x 8 slots x 8 words
+constexpr int kSlotWords = 128;
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float ix, iy, iz, oix, oiy, oiz;
+};
+
+__device__ __forceinline__ float safe_inv(float c) {
+  const float tiny = 1e-20f;
+  float s = fabsf(c) < tiny ? (c < 0.0f ? -tiny : tiny) : c;
+  return 1.0f / s;
+}
+
+__device__ __forceinline__ void set_ray(Ray& r, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz) {
+  r.ox = ox; r.oy = oy; r.oz = oz;
+  r.dx = dx; r.dy = dy; r.dz = dz;
+  r.ix = safe_inv(dx); r.iy = safe_inv(dy); r.iz = safe_inv(dz);
+  r.oix = ox * r.ix; r.oiy = oy * r.iy; r.oiz = oz * r.iz;
+}
+
+// The 8 words of node q, slot 0.
+__device__ __forceinline__ const int* node_ptr(const int* rec, int q) {
+  return rec + (q >> 4) * kRowWords + (q & 15) * 8;
+}
+
+// Child slot j of `node`: two 16-byte loads of its record words.  Returns
+// its meta word; `hit` says whether the ray's segment (t_min, t) meets
+// the child's box (exact per-ray slab test).
+__device__ __forceinline__ int child_test(const int* node, int j,
+                                          const Ray& r, float t_min,
+                                          float t, bool& hit) {
+  const int4* w = reinterpret_cast<const int4*>(node + j * kSlotWords);
+  const int4 w0 = __ldg(w);
+  const int4 w1 = __ldg(w + 1);
+  const float tx0 = __int_as_float(w0.x) * r.ix - r.oix;
+  const float ty0 = __int_as_float(w0.y) * r.iy - r.oiy;
+  const float tz0 = __int_as_float(w0.z) * r.iz - r.oiz;
+  const float tx1 = __int_as_float(w0.w) * r.ix - r.oix;
+  const float ty1 = __int_as_float(w1.x) * r.iy - r.oiy;
+  const float tz1 = __int_as_float(w1.y) * r.iz - r.oiz;
+  const float t_near =
+      fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+            fmaxf(fminf(tz0, tz1), t_min));
+  const float t_far =
+      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+            fminf(fmaxf(tz0, tz1), t));
+  hit = t_near <= t_far;
+  return w1.z;
+}
+
+// Möller-Trumbore, term for term as hrt_tpu/ops/traversal_pallas.py
+// `_moller`: |det| > 1e-12, u, v >= 0, u + v <= 1, t_min < t < t_limit.
+__device__ __forceinline__ bool moller(const float4* tri, const Ray& r,
+                                       float t_min, float t_limit,
+                                       float& t, float& u, float& v) {
+  const float4 a = __ldg(tri);
+  const float4 b = __ldg(tri + 1);
+  const float4 c = __ldg(tri + 2);
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool ok = fabsf(det) > 1e-12f;
+  const float inv_det = ok ? 1.0f / det : 0.0f;
+  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+  u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min &&
+         t < t_limit;
+}
+
+}  // namespace hrt

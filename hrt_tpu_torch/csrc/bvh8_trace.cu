@@ -15,57 +15,17 @@
 // so neighbours in a warp are neighbours on screen and mostly walk the
 // same nodes.
 //
-// Record layout (hrt_tpu_torch/ops/wide8.py): child j of wide node q is
-// the 8 int32 words at (q / 16) * 1024 + j * 128 + (q % 16) * 8: six box
-// floats as bits, the meta word (> 0 leaf tri_start + 1, < 0 internal of
-// rank -(meta + 1), 0 empty), and on slot 0 the id of the node's first
-// internal child.  Slots are leaf-first, then internal, then empty.
+// Record decode, slab test and Möller-Trumbore: bvh8_common.cuh, shared
+// with K4 (tlas8_trace.cu).
 #include <cuda_runtime.h>
+
+#include "bvh8_common.cuh"
 
 namespace {
 
-constexpr int kRowWords = 1024;   // 16 nodes x 8 slots x 8 words
-constexpr int kSlotWords = 128;
+using hrt::Ray;
+
 constexpr int kThreads = 128;
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-  float ix, iy, iz, oix, oiy, oiz;
-};
-
-__device__ __forceinline__ float safe_inv(float c) {
-  const float tiny = 1e-20f;
-  float s = fabsf(c) < tiny ? (c < 0.0f ? -tiny : tiny) : c;
-  return 1.0f / s;
-}
-
-// Möller-Trumbore, term for term as hrt_tpu/ops/traversal_pallas.py
-// `_moller`: |det| > 1e-12, u, v >= 0, u + v <= 1, t_min < t < t_limit.
-__device__ __forceinline__ bool moller(const float4* tri, const Ray& r,
-                                       float t_min, float t_limit,
-                                       float& t, float& u, float& v) {
-  const float4 a = __ldg(tri);
-  const float4 b = __ldg(tri + 1);
-  const float4 c = __ldg(tri + 2);
-  const float v0x = a.x, v0y = a.y, v0z = a.z;
-  const float e1x = a.w, e1y = b.x, e1z = b.y;
-  const float e2x = b.z, e2y = b.w, e2z = c.x;
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const bool ok = fabsf(det) > 1e-12f;
-  const float inv_det = ok ? 1.0f / det : 0.0f;
-  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-  u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min &&
-         t < t_limit;
-}
 
 template <int STACK, bool CLOSEST>
 __global__ void __launch_bounds__(kThreads)
@@ -82,10 +42,7 @@ bvh8_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray r;
-  r.ox = ox[i]; r.oy = oy[i]; r.oz = oz[i];
-  r.dx = dx[i]; r.dy = dy[i]; r.dz = dz[i];
-  r.ix = safe_inv(r.dx); r.iy = safe_inv(r.dy); r.iz = safe_inv(r.dz);
-  r.oix = r.ox * r.ix; r.oiy = r.oy * r.iy; r.oiz = r.oz * r.iz;
+  hrt::set_ray(r, ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
   float t = tmax[i];
   int best = -1;
   float bu = 0.0f, bv = 0.0f;
@@ -101,28 +58,14 @@ bvh8_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
       const int rem = mask ^ low;
       if (rem) stack[sp++] = (base_e << 8) | rem;
       const int cur = base_e + __ffs(low) - 1;
-      const int* node = rec + (cur >> 4) * kRowWords + (cur & 15) * 8;
+      const int* node = hrt::node_ptr(rec, cur);
       const int first_child = __ldg(node + 7);
       int int_mask = 0;
       for (int j = 0; j < 8; ++j) {
-        const int4* w = reinterpret_cast<const int4*>(node + j * kSlotWords);
-        const int4 w0 = __ldg(w);
-        const int4 w1 = __ldg(w + 1);
-        const int meta = w1.z;
+        bool hit;
+        const int meta = hrt::child_test(node, j, r, t_min, t, hit);
         if (meta == 0) break;  // empties are last
-        const float tx0 = __int_as_float(w0.x) * r.ix - r.oix;
-        const float ty0 = __int_as_float(w0.y) * r.iy - r.oiy;
-        const float tz0 = __int_as_float(w0.z) * r.iz - r.oiz;
-        const float tx1 = __int_as_float(w0.w) * r.ix - r.oix;
-        const float ty1 = __int_as_float(w1.x) * r.iy - r.oiy;
-        const float tz1 = __int_as_float(w1.y) * r.iz - r.oiz;
-        const float t_near =
-            fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                  fmaxf(fminf(tz0, tz1), t_min));
-        const float t_far =
-            fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                  fminf(fmaxf(tz0, tz1), t));
-        if (!(t_near <= t_far)) continue;
+        if (!hit) continue;
         if (meta < 0) {
           int_mask |= 1 << (-meta - 1);
           continue;
@@ -130,7 +73,7 @@ bvh8_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
         const float4* tp = tris + static_cast<size_t>(meta - 1) * 3;
         for (int k = 0; k < leaf_size; ++k) {
           float th, uh, vh;
-          if (moller(tp + 3 * k, r, t_min, t, th, uh, vh)) {
+          if (hrt::moller(tp + 3 * k, r, t_min, t, th, uh, vh)) {
             best = meta - 1 + k;
             if (!CLOSEST) goto done;  // any hit: first hit retires the ray
             t = th; bu = uh; bv = vh;

@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels of `hrt_tpu_torch/csrc/`.
 
-All `csrc/*.cu` files compile in one nvcc call into a shared library
-with a plain C interface, loaded with ctypes:
+Every `csrc/*.cu` file compiles to an object in its own nvcc process,
+all started together, and one more nvcc call links them into a shared
+library with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o _build/libhrt_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<file>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 The library lands in the package's `_build/` directory under a name
 keyed by a hash of the sources and flags, so a changed source rebuilds
@@ -26,8 +28,9 @@ import subprocess
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lib: ctypes.CDLL | None = None
 
@@ -57,11 +60,13 @@ def lib_path() -> str:
     return os.path.join(BUILD_DIR, f"libhrt_kernels-{h.hexdigest()[:16]}.so")
 
 
-def build_once(path: str, argv_for, what: str, timeout: int) -> None:
-    """Build `path` with the command `argv_for(tmp)` (which must write
-    `tmp`) unless it exists, under a lock so that parallel processes
-    build it once.  The command's stderr is kept beside it as
-    `<name>.log`.  Raises with that stderr if the command fails."""
+def build_once(path: str, stages_for, what: str, timeout: int) -> None:
+    """Build `path` unless it exists, under a lock so that parallel
+    processes build it once.  `stages_for(tmp)` gives the build as a
+    list of stages, each a list of commands that run at the same time;
+    the last stage must write `tmp`.  The commands' stderr is kept
+    beside `path` as `<name>.log`.  Raises with a failed command's
+    stderr."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
     lock_path = os.path.join(os.path.dirname(path), ".build.lock")
     with open(lock_path, "w") as lock:
@@ -69,13 +74,25 @@ def build_once(path: str, argv_for, what: str, timeout: int) -> None:
         if os.path.exists(path):
             return
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run(argv_for(tmp), capture_output=True,
-                              text=True, timeout=timeout)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{what} failed ({proc.returncode}):\n"
-                               f"{proc.stderr}")
+        log = []
+        for stage in stages_for(tmp):
+            procs = [subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for argv in stage]
+            try:
+                outs = [p.communicate(timeout=timeout) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for p, (_, err) in zip(procs, outs):
+                log.append(err)
+                if p.returncode != 0:
+                    raise RuntimeError(f"{what} failed ({p.returncode}):\n"
+                                       f"{err}")
         with open(os.path.splitext(path)[0] + ".log", "w") as f:
-            f.write(proc.stderr)
+            f.write("".join(log))
         os.replace(tmp, path)
 
 
@@ -84,8 +101,19 @@ def build() -> str:
     missing; returns its path."""
     path = lib_path()
     cu = [s for s in _sources() if s.endswith(".cu")]
-    build_once(path, lambda tmp: [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *cu],
-               "nvcc", timeout=900)
+    nvcc = nvcc_path()
+
+    def stages(tmp):
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in cu]
+        return [[[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                 for src, obj in zip(cu, objs)],
+                [[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]]]
+
+    try:
+        build_once(path, stages, "nvcc", timeout=900)
+    finally:
+        for leftover in glob.glob(f"{path}.*.tmp.*.o"):
+            os.remove(leftover)
     return path
 
 
@@ -99,6 +127,10 @@ def load() -> ctypes.CDLL:
     cdll.hrt_bvh8_trace.restype = i
     cdll.hrt_bvh8_trace.argtypes = [p] * 7 + [i, p, p, i, ctypes.c_float,
                                               i, i] + [p] * 5 + [p]
+    cdll.hrt_tlas8_trace.restype = i
+    cdll.hrt_tlas8_trace.argtypes = [p] * 7 + [i, p, p, p, p, i, i,
+                                               ctypes.c_float, i, i] \
+        + [p] * 6 + [p]
     cdll.hrt_brdf_light_major.restype = i
     cdll.hrt_brdf_light_major.argtypes = [p, p, p, i, i, p, p]
     cdll.hrt_cuda_error_string.restype = ctypes.c_char_p

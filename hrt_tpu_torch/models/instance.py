@@ -41,6 +41,16 @@ class MeshInstance:
         return trs_matrix(self.position, self.rotation, self.scale)
 
     @property
+    def inverse_transform(self) -> np.ndarray:
+        """Row-major 3x4 world->object transform."""
+        m = self.transform
+        inv = np.zeros((3, 4), np.float32)
+        inv_a = np.linalg.inv(m[:, :3])
+        inv[:, :3] = inv_a
+        inv[:, 3] = -inv_a @ m[:, 3]
+        return inv
+
+    @property
     def normal_matrix(self) -> np.ndarray:
         """Inverse-transpose of the linear part, for normals."""
         return np.linalg.inv(self.transform[:, :3]).T.astype(np.float32)

@@ -196,3 +196,29 @@ def bench_scene() -> Scene:
     sc.create_instance(sphere, white, (-2.0, 0.5, 1.0), scale=(0.5,) * 3)
     sc.create_instance(sphere, metal, (2.0, 0.5, -1.0), scale=(0.5,) * 3)
     return sc
+
+
+def instance_grid_scene(n: int = 16) -> Scene:
+    """The instanced scene the JAX package benchmarks as
+    `instanced_tlas_512x384` (scripts/bench_full.py `_instance_grid`):
+    an n x n grid of randomly rotated and scaled icosphere instances
+    (320 triangles, RandomState(7)) on a ground plane, one point light."""
+    from .mesh import icosphere, plane
+
+    sc = Scene()
+    sph = sc.add_mesh(icosphere(2))
+    gnd = sc.add_mesh(plane(30.0))
+    white = sc.create_material((0.8, 0.8, 0.8), 0.0, 0.8)
+    metal = sc.create_material((0.9, 0.7, 0.3), 1.0, 0.15)
+    sc.create_light((0.0, -6.0, -2.0), (1.0, 1.0, 1.0), 60.0)
+    sc.create_instance(gnd, white, (0.0, 1.0, 0.0))
+    rs = np.random.RandomState(7)
+    for i in range(n):
+        for j in range(n):
+            s = 0.25 + 0.15 * rs.rand()
+            sc.create_instance(
+                sph, metal if (i + j) % 2 else white,
+                (1.2 * (i - n / 2), 0.5, 1.2 * (j - n / 2)),
+                rotation=tuple(rs.uniform(0, 3.14, 3)),
+                scale=(s, s, s))
+    return sc

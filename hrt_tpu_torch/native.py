@@ -39,7 +39,7 @@ def lib() -> ctypes.CDLL:
         return _lib
     path = _lib_path()
     build.build_once(
-        path, lambda tmp: ["make", "-C", _NATIVE_DIR, f"TARGET={tmp}"],
+        path, lambda tmp: [[["make", "-C", _NATIVE_DIR, f"TARGET={tmp}"]]],
         "building the native SAH library", timeout=300)
     cdll = ctypes.CDLL(path)
     cdll.sah_build.restype = ctypes.c_int

@@ -1,5 +1,9 @@
-"""The direct-lighting frame: raygen -> closest hit (K1) -> attribute
-gather + sky -> Disney BRDF (K2) + shadow any-hit (K1) -> accumulate.
+"""The direct-lighting frame: raygen -> closest hit -> attribute
+gather + sky -> Disney BRDF (K2) + shadow any-hit -> accumulate.
+
+The accel is either the single-level BVH8 Accel (ops/lbvh.py), traced
+by K1, or the two-level TwoLevelFlat (ops/tlas.py), traced by K4 and
+shaded through the hit instance's normal matrix and material.
 
 The subset of hrt_tpu/renderer.py that the benchmark frame runs
 (`max_depth=1`, no jitter, one shadow ray per light), in plain PyTorch
@@ -25,9 +29,10 @@ from .models.lights import process_light_one
 from .models.materials import MatP
 from .models.scene import Scene, SceneData
 from .models.sky import eval_sky_p
-from .ops import shade_kernel, traversal, v3
+from .ops import shade_kernel, tlas, traversal, v3
 from .ops.intersect import INF
 from .ops.lbvh import ATTR_MAT, Accel
+from .ops.tlas import TwoLevelFlat
 from .ops.v3 import V3
 
 
@@ -97,11 +102,12 @@ def light_batch(scene: SceneData, n: V3, world_pos: V3,
         color=cols, intensity=ints)
 
 
-def direct_lighting_p(scene: SceneData, accel: Accel, mat: MatP, n: V3,
+def direct_lighting_p(scene: SceneData, accel, mat: MatP, n: V3,
                       view: V3, world_pos: V3, config: RenderConfig,
                       ray_mask=None, plain: bool = False) -> V3:
     """Direct light at the hit points: the BRDF of all lights in one K2
-    call, all shadow rays in one light-major K1 any-hit call."""
+    call, all shadow rays in one light-major any-hit call (K1, or K4 for
+    a two-level accel)."""
     num_lights = scene.lights.shape[0]
     if num_lights == 0:
         return _zero3(n.x)
@@ -109,8 +115,13 @@ def direct_lighting_p(scene: SceneData, accel: Accel, mat: MatP, n: V3,
     brdf = (shade_kernel.brdf_light_major_plain if plain
             else shade_kernel.brdf_light_major)
     f_lm = brdf(mat, n, view, lb.l, lb.relevant, num_lights)
-    occluded = traversal.any_hit_bvh_p(scene, accel, lb.origin, lb.l,
-                                       config.t_min, lb.t_max, plain=plain)
+    if isinstance(accel, TwoLevelFlat):
+        occluded = tlas.any_hit_tlas(accel, lb.origin, lb.l, config.t_min,
+                                     lb.t_max, plain=plain)
+    else:
+        occluded = traversal.any_hit_bvh_p(scene, accel, lb.origin, lb.l,
+                                           config.t_min, lb.t_max,
+                                           plain=plain)
     nr = n.x.shape[0]
     out = _zero3(n.x)
     for i in range(num_lights):
@@ -132,28 +143,36 @@ class SurfaceHits(NamedTuple):
     view: V3
 
 
-def surface_hits(scene: SceneData, accel: Accel, o: V3, d: V3,
+def surface_hits(scene: SceneData, accel, o: V3, d: V3,
                  config: RenderConfig, plain: bool = False) -> SurfaceHits:
-    """Closest hit (K1) and the attribute gather by leaf-pool id."""
-    t, tri, u, v = traversal.closest_hit_bvh_p(
-        scene, accel, o, d, config.t_min, INF, sorted_ids=True,
-        plain=plain)
-    nrm, mat = _shade_attrs_p(accel.attr, tri, u, v)
+    """Closest hit and the attribute gather: by leaf-pool id from the
+    Accel's table (K1), or by global pool id and instance from the
+    TwoLevelFlat (K4)."""
+    if isinstance(accel, TwoLevelFlat):
+        t, tri, inst, u, v = tlas.closest_hit_tlas(
+            accel, o, d, config.t_min, INF, plain=plain)
+        nrm, mat = tlas.shade_attrs_tlas(accel, scene.materials, tri,
+                                         inst, u, v)
+    else:
+        t, tri, u, v = traversal.closest_hit_bvh_p(
+            scene, accel, o, d, config.t_min, INF, sorted_ids=True,
+            plain=plain)
+        nrm, mat = _shade_attrs_p(accel.attr, tri, u, v)
     view = -d
     entering = v3.dot(nrm, view) >= 0.0
     nrm = v3.where(entering, nrm, -nrm)
     return SurfaceHits(t, tri >= 0, nrm, mat, o + d * t, view)
 
 
-def trace_paths(scene: SceneData, accel: Accel, o: V3, d: V3,
+def trace_paths(scene: SceneData, accel, o: V3, d: V3,
                 config: RenderConfig, plain: bool = False) -> V3:
     """Radiance of one camera ray batch at depth 0: sky on a miss,
     direct light plus emission on a hit."""
     require_slice(config)
-    if not isinstance(accel, Accel):
+    if not isinstance(accel, (Accel, TwoLevelFlat)):
         raise NotImplementedError(
-            "only the single-level BVH8 Accel is ported (no two-level "
-            "accels, no brute-force frame path)")
+            "only the single-level BVH8 Accel and the two-level "
+            "TwoLevelFlat are ported (no brute-force frame path)")
     if scene.textures is not None and scene.textures.shape[0] > 0:
         raise NotImplementedError("textured scenes are not ported yet")
     radiance = _zero3(o.x)
@@ -182,7 +201,7 @@ def primary_rays(cam: CameraArrays, rows: int, y0: int,
                                   cam.aspect, w, config.height, px, py)
 
 
-def render_rows(scene: SceneData, accel: Accel, cam: CameraArrays,
+def render_rows(scene: SceneData, accel, cam: CameraArrays,
                 y0: int, rows: int, config: RenderConfig,
                 plain: bool = False, _rays=None) -> torch.Tensor:
     """Render rows [y0, y0 + rows) -> (rows, W, 3) linear radiance.
@@ -196,7 +215,7 @@ def render_rows(scene: SceneData, accel: Accel, cam: CameraArrays,
     return img.reshape(rows, config.width, 3)
 
 
-def render_frames(scene: SceneData, accel: Accel, cam: CameraArrays,
+def render_frames(scene: SceneData, accel, cam: CameraArrays,
                   frame0: int, k: int, config: RenderConfig,
                   plain: bool = False) -> torch.Tensor:
     """Render k consecutive frames -> (k, H, W, 3).  The frame index only
@@ -209,11 +228,13 @@ def render_frames(scene: SceneData, accel: Accel, cam: CameraArrays,
         for _ in range(k)])
 
 
-def render(scene_obj, cam: Camera, config: RenderConfig, accel: Accel,
+def render(scene_obj, cam: Camera, config: RenderConfig, accel,
            frame: int = 0, plain: bool = False):
     """Host entry: build the scene on the accel's device if needed and
-    render one frame -> (H, W, 3) numpy array."""
-    device = accel.w8.device
+    render one frame -> (H, W, 3) numpy array.  `accel` is an Accel or
+    a TwoLevelFlat."""
+    device = (accel.device if isinstance(accel, TwoLevelFlat)
+              else accel.w8.device)
     scene = (scene_obj.build(device) if isinstance(scene_obj, Scene)
              else scene_obj)
     cams = camera_arrays(cam, config, device)

@@ -13,8 +13,9 @@ from hrt_tpu_torch import renderer
 from hrt_tpu_torch.config import RenderConfig
 from hrt_tpu_torch.models.camera import Camera
 from hrt_tpu_torch.models.materials import MatP
-from hrt_tpu_torch.models.scene import bench_scene
-from hrt_tpu_torch.ops import lbvh, shade_kernel, traversal_wide8
+from hrt_tpu_torch.models.scene import bench_scene, instance_grid_scene
+from hrt_tpu_torch.ops import (lbvh, shade_kernel, tlas, traversal_tlas8,
+                               traversal_wide8)
 from hrt_tpu_torch.ops.intersect import (any_hit_bruteforce,
                                          closest_hit_bruteforce)
 from hrt_tpu_torch.ops.v3 import V3
@@ -122,3 +123,88 @@ def test_kernel_frame_matches_plain_frame(cuda):
     assert img.shape == (2, 192, 256, 3) and torch.isfinite(img).all()
     assert psnr(img[0].clamp(0, 4).cpu().numpy(),
                 ref[0].clamp(0, 4).cpu().numpy(), peak=4.0) > 45.0
+
+
+def _instanced_scene():
+    """Four transformed instances of two meshes (the JAX package's
+    test_tlas scene)."""
+    from hrt_tpu_torch.models.mesh import icosphere, plane
+    from hrt_tpu_torch.models.scene import Scene
+
+    sc = Scene()
+    sph = sc.add_mesh(icosphere(2))
+    gnd = sc.add_mesh(plane(6.0))
+    m0 = sc.create_material((0.8, 0.8, 0.8), 0.0, 0.8)
+    m1 = sc.create_material((0.9, 0.6, 0.2), 1.0, 0.2)
+    sc.create_light((0.0, -4.0, -2.0), (1.0, 1.0, 1.0), 25.0)
+    sc.create_instance(gnd, m0, (0.0, 1.0, 0.0))
+    sc.create_instance(sph, m1, (0.0, 0.0, 0.0))
+    sc.create_instance(sph, m0, (-1.8, 0.3, 1.0),
+                       rotation=(0.3, 1.1, -0.4), scale=(0.6, 0.6, 0.6))
+    sc.create_instance(sph, m1, (1.7, 0.4, -0.8),
+                       rotation=(0.0, 0.7, 0.2), scale=(0.5, 0.9, 0.5))
+    return sc
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_tlas8_kernel_matches_plain_and_bruteforce(cuda, closest):
+    sc = _instanced_scene()
+    scene = sc.build(cuda)
+    tl = tlas.build_two_level_flat(sc, 32, device=cuda)
+    o, d = _rays(5, 4096, cuda)
+    tmax = torch.full((4096,), 1e32 if closest else 4.0, device=cuda)
+    tmax[::17] = -1.0                                   # dead rays
+    planes = (*o.T.contiguous(), *d.T.contiguous(), tmax)
+    mode = "closest" if closest else "any_hit"
+    before = traversal_tlas8.LAUNCHES[mode]
+    k = traversal_tlas8.trace_kernel(tl, *planes, 1e-3, closest)
+    p = traversal_tlas8.trace_plain(tl, *planes, 1e-3, closest)
+    torch.cuda.synchronize()
+    assert traversal_tlas8.LAUNCHES[mode] == before + 1
+    if closest:
+        kt, ktri, kinst = k[0], k[1], k[2]
+        assert (ktri == p[1]).float().mean().item() >= 0.999
+        assert (kinst == p[2]).float().mean().item() >= 0.999
+        same = (ktri == p[1]) & (ktri >= 0)
+        torch.testing.assert_close(kt[same], p[0][same], rtol=1e-4,
+                                   atol=1e-5)
+        assert (ktri[::17] == -1).all() and (kinst[::17] == -1).all()
+        bt, bi, _, _ = closest_hit_bruteforce(
+            o, d, scene.tri_v0, scene.tri_e1, scene.tri_e2, 1e-3, tmax)
+        assert ((ktri >= 0) == (bi >= 0)).float().mean().item() >= 0.999
+        both = (ktri >= 0) & (bi >= 0)
+        torch.testing.assert_close(kt[both], bt[both], rtol=2e-4,
+                                   atol=2e-5)
+        # Instance ids through the soup's per-triangle instance table,
+        # up to coincident-surface ties.
+        oracle = scene.tri_inst[bi.clamp(min=0).long()]
+        assert (kinst[both] == oracle[both]).float().mean().item() > 0.995
+    else:
+        assert (k == p).float().mean().item() >= 0.999
+        assert not k[::17].any()
+        bocc = any_hit_bruteforce(o, d, scene.tri_v0, scene.tri_e1,
+                                  scene.tri_e2, 1e-3, tmax)
+        assert (k == bocc).float().mean().item() >= 0.999
+
+
+def test_two_level_frame_matches_plain_and_soup(cuda):
+    from hrt_tpu_torch.frameloop import FrameLoop
+
+    cfg = RenderConfig(width=256, height=192, max_depth=1, sky=True)
+    loop = FrameLoop(instance_grid_scene(), cfg, two_level=True,
+                     device=cuda)
+    cam = Camera(**BENCH_CAM)
+    loop.set_instance_transform(5, position=(0.0, 0.0, -1.0))
+    before = dict(traversal_tlas8.LAUNCHES)
+    img = loop.step(cam)
+    assert traversal_tlas8.LAUNCHES == {m: c + 1 for m, c in before.items()}
+    cams = renderer.camera_arrays(cam, cfg, cuda)
+    ref = renderer.render_frames(loop.scene, loop.accel, cams, 0, 1, cfg,
+                                 plain=True)[0]
+    soup = loop.scene_obj.build(cuda)
+    soup_img = renderer.render_frames(
+        soup, lbvh.build_bvh_sah(soup, leaf_size=32), cams, 0, 1, cfg)[0]
+    assert img.shape == (192, 256, 3) and torch.isfinite(img).all()
+    for other in (ref, soup_img):
+        assert psnr(img.clamp(0, 4).cpu().numpy(),
+                    other.clamp(0, 4).cpu().numpy(), peak=4.0) > 45.0

@@ -31,15 +31,20 @@ def _planes(o, d, tmax):
 
 
 def _jax_wide8(monkeypatch, accel, o, d, tmax, closest):
+    """The JAX wide8 kernel in interpret mode, walking 8-row (1024-ray)
+    tiles: its compile on the CPU grows with the tile's rows (~70 s per
+    mode at the default 64, ~10 s at 8)."""
     monkeypatch.setenv("HRT_WIDE8_CPU", "1")
     monkeypatch.setattr(tp, "WIDE8", True)
     assert tp.use_wide8(accel)
-    if closest:
-        return [np.asarray(a) for a in tp.closest_hit(
-            None, accel, jnp.asarray(o), jnp.asarray(d), 1e-3,
-            jnp.asarray(tmax), sorted_ids=True)]
-    return np.asarray(tp.any_hit(None, accel, jnp.asarray(o),
-                                 jnp.asarray(d), 1e-3, jnp.asarray(tmax)))
+    with tp.walk_rows(8):
+        if closest:
+            return [np.asarray(a) for a in tp.closest_hit(
+                None, accel, jnp.asarray(o), jnp.asarray(d), 1e-3,
+                jnp.asarray(tmax), sorted_ids=True)]
+        return np.asarray(tp.any_hit(None, accel, jnp.asarray(o),
+                                     jnp.asarray(d), 1e-3,
+                                     jnp.asarray(tmax)))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
