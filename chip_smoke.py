@@ -4,12 +4,18 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from hrt_tpu_torch/csrc/, then drives the
-port's two paths.  The bench frame: the bench scene (three icospheres + ground plane, two
-point lights), SAH build with 32-triangle leaves and its BVH8 records,
-and `render_frames` of 32 frames at 512x384 (max_depth=1, sky on), plus
-one 1920x1080 frame.  The instanced frame: the JAX package's
-`instanced_tlas_512x384` scene through FrameLoop(two_level=True), the
-two-level build and K4, animated.  Phases:
+port's four paths.  The bench frame: the bench scene (three icospheres +
+ground plane, two point lights), SAH build with 32-triangle leaves and
+its BVH8 records, and `render_frames` of 32 frames at 512x384
+(max_depth=1, sky on), plus one 1920x1080 frame.  The instanced frame:
+the JAX package's `instanced_tlas_512x384` scene through
+FrameLoop(two_level=True), the two-level build and K4, animated.  The
+culled frame: the same grid flattened to one soup in a FrameLoop with
+the default culling, rebuilt with the LBVH on the card as the orbiting
+camera changes which instances show, traced by K3.  The instance forest:
+a 182x182 grid (33,125 instances) whose unified BVH8 table would pass
+MAX_WIDE_NODES, so its build makes the binary two-level tables, traced
+by K5, animated.  Phases:
 
   1. device facts (name, nvidia-smi power limit)
   2. kernel build, timed
@@ -37,6 +43,29 @@ two-level build and K4, animated.  Phases:
  13. one 1920x1080 two-level frame, same checks
  14. CUDA-event times (median of 7): K4 vs its plain version at the
      512x384 shapes, one refit, ms/frame and Mray/s at both sizes
+ 15. the culled FrameLoop (default cull_threshold_px) over the 16x16 grid
+     soup: 32 steps at 512x384 along orbit_camera(0.15 f, radius 4,
+     height -1), the visible count per frame, >= 2 LBVH rebuilds; the
+     launch counters must show 32 K3 closest, 32 K3 any-hit, 32 K2 and
+     no K1 launch; the card's LBVH bit-equal to the CPU's; K3 vs its
+     plain version on the last frame's batches and both vs brute force
+     over the masked soup; the last frame vs the plain-path frame and vs
+     the K1 frame of a SAH build over the same mask
+ 16. one culled 1920x1080 frame, same checks
+ 17. the instance forest (instance_grid_scene(182)): two-level build on
+     the binary route, timed; K5 vs its plain version on the 512x384
+     frame's batches, and vs K4 on the same scene built with a raised
+     wide bound; 8 steps, each after moving another sphere (the binary
+     TLAS rebuilt on the card, timed); the launch counters must show 8
+     K5 closest, 8 K5 any-hit, 8 K2 and no K4 launch; the last frame vs
+     the K4 frame and vs the plain-path frame
+ 18. one 1920x1080 forest frame: K5 and K2 launched once each, finite,
+     vs the K4 frame
+ 19. times: K3 and K5 vs their plain versions (CUDA events, median of
+     7; 3 for the plain walks), the LBVH rebuild, and ms/frame and Mray/s
+     of the culled frame (still, and along the orbit with its rebuilds)
+     and of the forest frame (still, and with a refit per frame), at both
+     sizes
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails.  The line before the last is the kernels JSON; the last is
@@ -59,6 +88,10 @@ K2_SOURCE = "hrt_tpu_torch/csrc/brdf_light_major.cu"
 K2_REPLACES = "hrt_tpu/ops/shade_pallas.py:98"
 K4_SOURCE = "hrt_tpu_torch/csrc/tlas8_trace.cu"
 K4_REPLACES = "hrt_tpu/ops/traversal_tlas8.py:438"
+K3_SOURCE = "hrt_tpu_torch/csrc/skip_trace.cu"
+K3_REPLACES = "hrt_tpu/ops/traversal_pallas.py:522"
+K5_SOURCE = "hrt_tpu_torch/csrc/tlas_skip_trace.cu"
+K5_REPLACES = "hrt_tpu/ops/tlas.py:538"
 
 
 class Smoke:
@@ -121,6 +154,64 @@ def soup_agreement(ids, inst, t, bi, bt, tri_inst) -> float:
     tie = hit & bhit & ((t - bt).abs() <= 1e-5 * bt.abs())
     ok = (hit == bhit) & (~bhit | (inst == oracle) | tie)
     return float(ok.float().mean())
+
+
+def reset(*counters) -> None:
+    for c in counters:
+        for key in c:
+            c[key] = 0
+
+
+def check_closest(sm: Smoke, label: str, k, p) -> float:
+    """Closest hits of a kernel `k` against another walk `p`, as tuples
+    (t, tri, u, v) or (t, tri, inst, u, v): ids (and instance ids) agree
+    on >= 0.999 of rays and t within rel err 1e-4 where they do.
+    Returns the max abs t error there."""
+    same = k[1] == p[1]
+    if len(k) == 5:
+        same &= k[2] == p[2]
+    hit = same & (k[1] >= 0)
+    share, hits = float(same.float().mean()), float(hit.float().mean())
+    sm.check(share >= 0.999 and hits > 0.3,
+             f"{label}: closest ids agree on {share:.6f} of "
+             f"{k[1].numel()} rays ({hits:.3f} hit)")
+    if not bool(hit.any()):
+        return float("nan")
+    rel = ((k[0] - p[0]).abs() / p[0].abs().clamp(min=1e-6))[hit]
+    err = float((k[0] - p[0])[hit].abs().max())
+    sm.check(float(rel.max()) <= 1e-4,
+             f"{label}: closest t rel err {float(rel.max()):.3g} where ids "
+             f"agree (max abs {err:.3g})")
+    return err
+
+
+def check_occlusion(sm: Smoke, label: str, k, p) -> float:
+    """Occlusion masks agree on >= 0.999 of rays; returns the max abs
+    difference (0 or 1)."""
+    agree = float((k == p).float().mean())
+    sm.check(agree >= 0.999, f"{label}: occlusion agrees on {agree:.6f} of "
+             f"{k.numel()} rays ({float(p.float().mean()):.3f} occluded)")
+    return float((k.float() - p.float()).abs().max())
+
+
+def frame_batches(scene, accel, cams, cfg):
+    """A frame's primary batch and its light-major shadow batch, as the
+    seven ray planes each (the shadow batch from the accel's own hits)."""
+    import torch
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.ops import intersect
+
+    o, d = renderer.primary_rays(cams, cfg.height, 0, cfg)
+    n = o.x.shape[0]
+    prim = (o.x, o.y, o.z, d.x, d.y, d.z,
+            torch.full((n,), intersect.INF, device=o.x.device))
+    sh = renderer.surface_hits(scene, accel, o, d, cfg)
+    lb = renderer.light_batch(scene, sh.normal, sh.world_pos, cfg,
+                              ray_mask=sh.hit)
+    shadow = (lb.origin.x, lb.origin.y, lb.origin.z, lb.l.x, lb.l.y,
+              lb.l.z, lb.t_max)
+    return prim, shadow
 
 
 def main() -> int:
@@ -551,6 +642,321 @@ def main() -> int:
               f"{v['animated_ms_per_frame']:.4f} ms/frame, "
               f"{v['animated_mrays_per_s']:.2f} Mray/s", flush=True)
 
+    print("phase 15: culled FrameLoop over the grid soup, 32 steps at "
+          "512x384 along the orbit", flush=True)
+    from hrt_tpu_torch.models.camera import orbit_camera
+    from hrt_tpu_torch.ops import culling
+    from hrt_tpu_torch.ops import traversal_skip as k3
+    from hrt_tpu_torch.ops import traversal_tlas_skip as k5
+
+    def orbit_cam(f: int):
+        return orbit_camera(f * 0.15, radius=4.0, height=-1.0)
+
+    t0 = time.perf_counter()
+    cloop = FrameLoop(instance_grid_scene(), g_cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"  loop init (soup, SAH build on the host) "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    sm.check(cloop.cull_threshold_px == 1.0 and cloop.accel.w8 is not None,
+             "default cull_threshold_px 1.0, loop starts on the SAH accel")
+    reset(k1.LAUNCHES, k3.LAUNCHES, shade_kernel.LAUNCHES)
+    first_rebuild_before_trace = None
+    steps = 32
+    for f in range(steps):
+        img_c = cloop.step(orbit_cam(f))
+        if f == 0:
+            first_rebuild_before_trace = (cloop.rebuilds == 1
+                                          and k1.LAUNCHES["closest"] == 0)
+        print(f"  frame {f}: {int(cloop.visible.sum())} of "
+              f"{cloop.visible.numel()} instances visible, "
+              f"{cloop.rebuilds} rebuilds", flush=True)
+    torch.cuda.synchronize()
+    launches3 = {"k3_closest": k3.LAUNCHES["closest"],
+                 "k3_any_hit": k3.LAUNCHES["any_hit"],
+                 "brdf_light_major": shade_kernel.LAUNCHES["brdf_light_major"],
+                 "k1": k1.LAUNCHES["closest"] + k1.LAUNCHES["any_hit"]}
+    sm.check(launches3 == {"k3_closest": steps, "k3_any_hit": steps,
+                           "brdf_light_major": steps, "k1": 0},
+             f"launch counters {launches3}")
+    sm.check(cloop.rebuilds >= 2 and bool(first_rebuild_before_trace),
+             f"{cloop.rebuilds} LBVH rebuilds, the first before frame 0's "
+             "trace")
+    sm.check(tuple(img_c.shape) == (384, 512, 3)
+             and bool(torch.isfinite(img_c).all()),
+             f"frame {tuple(img_c.shape)} finite")
+    cscene = cloop.scene
+    cmask = culling.triangle_mask(cloop.visible, cscene.tri_inst,
+                                  cscene.tri_valid)
+    t0 = time.perf_counter()
+    card_tree = lbvh.lbvh_tree(cscene, 32, cmask)
+    card_nodes, _ = lbvh.flatten_tree(card_tree, 32)
+    torch.cuda.synchronize()
+    print(f"  LBVH rebuild on the card (host clock): "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms", flush=True)
+    cpu_tree = lbvh.lbvh_tree(instance_grid_scene().build("cpu"), 32,
+                              cmask.cpu())
+    cpu_nodes, _ = lbvh.flatten_tree(cpu_tree, 32)
+    bits = lambda a: (a.cpu().view(torch.int32)
+                      if a.dtype == torch.float32 else a.cpu())
+    same_bits = all(torch.equal(bits(card_tree[key]), bits(cpu_tree[key]))
+                    for key in cpu_tree)
+    same_bits &= torch.equal(bits(card_nodes), bits(cpu_nodes))
+    same_bits &= torch.equal(bits(cloop.accel.nodes), bits(cpu_nodes))
+    sm.check(same_bits, "LBVH built on the card bit-equal to the CPU build "
+             "(codes, tri_perm, children, boxes, skip-link nodes)")
+
+    c_cams = renderer.camera_arrays(orbit_cam(steps - 1), g_cfg, dev)
+    c_prim, c_shadow = frame_batches(cscene, cloop.accel, c_cams, g_cfg)
+    caccel = cloop.accel
+    kc3 = k3.trace_kernel(caccel, *c_prim, g_cfg.t_min, True)
+    pc3 = k3.trace_plain(caccel, *c_prim, g_cfg.t_min, True)
+    k3c_err = check_closest(sm, "K3 vs plain", kc3, pc3)
+    ka3 = k3.trace_kernel(caccel, *c_shadow, g_cfg.t_min, False)
+    pa3 = k3.trace_plain(caccel, *c_shadow, g_cfg.t_min, False)
+    k3a_err = check_occlusion(sm, "K3 vs plain", ka3, pa3)
+    sel = torch.nonzero(cmask).squeeze(1)
+    cn = c_prim[0].shape[0]
+    csub = torch.arange(0, cn, max(1, cn // 4096), device=dev)[:4096]
+    bt3, bi3, _, _ = intersect.closest_hit_bruteforce(
+        torch.stack(c_prim[0:3], 1)[csub], torch.stack(c_prim[3:6], 1)[csub],
+        cscene.tri_v0[sel], cscene.tri_e1[sel], cscene.tri_e2[sel],
+        g_cfg.t_min)
+    for who, (tt, ids) in (("kernel", kc3[:2]), ("plain", pc3[:2])):
+        ids = ids[csub]
+        inst = torch.where(ids >= 0, cscene.tri_inst[
+            caccel.tri_perm[ids.clamp(min=0).long()].long()], -1)
+        a = soup_agreement(ids, inst, tt[csub], bi3, bt3,
+                           cscene.tri_inst[sel])
+        sm.check(a >= 0.999, f"closest {who} vs brute force over the "
+                 f"masked soup on 4096 rays: {a:.6f}")
+    cns = c_shadow[0].shape[0]
+    cssub = torch.arange(0, cns, max(1, cns // 4096), device=dev)[:4096]
+    bocc3 = intersect.any_hit_bruteforce(
+        torch.stack(c_shadow[0:3], 1)[cssub],
+        torch.stack(c_shadow[3:6], 1)[cssub], cscene.tri_v0[sel],
+        cscene.tri_e1[sel], cscene.tri_e2[sel], g_cfg.t_min,
+        c_shadow[6][cssub])
+    for who, occ in (("kernel", ka3), ("plain", pa3)):
+        a = float((occ[cssub] == bocc3).float().mean())
+        sm.check(a >= 0.999, f"any-hit {who} vs brute force over the "
+                 f"masked soup on 4096 rays: {a:.6f}")
+    ref_c = renderer.render_frames(cscene, caccel, c_cams, 0, 1, g_cfg,
+                                   plain=True)[0]
+    pc = psnr4(img_c, ref_c)
+    sm.check(pc > 45.0, f"last frame vs plain frame PSNR {pc:.2f}")
+    sah_c = lbvh.build_bvh_sah(cscene, 32, tri_mask=cmask)
+    k1_c = renderer.render_frames(cscene, sah_c, c_cams, 0, 1, g_cfg)[0]
+    pk1 = psnr4(img_c, k1_c)
+    sm.check(sah_c.w8 is not None and pk1 > 45.0,
+             f"last frame vs K1 frame of the SAH build over the same mask "
+             f"PSNR {pk1:.2f}")
+    del ref_c, k1_c, bt3, bi3, bocc3
+
+    print("phase 16: one culled 1920x1080 frame", flush=True)
+    cloop.set_resolution(1920, 1080)
+    chd_cfg = cloop.config
+    before = (dict(k3.LAUNCHES), dict(shade_kernel.LAUNCHES))
+    img_chd = cloop.step(orbit_cam(steps - 1))
+    torch.cuda.synchronize()
+    sm.check(k3.LAUNCHES == {m: c + 1 for m, c in before[0].items()}
+             and shade_kernel.LAUNCHES["brdf_light_major"]
+             == before[1]["brdf_light_major"] + 1,
+             f"1080p frame launched K3 closest, K3 any-hit and K2 once "
+             f"({int(cloop.visible.sum())} instances visible, "
+             f"{cloop.rebuilds} rebuilds)")
+    sm.check(tuple(img_chd.shape) == (1080, 1920, 3)
+             and bool(torch.isfinite(img_chd).all()), "1080p frame finite")
+    chd_cams = renderer.camera_arrays(orbit_cam(steps - 1),
+                                        chd_cfg, dev)
+    ref_chd = renderer.render_frames(cscene, cloop.accel, chd_cams, 0, 1,
+                                     chd_cfg, plain=True)[0]
+    pchd = psnr4(img_chd, ref_chd)
+    sm.check(pchd > 45.0, f"1080p frame vs plain frame PSNR {pchd:.2f}")
+    del ref_chd
+    hd_mask = culling.triangle_mask(cloop.visible, cscene.tri_inst,
+                                    cscene.tri_valid)
+    k1_chd = renderer.render_frames(
+        cscene, lbvh.build_bvh_sah(cscene, 32, tri_mask=hd_mask), chd_cams,
+        0, 1, chd_cfg)[0]
+    pchd1 = psnr4(img_chd, k1_chd)
+    sm.check(pchd1 > 45.0, f"1080p frame vs K1 frame of the SAH build over "
+             f"the same mask PSNR {pchd1:.2f}")
+    del k1_chd
+
+    print("phase 17: the instance forest (instance_grid_scene(182)), "
+          "two-level at 512x384", flush=True)
+    forest = instance_grid_scene(182)
+    t0 = time.perf_counter()
+    ftl = tlas.build_two_level_flat(forest, 32, device=dev)
+    torch.cuda.synchronize()
+    f_facts = {"build_s": time.perf_counter() - t0,
+               "instances": len(forest.instances), "tlas_m": ftl.tlas_m,
+               "node_rows": int(ftl.nodes.shape[0]),
+               "pool_slots": int(ftl.tris.shape[0]),
+               "w8_nodes_is_none": ftl.w8_nodes is None}
+    print(f"  {f_facts}", flush=True)
+    sm.check(ftl.w8_nodes is None and f_facts["instances"] == 33125,
+             "33125 instances on the binary route (no BVH8 table)")
+    t0 = time.perf_counter()
+    ftl4 = tlas.build_two_level_flat(forest, 32, device=dev,
+                                     max_wide_nodes=1 << 23)
+    torch.cuda.synchronize()
+    print(f"  raised-bound BVH8 build {time.perf_counter() - t0:.2f} s: "
+          f"{ftl4.w8_nodes.shape[0]} record rows, TLAS depth "
+          f"{ftl4.tlas_depth}, BLAS depth {ftl4.blas_depth}, stack "
+          f"{ftl4.stack}", flush=True)
+    t0 = time.perf_counter()
+    floop = FrameLoop(forest, g_cfg, two_level=True, device=dev)
+    torch.cuda.synchronize()
+    print(f"  FrameLoop init (soup, two-level build, instance matrices) "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    fscene = floop.scene
+    f_prim, f_shadow = frame_batches(fscene, ftl, g_cams, g_cfg)
+    kc5 = k5.trace_kernel(ftl, *f_prim, g_cfg.t_min, True)
+    pc5 = k5.trace_plain(ftl, *f_prim, g_cfg.t_min, True)
+    k5c_err = check_closest(sm, "K5 vs plain (whole batch)", kc5, pc5)
+    ka5 = k5.trace_kernel(ftl, *f_shadow, g_cfg.t_min, False)
+    pa5 = k5.trace_plain(ftl, *f_shadow, g_cfg.t_min, False)
+    k5a_err = check_occlusion(sm, "K5 vs plain (whole batch)", ka5, pa5)
+    check_closest(sm, "K5 vs K4 on the raised-bound table", kc5,
+                  k4.trace_kernel(ftl4, *f_prim, g_cfg.t_min, True))
+    check_occlusion(sm, "K5 vs K4 on the raised-bound table", ka5,
+                    k4.trace_kernel(ftl4, *f_shadow, g_cfg.t_min, False))
+    fhome = [inst.position for inst in floop.scene_obj.instances]
+
+    def fmove(f: int) -> float:
+        """Lift and turn another sphere; returns the refit's host ms."""
+        idx = 1 + (977 * f) % (len(fhome) - 1)
+        x, y, z = fhome[idx]
+        t0 = time.perf_counter()
+        floop.set_instance_transform(idx, position=(x, y - 0.4, z),
+                                     rotation=(0.1 * f, 0.2 * f, 0.0))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    reset(k4.LAUNCHES, k5.LAUNCHES, shade_kernel.LAUNCHES)
+    refit_f = []
+    f_steps = 8
+    for f in range(f_steps):
+        refit_f.append(fmove(f))
+        img_f = floop.step(cam)
+    torch.cuda.synchronize()
+    print(f"  binary TLAS rebuild per set_instance_transform (host clock, "
+          f"ms): {', '.join(f'{x:.2f}' for x in refit_f)}", flush=True)
+    launches5 = {"k5_closest": k5.LAUNCHES["closest"],
+                 "k5_any_hit": k5.LAUNCHES["any_hit"],
+                 "brdf_light_major": shade_kernel.LAUNCHES["brdf_light_major"],
+                 "k4": k4.LAUNCHES["closest"] + k4.LAUNCHES["any_hit"]}
+    sm.check(launches5 == {"k5_closest": f_steps, "k5_any_hit": f_steps,
+                           "brdf_light_major": f_steps, "k4": 0},
+             f"launch counters {launches5}")
+    sm.check(floop.accel.w8_nodes is None and tuple(img_f.shape)
+             == (384, 512, 3) and bool(torch.isfinite(img_f).all()),
+             f"frame {tuple(img_f.shape)} finite, still on the binary route")
+    ftl4 = tlas.refit_two_level(ftl4, *floop._mats)
+    k4_f = renderer.render_frames(fscene, ftl4, g_cams, 0, 1, g_cfg)[0]
+    pf4 = psnr4(img_f, k4_f)
+    sm.check(pf4 > 45.0, f"last frame vs K4 frame of the raised-bound table "
+             f"PSNR {pf4:.2f}")
+    ref_f = renderer.render_frames(fscene, floop.accel, g_cams, 0, 1, g_cfg,
+                                   plain=True)[0]
+    pfp = psnr4(img_f, ref_f)
+    sm.check(pfp > 45.0, f"last frame vs plain frame (512x384) PSNR "
+             f"{pfp:.2f}")
+    del k4_f, ref_f
+
+    print("phase 18: one 1920x1080 forest frame", flush=True)
+    floop.set_resolution(1920, 1080)
+    before = (dict(k5.LAUNCHES), dict(shade_kernel.LAUNCHES))
+    img_fhd = floop.step(cam)
+    torch.cuda.synchronize()
+    sm.check(k5.LAUNCHES == {m: c + 1 for m, c in before[0].items()}
+             and shade_kernel.LAUNCHES["brdf_light_major"]
+             == before[1]["brdf_light_major"] + 1,
+             "1080p frame launched K5 closest, K5 any-hit and K2 once")
+    sm.check(tuple(img_fhd.shape) == (1080, 1920, 3)
+             and bool(torch.isfinite(img_fhd).all()), "1080p frame finite")
+    k4_fhd = renderer.render_frames(fscene, ftl4, hd_cams, 0, 1,
+                                    floop.config)[0]
+    pfhd = psnr4(img_fhd, k4_fhd)
+    sm.check(pfhd > 45.0, f"1080p frame vs K4 frame PSNR {pfhd:.2f}")
+    del k4_fhd
+
+    print("phase 19: K3 / K5 times (CUDA events, median of 7; 3 for the "
+          "plain walks), LBVH rebuild, culled and forest frames",
+          flush=True)
+    times.update({
+        "k3_closest": time_ms(lambda: k3.trace_kernel(
+            caccel, *c_prim, g_cfg.t_min, True)),
+        "k3_any_hit": time_ms(lambda: k3.trace_kernel(
+            caccel, *c_shadow, g_cfg.t_min, False)),
+        "k3_closest_plain": time_ms(lambda: k3.trace_plain(
+            caccel, *c_prim, g_cfg.t_min, True), reps=3),
+        "k3_any_hit_plain": time_ms(lambda: k3.trace_plain(
+            caccel, *c_shadow, g_cfg.t_min, False), reps=3),
+        "k5_closest": time_ms(lambda: k5.trace_kernel(
+            ftl, *f_prim, g_cfg.t_min, True)),
+        "k5_any_hit": time_ms(lambda: k5.trace_kernel(
+            ftl, *f_shadow, g_cfg.t_min, False)),
+        "k5_closest_plain": time_ms(lambda: k5.trace_plain(
+            ftl, *f_prim, g_cfg.t_min, True), reps=3),
+        "k5_any_hit_plain": time_ms(lambda: k5.trace_plain(
+            ftl, *f_shadow, g_cfg.t_min, False), reps=3),
+        "k4_forest_closest": time_ms(lambda: k4.trace_kernel(
+            ftl4, *f_prim, g_cfg.t_min, True)),
+        "k4_forest_any_hit": time_ms(lambda: k4.trace_kernel(
+            ftl4, *f_shadow, g_cfg.t_min, False)),
+    })
+    lbvh_ms = host_ms(lambda: lbvh.build_bvh(cscene, 32, tri_mask=cmask))
+    for key in ("k3_closest", "k3_closest_plain", "k3_any_hit",
+                "k3_any_hit_plain", "k5_closest", "k5_closest_plain",
+                "k5_any_hit", "k5_any_hit_plain", "k4_forest_closest",
+                "k4_forest_any_hit"):
+        print(f"  {key}: {times[key]:.4f} ms", flush=True)
+    print(f"  LBVH rebuild of the culled grid (host clock, median of 7): "
+          f"{lbvh_ms:.4f} ms", flush=True)
+    nf_orbit = [steps]
+
+    def orbit_steps(k: int):
+        for _ in range(k):
+            cloop.step(orbit_cam(nf_orbit[0]))
+            nf_orbit[0] += 1
+
+    nf_forest = [f_steps]
+
+    def forest_steps(k: int, refit: bool):
+        for _ in range(k):
+            if refit:
+                fmove(nf_forest[0])
+                nf_forest[0] += 1
+            floop.step(cam)
+
+    frame_t = {}
+    for size, (w, h) in (("512x384", (512, 384)),
+                         ("1920x1080", (1920, 1080))):
+        k = 4 if w == 512 else 1
+        rays = w * h * g_cfg.spp * 2
+        cloop.set_resolution(w, h)
+        floop.set_resolution(w, h)
+        cull_cam = orbit_cam(steps - 1)
+        r0 = cloop.rebuilds
+        ts = {
+            "culled still": time_ms(lambda: [cloop.step(cull_cam)
+                                             for _ in range(k)], reps=5) / k,
+            "culled orbit": time_ms(lambda: orbit_steps(k), reps=5) / k,
+            "forest still": time_ms(lambda: forest_steps(k, False),
+                                    reps=5) / k,
+            "forest refit": time_ms(lambda: forest_steps(k, True),
+                                    reps=5) / k}
+        frame_t[size] = {key: {"ms_per_frame": v,
+                               "mrays_per_s": rays / v / 1e3}
+                         for key, v in ts.items()}
+        for key, v in ts.items():
+            print(f"  {key} frame {size}: {v:.4f} ms/frame, "
+                  f"{rays / v / 1e3:.2f} Mray/s", flush=True)
+        print(f"  culled orbit at {size}: {cloop.rebuilds - r0} rebuilds "
+              f"over {6 * k} orbit steps", flush=True)
+
     kernels = [
         {"name": "bvh8_trace_closest", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["closest"],
@@ -572,6 +978,22 @@ def main() -> int:
          "replaces": K4_REPLACES, "launches": launches4["k4_any_hit"],
          "max_abs_err": k4a_err, "ms": times["k4_any_hit"],
          "plain_ms": times["k4_any_hit_plain"]},
+        {"name": "skip_trace_closest", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": launches3["k3_closest"],
+         "max_abs_err": k3c_err, "ms": times["k3_closest"],
+         "plain_ms": times["k3_closest_plain"]},
+        {"name": "skip_trace_any_hit", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": launches3["k3_any_hit"],
+         "max_abs_err": k3a_err, "ms": times["k3_any_hit"],
+         "plain_ms": times["k3_any_hit_plain"]},
+        {"name": "tlas_skip_trace_closest", "route": "cuda",
+         "source": K5_SOURCE, "replaces": K5_REPLACES,
+         "launches": launches5["k5_closest"], "max_abs_err": k5c_err,
+         "ms": times["k5_closest"], "plain_ms": times["k5_closest_plain"]},
+        {"name": "tlas_skip_trace_any_hit", "route": "cuda",
+         "source": K5_SOURCE, "replaces": K5_REPLACES,
+         "launches": launches5["k5_any_hit"], "max_abs_err": k5a_err,
+         "ms": times["k5_any_hit"], "plain_ms": times["k5_any_hit_plain"]},
     ]
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} check(s) failed: "

@@ -2,16 +2,24 @@
 
 A second package beside the JAX reference `hrt_tpu`.  It renders the
 direct-lighting frame (primary closest hit, Disney BRDF, one shadow ray
-per light, sky on miss) through two hand-written CUDA kernels:
+per light, sky on miss) on single-level and two-level (instanced)
+scenes through hand-written CUDA kernels:
 
-- ``ops/traversal_wide8`` — the BVH8 walk (closest hit and any hit),
-  source ``csrc/bvh8_trace.cu``;
-- ``ops/shade_kernel`` — the light-major Disney BRDF, source
+- ``ops/traversal_wide8`` — the BVH8 walk (K1), ``csrc/bvh8_trace.cu``;
+- ``ops/traversal_skip`` — the binary skip-link walk (K3) of accels
+  without a BVH8 table (the LBVH of a culling rebuild, SAH trees past
+  the wide bound), ``csrc/skip_trace.cu``;
+- ``ops/traversal_tlas8`` — the two-level BVH8 walk (K4),
+  ``csrc/tlas8_trace.cu``;
+- ``ops/traversal_tlas_skip`` — the binary two-level walk (K5) of
+  instance scenes past the wide bound, ``csrc/tlas_skip_trace.cu``;
+- ``ops/shade_kernel`` — the light-major Disney BRDF (K2),
   ``csrc/brdf_light_major.cu``.
 
-Each kernel has a plain PyTorch version beside it, used for CPU tensors
-(and by the tests); CUDA tensors always go to the kernel.  The package
-imports neither ``jax`` nor ``hrt_tpu``.
+The walks run closest hit and any hit.  Each kernel has a plain PyTorch
+version beside it, used for CPU tensors (and by the tests); CUDA tensors
+always go to the kernel.  The package imports neither ``jax`` nor
+``hrt_tpu``.
 """
 
 __version__ = "0.1.0"

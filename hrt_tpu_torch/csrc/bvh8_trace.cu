@@ -15,11 +15,11 @@
 // so neighbours in a warp are neighbours on screen and mostly walk the
 // same nodes.
 //
-// Record decode, slab test and Möller-Trumbore: bvh8_common.cuh, shared
-// with K4 (tlas8_trace.cu).
+// Record decode, slab test and Möller-Trumbore: walk_common.cuh, shared
+// with K3, K4 and K5.
 #include <cuda_runtime.h>
 
-#include "bvh8_common.cuh"
+#include "walk_common.cuh"
 
 namespace {
 
@@ -70,15 +70,10 @@ bvh8_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
           int_mask |= 1 << (-meta - 1);
           continue;
         }
-        const float4* tp = tris + static_cast<size_t>(meta - 1) * 3;
-        for (int k = 0; k < leaf_size; ++k) {
-          float th, uh, vh;
-          if (hrt::moller(tp + 3 * k, r, t_min, t, th, uh, vh)) {
-            best = meta - 1 + k;
-            if (!CLOSEST) goto done;  // any hit: first hit retires the ray
-            t = th; bu = uh; bv = vh;
-          }
-        }
+        // Any hit: the first hit retires the ray.
+        if (hrt::leaf_hits<CLOSEST>(tris, meta - 1, leaf_size, r, t_min, t,
+                                    best, bu, bv) && !CLOSEST)
+          goto done;
       }
       if (int_mask) stack[sp++] = (first_child << 8) | int_mask;
     }

@@ -35,14 +35,15 @@
 // instance and those still in the TLAS or in another instance, and the
 // per-enter transform plus three reciprocals.  The simple design keeps
 // the loads 16 bytes wide through the read-only cache, the record
-// decode, slab test and Möller-Trumbore of K1 (bvh8_common.cuh), and the
-// rays in pixel order, so the threads of a warp mostly enter the same
-// instances.  The stack size is a template (32 / 64 / 128 entries),
+// decode, slab test, instance transform and Möller-Trumbore shared with
+// K1, K3 and K5 (walk_common.cuh), and the rays in pixel order, so the
+// threads of a warp mostly enter the same instances.  The stack size is
+// a template (32 / 64 / 128 entries),
 // picked from the host's bound (ops/tlas.py `stack_bound`), which the
 // build refuses past 128.
 #include <cuda_runtime.h>
 
-#include "bvh8_common.cuh"
+#include "walk_common.cuh"
 
 namespace {
 
@@ -83,15 +84,7 @@ tlas8_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
       const int e = stack[--sp];
       if (e < 0) {  // enter instance -(e + 1)
         const int inst = -e - 1;
-        const float4 a = __ldg(tf + 3 * inst);
-        const float4 b = __ldg(tf + 3 * inst + 1);
-        const float4 c = __ldg(tf + 3 * inst + 2);
-        hrt::set_ray(r, a.x * wox + a.y * woy + a.z * woz + a.w,
-                     b.x * wox + b.y * woy + b.z * woz + b.w,
-                     c.x * wox + c.y * woy + c.z * woz + c.w,
-                     a.x * wdx + a.y * wdy + a.z * wdz,
-                     b.x * wdx + b.y * wdy + b.z * wdz,
-                     c.x * wdx + c.y * wdy + c.z * wdz);
+        hrt::enter_instance(r, tf, inst, wox, woy, woz, wdx, wdy, wdz);
         cur_inst = inst;
         inst_base = sp;
         stack[sp++] = (__ldg(roots + inst) << 8) | 1;
@@ -124,15 +117,10 @@ tlas8_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
           inst_mask |= 1 << j;
           continue;
         }
-        const float4* tp = tris + static_cast<size_t>(meta - 1) * 3;
-        for (int k = 0; k < leaf_size; ++k) {
-          float th, uh, vh;
-          if (hrt::moller(tp + 3 * k, r, t_min, t, th, uh, vh)) {
-            best = meta - 1 + k;
-            best_inst = cur_inst;
-            if (!CLOSEST) goto done;  // any hit: first hit retires the ray
-            t = th; bu = uh; bv = vh;
-          }
+        if (hrt::leaf_hits<CLOSEST>(tris, meta - 1, leaf_size, r, t_min, t,
+                                    best, bu, bv)) {
+          best_inst = cur_inst;
+          if (!CLOSEST) goto done;  // any hit: first hit retires the ray
         }
       }
       if (int_mask) stack[sp++] = (first_child << 8) | int_mask;

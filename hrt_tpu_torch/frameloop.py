@@ -5,15 +5,16 @@ One `step` renders a frame through renderer.render_rows and, with
 `config.accumulate`, folds it into the running mean, as the JAX
 package's `_post_stages` does.  With `two_level=True` the accel is the
 instanced TwoLevelFlat (ops/tlas.py) and `set_instance_transform`
-animates an instance by refitting the TLAS; otherwise it is the
-single-level SAH + BVH8 Accel.
+animates an instance by refitting the TLAS; otherwise it starts as the
+single-level SAH Accel, and with `cull_threshold_px > 0` (the default,
+as in the JAX package) each step first updates the instances'
+visibility (ops/culling.py) and, when it changed, rebuilds the accel
+with the LBVH over the visible triangles (its walks take K3).
+Two-level loops skip culling, as in the JAX package.
 
 Not ported yet, and refused with NotImplementedError: denoise and
-upscale (through config.require_slice), a multi-device `mesh`, and
-instance culling (`cull_threshold_px > 0` on a single-level accel; the
-JAX package's culling rebuild goes through the on-device LBVH, and it
-skips culling for two-level accels).  `save_state` / `load_state` carry
-the denoiser's state and come with it.
+upscale (through config.require_slice) and a multi-device `mesh`.
+`save_state` / `load_state` carry the denoiser's state and come with it.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from .config import RenderConfig, require_slice
 from .models.camera import Camera
 from .models.instance import MeshInstance
 from .models.scene import Scene, SceneData
-from .ops import lbvh, tlas
+from .ops import culling, lbvh, tlas
 from .renderer import camera_arrays, render_rows
 
 
@@ -41,7 +42,9 @@ class FrameLoop:
 
     `device` defaults to the first CUDA device when there is one and to
     the CPU otherwise; on a CUDA device every trace and BRDF call
-    launches its kernel, on the CPU it runs the plain versions."""
+    launches its kernel, on the CPU it runs the plain versions.
+    `visible` holds the instances' culling state and `rebuilds` counts
+    the LBVH rebuilds that culling made."""
 
     scene_obj: Any
     config: RenderConfig
@@ -56,11 +59,6 @@ class FrameLoop:
         if self.mesh is not None:
             raise NotImplementedError(
                 "multi-device rendering (mesh) is not ported yet")
-        if not self.two_level and self.cull_threshold_px > 0:
-            raise NotImplementedError(
-                "instance culling (cull_threshold_px > 0) rebuilds through "
-                "the on-device LBVH, which is not ported yet; pass "
-                "cull_threshold_px=0 or two_level=True")
         if self.device is None:
             self.device = (torch.device("cuda") if torch.cuda.is_available()
                            else torch.device("cpu"))
@@ -70,6 +68,9 @@ class FrameLoop:
             if isinstance(self.scene_obj, Scene) else self.scene_obj)
         # 32-triangle leaves, as the JAX package's frame loop.
         self.leaf_size = cfg.leaf_size or 32
+        self.visible = torch.ones((self.scene.inst_bmin.shape[0],),
+                                  dtype=torch.bool, device=self.device)
+        self.rebuilds = 0
         if self.two_level:
             if not isinstance(self.scene_obj, Scene):
                 raise ValueError("two_level needs the authoring Scene")
@@ -119,11 +120,27 @@ class FrameLoop:
             mats[idx] = m
         self.accel = tlas.refit_two_level(self.accel, *self._mats)
 
+    def _maybe_cull(self, cams) -> None:
+        if self.cull_threshold_px <= 0 or self.two_level:
+            return
+        new_vis = culling.cull_instances(
+            self.visible, self.scene.inst_bmin, self.scene.inst_bmax, cams,
+            self.config.width, self.config.height,
+            threshold_px=self.cull_threshold_px)
+        if bool((new_vis != self.visible).any()):
+            self.visible = new_vis
+            mask = culling.triangle_mask(new_vis, self.scene.tri_inst,
+                                         self.scene.tri_valid)
+            self.accel = lbvh.build_bvh(self.scene, self.leaf_size,
+                                        tri_mask=mask)
+            self.rebuilds += 1
+
     def step(self, camera: Camera) -> torch.Tensor:
         """Render the next frame; returns the (H, W, 3) image on the
         loop's device."""
         cfg = self.config
         cams = camera_arrays(camera, cfg, self.device)
+        self._maybe_cull(cams)
         img = render_rows(self.scene, self.accel, cams, 0, cfg.height, cfg)
         if cfg.accumulate:
             n = float(min(self.frame, 10000))

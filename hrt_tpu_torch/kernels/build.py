@@ -131,6 +131,13 @@ def load() -> ctypes.CDLL:
     cdll.hrt_tlas8_trace.argtypes = [p] * 7 + [i, p, p, p, p, i, i,
                                                ctypes.c_float, i, i] \
         + [p] * 6 + [p]
+    cdll.hrt_skip_trace.restype = i
+    cdll.hrt_skip_trace.argtypes = [p] * 7 + [i, p, p, i, i, ctypes.c_float,
+                                              i] + [p] * 5 + [p]
+    cdll.hrt_tlas_skip_trace.restype = i
+    cdll.hrt_tlas_skip_trace.argtypes = [p] * 7 + [i, p, p, p, p, p, i, i,
+                                                   ctypes.c_float, i] \
+        + [p] * 6 + [p]
     cdll.hrt_brdf_light_major.restype = i
     cdll.hrt_brdf_light_major.argtypes = [p, p, p, i, i, p, p]
     cdll.hrt_cuda_error_string.restype = ctypes.c_char_p

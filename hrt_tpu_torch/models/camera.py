@@ -51,6 +51,25 @@ class Camera:
                             as_t(tan_half), as_t(width / height))
 
 
+def orbit_camera(t: float, radius: float = 3.0, height: float = -1.0,
+                 target=(0.0, 0.0, 0.0),
+                 fov_y: float = 1.0471975512) -> Camera:
+    """The scripted orbit path of the JAX package's CLI `--orbit`: at
+    parameter t the camera circles `target` at `radius`, `height` above
+    it (y-down world), looking at it."""
+    px = target[0] + radius * math.sin(t)
+    pz = target[2] - radius * math.cos(t)
+    py = height
+    # Yaw so the camera looks at the target: forward w = (sin yaw, 0, cos yaw).
+    yaw = math.atan2(target[0] - px, target[2] - pz)
+    dy = target[1] - py
+    d = math.sqrt((target[0] - px) ** 2 + (target[2] - pz) ** 2)
+    # forward.y = -sin(pitch) must equal dy/dist (world is y-down).
+    pitch = -math.atan2(dy, d)
+    return Camera(position=(px, py, pz), rotation=(pitch, yaw, 0.0),
+                  fov_y=fov_y)
+
+
 def primary_rays_from_px_p(origin, basis, tan_half_fovy, aspect,
                            width: int, height: int,
                            px: torch.Tensor, py: torch.Tensor):

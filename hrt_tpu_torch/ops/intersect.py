@@ -48,6 +48,53 @@ def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
     return 1.0 / safe
 
 
+# ---------------------------------------------------------------------------
+# Pieces of the walks' plain versions (ops/traversal_*.py), the same terms
+# as the kernels' csrc/walk_common.cuh.
+# ---------------------------------------------------------------------------
+
+def slab_hit(box, inv, oi, t_min: float, t):
+    """Whether rays (m, 3 inverse directions `inv`, `oi` = o * inv) meet
+    boxes (m, 6: min xyz, max xyz) within (t_min, t)."""
+    ta = box[:, 0:3] * inv - oi
+    tb = box[:, 3:6] * inv - oi
+    lo = torch.minimum(ta, tb)
+    hi = torch.maximum(ta, tb)
+    t_near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]),
+                           torch.clamp(lo[:, 2], min=t_min))
+    t_far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]),
+                          torch.minimum(hi[:, 2], t))
+    return t_near <= t_far
+
+
+def leaf_hits(tris, start, leaf_size: int, o, d, t_min: float, t):
+    """Möller-Trumbore of rays (m, 3) against the K triangles of leaves
+    starting at pool slots `start` (m,) of the (T, 12) table, below the
+    rays' live t (m,).  Returns (hit (m,), t, pool id, u, v): the first
+    nearest hit of each row, as a walk testing the K triangles in slot
+    order finds it."""
+    ids = start[:, None] + torch.arange(leaf_size, device=start.device)
+    tr = tris[ids]
+    h, th, uh, vh = moller_trumbore(o[:, None], d[:, None], tr[..., 0:3],
+                                    tr[..., 3:6], tr[..., 6:9], t_min,
+                                    t[:, None])
+    tj, jj = torch.min(torch.where(h, th, INF), dim=1)
+    pick = lambda a: torch.gather(a, 1, jj[:, None])[:, 0]
+    return h.any(dim=1), tj, pick(ids).to(torch.int32), pick(uh), pick(vh)
+
+
+def to_object_space(m, ow, dw):
+    """World rays (m, 3) into object space by 3x4 rows m (m, 12): the
+    affine map of the origin and the linear one of the direction, term
+    for term as the JAX two-level kernels."""
+    o = torch.stack([m[:, 4 * a] * ow[:, 0] + m[:, 4 * a + 1] * ow[:, 1]
+                     + m[:, 4 * a + 2] * ow[:, 2] + m[:, 4 * a + 3]
+                     for a in range(3)], dim=1)
+    d = torch.stack([m[:, 4 * a] * dw[:, 0] + m[:, 4 * a + 1] * dw[:, 1]
+                     + m[:, 4 * a + 2] * dw[:, 2] for a in range(3)], dim=1)
+    return o, d
+
+
 def closest_hit_bruteforce(ray_o, ray_d, tri_v0, tri_e1, tri_e2,
                            t_min=TMIN, t_max=INF, chunk: int = 512):
     """O(rays x tris) closest hit.  ray_o/ray_d (N, 3), tri_* (T, 3).

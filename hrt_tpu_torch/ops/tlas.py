@@ -1,42 +1,51 @@
 """Two-level acceleration (TLAS over instances -> per-mesh BLAS) for the
-instanced frame: the subset of hrt_tpu/ops/tlas.py that its wide walk
-(K4, ops/traversal_tlas8.py) and its shading use.
+instanced frame: the subset of hrt_tpu/ops/tlas.py that its walks (K4,
+ops/traversal_tlas8.py; K5, ops/traversal_tlas_skip.py) and its shading
+use.
 
-One unified (R, 8, 128) int32 BVH8 record table, built on the host:
-the TLAS region first (`w8_tlas_nw` wide nodes, padded to a size fixed
-by the instance count so that a refit never moves a BLAS), whose leaf
-metas are instance id + 1; then every mesh's BLAS region, globalized
-(leaf metas are global pool starts + 1, child bases global wide ids).
-Each BLAS is built once per mesh in object space with the native SAH
-builder; instance transforms never touch it.  Ray directions stay
-unnormalized in object space, so t is the world-space parameter
-everywhere.
+Each BLAS is built once per mesh in object space, with the native SAH
+builder (`sah=True`) or the LBVH (`sah=False`, ops/lbvh.lbvh_tree);
+instance transforms never touch it.  Ray directions stay unnormalized in
+object space, so t is the world-space parameter everywhere.  The build
+then takes one of two routes, as the JAX package does:
 
-The JAX package also builds binary skip-link tables (`nodes`, `inst`,
-`tlas_m`) for its binary two-level kernel (K5), which it takes past
-MAX_WIDE_NODES and on the CPU.  K5 is not ported: a table past the
-bound raises here, naming it.
+- the unified BVH8 table, walked by K4: one (R, 8, 128) int32 record
+  table, the TLAS region first (`w8_tlas_nw` wide nodes, padded to a
+  size fixed by the instance count so that a refit never moves a BLAS),
+  whose leaf metas are instance id + 1; then every mesh's BLAS region,
+  globalized (leaf metas are global pool starts + 1, child bases global
+  wide ids);
+- the binary skip-link tables, walked by K5, when the unified table
+  would reach `max_wide_nodes` or a BLAS overflows its own collapse:
+  `nodes`, the TLAS's skip-link rows (leaf codes -(instance + 1),
+  `tlas_m` nodes) and then every mesh's BLAS rows (leaf codes shifted by
+  the mesh's pool base, skip links by its node base), and per instance
+  its BLAS node range [blas_base, blas_end).
+
+Only the tables of the route taken are built: a walk reads one or the
+other.
 """
 from __future__ import annotations
 
 import dataclasses
+import types
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..models.materials import MatP
 from ..models.scene import PAD, Scene
-from . import lbvh, traversal_tlas8, v3, wide, wide8
+from . import (lbvh, morton, traversal_tlas8, traversal_tlas_skip, v3,
+               wide, wide8)
 from .twolevel import mesh_scene_arrays
 from .v3 import V3
 
 
 @dataclasses.dataclass(frozen=True)
 class TwoLevelFlat:
-    """The unified two-level table and per-instance data, on one device.
+    """The two-level tables and per-instance data, on one device.
 
-    w8_nodes (R, 8, 128) int32: TLAS region, then the BLAS regions.
-    w8_root (I, 1) int32: each instance's BLAS root wide id.
     tris (T, 12) float32: the meshes' leaf-ordered pools, concatenated,
       as v0|e1|e2|pad rows in object space (the JAX (TR, 16, 128) tris,
       transposed to one row per triangle).
@@ -45,15 +54,17 @@ class TwoLevelFlat:
     inst_mat / inst_mesh (I,) int32; normal_mat (I, 3, 3);
     world_from_obj / obj_from_world (I, 3, 4); root_bmin / root_bmax
       (I, 3) object-space BLAS root boxes.
-    tlas_depth / blas_depth: the deepest wide node of the TLAS region and
-      of any BLAS region (root = 0), which size the walk's per-ray stack
-      (`stack`).
+    The BVH8 route (K4): w8_nodes (R, 8, 128) int32, the TLAS region then
+      the BLAS regions; w8_root (I, 1) int32, each instance's BLAS root
+      wide id; tlas_depth / blas_depth, the deepest wide node of the TLAS
+      region and of any BLAS region (root = 0), which size the walk's
+      per-ray stack (`stack`).  None / 0 on the binary route.
+    The binary route (K5): nodes (R, 8, 128) float32 skip-link rows (rows
+      6-7 int32 bits), the TLAS's `tlas_m` nodes first; blas_base /
+      blas_end (I,) int32.  None / 0 on the BVH8 route.
     root_box_host: root_bmin / root_bmax as numpy, so a refit needs no
       device read."""
 
-    w8_nodes: torch.Tensor
-    w8_root: torch.Tensor
-    w8_tlas_nw: int
     tris: torch.Tensor
     attr: torch.Tensor
     inst_mat: torch.Tensor
@@ -64,18 +75,25 @@ class TwoLevelFlat:
     root_bmin: torch.Tensor
     root_bmax: torch.Tensor
     leaf_size: int
-    tlas_depth: int
-    blas_depth: int
+    w8_nodes: torch.Tensor | None = None
+    w8_root: torch.Tensor | None = None
+    w8_tlas_nw: int = 0
+    tlas_depth: int = 0
+    blas_depth: int = 0
+    nodes: torch.Tensor | None = None
+    blas_base: torch.Tensor | None = None
+    blas_end: torch.Tensor | None = None
+    tlas_m: int = 0
     root_box_host: tuple = dataclasses.field(repr=False, compare=False,
                                              default=None)
 
     @property
     def device(self) -> torch.device:
-        return self.w8_nodes.device
+        return self.tris.device
 
     @property
     def stack(self) -> int:
-        """Per-ray stack entries the walk needs (`stack_bound`)."""
+        """Per-ray stack entries the BVH8 walk needs (`stack_bound`)."""
         return stack_bound(self.tlas_depth, self.blas_depth)
 
 
@@ -130,117 +148,179 @@ def check_depths(tlas_depth: int, blas_depth: int) -> None:
             f"{traversal_tlas8.MAX_STACK}")
 
 
-def build_two_level_flat(scene: Scene, leaf_size: int = 16,
-                         sah: bool = True, device=None,
-                         max_wide_nodes: int = wide8.MAX_WIDE_NODES
-                         ) -> TwoLevelFlat:
-    """Per-mesh SAH BLAS + wide TLAS, concatenated for the unified walk,
-    on `device` (default: the CPU).
+class _Blas(NamedTuple):
+    """One mesh's BLAS in object space: the records of its BVH8 collapse
+    (None past MAX_WIDE_NODES), its leaf-ordered pool and tree (numpy
+    dicts), its skip-link nodes (torch, CPU) over m_real nodes, and its
+    (t, 15) attribute rows in pool order."""
 
-    Raises NotImplementedError for sah=False (the JAX package then
-    builds each BLAS with its on-device LBVH, not ported yet) and
-    ValueError when the unified table reaches `max_wide_nodes` (the
-    JAX package then walks the binary tables with K5, not ported
-    yet) or needs a deeper stack than K4 holds."""
-    if not sah:
-        raise NotImplementedError(
-            "two-level builds with sah=False need the on-device LBVH "
-            "(lbvh.build_bvh), which is not ported yet")
-    if not scene.meshes or not scene.instances:
-        raise ValueError("scene needs meshes and instances")
-    device = torch.device("cpu") if device is None else torch.device(device)
+    records: np.ndarray | None
+    pool: dict
+    tree: dict
+    nodes: torch.Tensor
+    m_real: int
+    attr: np.ndarray
 
-    w8_tables, pools, attrs, mesh_root = [], [], [], []
-    tri_base = 0
-    for mesh in scene.meshes:
-        t_pad = max(PAD, -(-mesh.num_triangles // PAD) * PAD)
-        arrs = mesh_scene_arrays(mesh, t_pad)
+
+def _blas(mesh, leaf_size: int, sah: bool) -> _Blas:
+    """Build one mesh's BLAS on the host."""
+    t_pad = max(PAD, -(-mesh.num_triangles // PAD) * PAD)
+    arrs = mesh_scene_arrays(mesh, t_pad)
+    if sah:
         _, pool, tree = lbvh.sah_wide8_host(
             arrs["tri_v0"], arrs["tri_e1"], arrs["tri_e2"],
             arrs["tri_valid"] > 0.5, leaf_size)
-        # The JAX package collapses each BLAS a second time, from the
-        # renumbered tree and leaf boxes recomputed from the pool,
-        # without reordering.  That collapse keeps the first one's leaf
-        # order (its reorder would be the identity) and writes
-        # leaf_base 0; the port repeats it for bit-equal tables.
-        lmin, lmax = wide.leaf_boxes(pool["tri_v0"], pool["tri_e1"],
-                                     pool["tri_e2"], leaf_size)
-        rec, old_of_new = wide8.build_wide8(
-            tree["child_l"], tree["child_r"], tree["bmin_l"],
-            tree["bmax_l"], tree["bmin_r"], tree["bmax_r"], lmin, lmax,
-            leaf_size, reorder=False)
-        if not np.array_equal(old_of_new, np.arange(old_of_new.shape[0])):
-            raise RuntimeError("BLAS second collapse moved the leaf pool")
-        base = np.concatenate([arrs[k] for k in ("nrm0", "nrm1", "nrm2",
-                                                  "uv0", "uv1", "uv2")],
-                              axis=1)                            # (t, 15)
-        attrs.append(base[np.clip(pool["tri_perm"], 0, t_pad - 1)])
-        pools.append(pool)
-        w8_tables.append((rec, tri_base))
-        mesh_root.append((np.minimum(tree["bmin_l"][0], tree["bmin_r"][0]),
-                          np.maximum(tree["bmax_l"][0], tree["bmax_r"][0])))
-        tri_base += pool["tri_v0"].shape[0]
+    else:
+        fake = types.SimpleNamespace(**{k: torch.as_tensor(arrs[k]) for k in (
+            "tri_v0", "tri_e1", "tri_e2", "tri_valid")})
+        tree = {k: a.numpy() for k, a in
+                lbvh.lbvh_tree(fake, leaf_size).items()}
+        pool = {k: tree[k] for k in ("tri_v0", "tri_e1", "tri_e2",
+                                     "tri_perm")}
+    nodes, m_real = lbvh.flatten_tree(tree, leaf_size)
+    # The JAX package collapses each BLAS (again, for a SAH one) from
+    # its tree and leaf boxes recomputed from the pool, without
+    # reordering: metas in pool order, leaf_base 0.
+    lmin, lmax = wide.leaf_boxes(pool["tri_v0"], pool["tri_e1"],
+                                 pool["tri_e2"], leaf_size)
+    out = wide8.build_wide8(
+        tree["child_l"], tree["child_r"], tree["bmin_l"], tree["bmax_l"],
+        tree["bmin_r"], tree["bmax_r"], lmin, lmax, leaf_size, reorder=False)
+    base = np.concatenate([arrs[k] for k in ("nrm0", "nrm1", "nrm2",
+                                             "uv0", "uv1", "uv2")], axis=1)
+    attr = base[np.clip(pool["tri_perm"], 0, t_pad - 1)]
+    return _Blas(None if out is None else out[0], pool, tree, nodes, m_real,
+                 attr)
 
+
+def _tlas_nodes(inst_bmin: torch.Tensor, inst_bmax: torch.Tensor):
+    """The binary TLAS over instance world boxes (I, 3), on their device,
+    bit for bit as the JAX `_tlas_nodes`: Morton order, Karras tree,
+    refit, skip-link table with one instance per leaf, leaf codes
+    -(instance + 1).  A single instance is padded with a duplicate box.
+    Returns (nodes (rows, 8, 128) float32, tlas_m = 2 * leaves - 1)."""
+    i_real = inst_bmin.shape[0]
+    if i_real == 1:
+        inst_bmin = torch.cat([inst_bmin, inst_bmin])
+        inst_bmax = torch.cat([inst_bmax, inst_bmax])
+    i = inst_bmin.shape[0]
+    centroid = (inst_bmin + inst_bmax) * 0.5
+    codes = morton.morton_codes_torch(centroid, inst_bmin.min(dim=0).values,
+                                      inst_bmax.max(dim=0).values)
+    order = torch.argsort(codes, stable=True)
+    child_l, child_r = lbvh.karras_hierarchy(codes[order])
+    lmin, lmax = inst_bmin[order], inst_bmax[order]
+    boxes = lbvh.refit(child_l, child_r, lmin, lmax)
+    nodes = lbvh.flatten_bvh(child_l, child_r, *boxes, lmin, lmax, 1)
+    bits = nodes.view(torch.int32)
+    lc = bits[:, 6, :]
+    inst_id = order.clamp(max=i_real - 1)[(lc.long() - 1).clamp(0, i - 1)]
+    bits[:, 6, :] = torch.where(lc > 0, -(inst_id + 1), 0).to(torch.int32)
+    return nodes, 2 * i - 1
+
+
+def build_two_level_flat(scene: Scene, leaf_size: int = 16,
+                         sah: bool = True, device=None,
+                         max_wide_nodes: int | None = None) -> TwoLevelFlat:
+    """Per-mesh BLAS + TLAS on `device` (default: the CPU), on the BVH8
+    route when every BLAS collapses and the unified table stays below
+    `max_wide_nodes` wide nodes (default: wide8.MAX_WIDE_NODES, read at
+    call time), else on the binary route.  Raises ValueError when a BVH8
+    table needs a deeper stack than K4 holds."""
+    if max_wide_nodes is None:
+        max_wide_nodes = wide8.MAX_WIDE_NODES
+    if not scene.meshes or not scene.instances:
+        raise ValueError("scene needs meshes and instances")
+    device = torch.device("cpu") if device is None else torch.device(device)
+    blases = [_blas(mesh, leaf_size, sah) for mesh in scene.meshes]
     inst_mesh, inst_mat, w_from_o, o_from_w, normal_mat = \
         _instance_arrays(scene)
+    mesh_root = [(np.minimum(b.tree["bmin_l"][0], b.tree["bmin_r"][0]),
+                  np.maximum(b.tree["bmax_l"][0], b.tree["bmax_r"][0]))
+                 for b in blases]
     root_bmin = np.stack([mesh_root[m][0] for m in inst_mesh])
     root_bmax = np.stack([mesh_root[m][1] for m in inst_mesh])
     bmin, bmax = world_aabbs(root_bmin, root_bmax, w_from_o)
 
-    tlas_pad = wide8.tlas_nw_pad(len(scene.instances))
-    mesh_w8_base, total = [], tlas_pad
-    for rec, _ in w8_tables:
-        mesh_w8_base.append(total)
-        total += rec.shape[0] * wide8.NODES_PER_ROW
-    if total >= max_wide_nodes:
-        raise ValueError(
-            f"the two-level table needs {total} wide nodes, past "
-            f"MAX_WIDE_NODES ({max_wide_nodes}); the JAX package walks such "
-            "scenes with its binary two-level kernel (K5, "
-            "hrt_tpu/ops/tlas.py _trace_tiles_tlas), not ported yet")
-    w8_nodes = np.concatenate(
-        [wide8.build_wide8_tlas(bmin, bmax, tlas_pad)]
-        + [wide8.globalize(rec, tb, b)
-           for (rec, tb), b in zip(w8_tables, mesh_w8_base)])
-    tlas_depth, blas_depth = _depths(w8_nodes, tlas_pad)
-    check_depths(tlas_depth, blas_depth)
-
     dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
-    cat = lambda k: np.concatenate([p[k] for p in pools])
-    tris = lbvh.tri_table(dev(cat("tri_v0")), dev(cat("tri_e1")),
-                          dev(cat("tri_e2")))
-    return TwoLevelFlat(
-        w8_nodes=dev(w8_nodes),
-        w8_root=dev(np.asarray(mesh_w8_base, np.int32)[inst_mesh][:, None]),
-        w8_tlas_nw=int(tlas_pad), tris=tris,
-        attr=dev(np.concatenate(attrs).astype(np.float32)),
+    cat = lambda k: np.concatenate([b.pool[k] for b in blases])
+    tri_base = np.cumsum([0] + [b.pool["tri_v0"].shape[0] for b in blases])
+    common = dict(
+        tris=lbvh.tri_table(dev(cat("tri_v0")), dev(cat("tri_e1")),
+                            dev(cat("tri_e2"))),
+        attr=dev(np.concatenate([b.attr for b in blases])
+                 .astype(np.float32)),
         inst_mat=dev(inst_mat), inst_mesh=dev(inst_mesh),
         normal_mat=dev(normal_mat), world_from_obj=dev(w_from_o),
         obj_from_world=dev(o_from_w), root_bmin=dev(root_bmin),
         root_bmax=dev(root_bmax), leaf_size=leaf_size,
-        tlas_depth=tlas_depth, blas_depth=blas_depth,
         root_box_host=(root_bmin, root_bmax))
+
+    tlas_pad = wide8.tlas_nw_pad(len(scene.instances))
+    mesh_w8_base = np.cumsum(
+        [tlas_pad] + [0 if b.records is None else b.records.shape[0]
+                      * wide8.NODES_PER_ROW for b in blases])
+    if all(b.records is not None for b in blases) \
+            and mesh_w8_base[-1] < max_wide_nodes:
+        w8_nodes = np.concatenate(
+            [wide8.build_wide8_tlas(bmin, bmax, tlas_pad)]
+            + [wide8.globalize(b.records, int(tb), int(wb))
+               for b, tb, wb in zip(blases, tri_base, mesh_w8_base)])
+        tlas_depth, blas_depth = _depths(w8_nodes, tlas_pad)
+        check_depths(tlas_depth, blas_depth)
+        return TwoLevelFlat(
+            **common, w8_nodes=dev(w8_nodes),
+            w8_root=dev(mesh_w8_base[:-1].astype(np.int32)[inst_mesh]
+                        [:, None]),
+            w8_tlas_nw=int(tlas_pad), tlas_depth=tlas_depth,
+            blas_depth=blas_depth)
+
+    # The binary route: TLAS rows, then each mesh's globalized BLAS rows.
+    tlas, tlas_m = _tlas_nodes(dev(bmin), dev(bmax))
+    tlas_words = tlas.shape[0] * 128
+    node_base = np.cumsum([0] + [b.nodes.shape[0] * 128 for b in blases])
+    parts = [tlas]
+    for b, tb, nb in zip(blases, tri_base, node_base):
+        bits = b.nodes.view(torch.int32).clone()
+        lc = bits[:, 6, :]
+        bits[:, 6, :] = torch.where(lc > 0, lc + int(tb), lc)
+        bits[:, 7, :] += tlas_words + int(nb)
+        parts.append(bits.view(torch.float32).to(device))
+    m_real = np.asarray([b.m_real for b in blases])
+    blas_base = (tlas_words + node_base[:-1])[inst_mesh]
+    return TwoLevelFlat(
+        **common, nodes=torch.cat(parts),
+        blas_base=dev(blas_base.astype(np.int32)),
+        blas_end=dev((blas_base + m_real[inst_mesh]).astype(np.int32)),
+        tlas_m=int(tlas_m))
 
 
 def refit_two_level(tl: TwoLevelFlat, world_from_obj, obj_from_world,
                     normal_mat) -> TwoLevelFlat:
     """New instance transforms (numpy (I, 3, 4), (I, 3, 4), (I, 3, 3))
-    -> new instance boxes -> a rebuilt TLAS region (host numpy, copied
-    up) in a new table; no BLAS is touched and `tl` is left as it was."""
+    -> new instance boxes -> a rebuilt TLAS in a new table: the wide
+    TLAS region on the host (BVH8 route), or the binary TLAS rows on the
+    table's device (binary route).  No BLAS is touched and `tl` is left
+    as it was."""
     world_from_obj = np.asarray(world_from_obj, np.float32)
     bmin, bmax = world_aabbs(*tl.root_box_host, world_from_obj)
-    tlas = wide8.build_wide8_tlas(bmin, bmax, tl.w8_tlas_nw)
-    tlas_depth = int(wide8.node_depths(tlas).max())
-    check_depths(tlas_depth, tl.blas_depth)
-    rows = tl.w8_tlas_nw // wide8.NODES_PER_ROW
     dev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                     device=tl.device)
-    return dataclasses.replace(
-        tl, w8_nodes=torch.cat([torch.as_tensor(tlas, device=tl.device),
+    if tl.w8_nodes is None:
+        tlas, _ = _tlas_nodes(dev(bmin), dev(bmax))
+        tables = dict(nodes=torch.cat([tlas, tl.nodes[tlas.shape[0]:]]))
+    else:
+        tlas = wide8.build_wide8_tlas(bmin, bmax, tl.w8_tlas_nw)
+        tlas_depth = int(wide8.node_depths(tlas).max())
+        check_depths(tlas_depth, tl.blas_depth)
+        rows = tl.w8_tlas_nw // wide8.NODES_PER_ROW
+        tables = dict(
+            w8_nodes=torch.cat([torch.as_tensor(tlas, device=tl.device),
                                 tl.w8_nodes[rows:]]),
-        world_from_obj=dev(world_from_obj),
-        obj_from_world=dev(obj_from_world), normal_mat=dev(normal_mat),
-        tlas_depth=tlas_depth)
+            tlas_depth=tlas_depth)
+    return dataclasses.replace(
+        tl, **tables, world_from_obj=dev(world_from_obj),
+        obj_from_world=dev(obj_from_world), normal_mat=dev(normal_mat))
 
 
 def _planes(o: V3, d: V3, t_max):
@@ -250,23 +330,26 @@ def _planes(o: V3, d: V3, t_max):
     return (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
 
 
-def _walk(plain: bool):
-    return traversal_tlas8.trace_plain if plain else traversal_tlas8.trace
+def _walk(tl: TwoLevelFlat, plain: bool):
+    walk = (traversal_tlas_skip if tl.w8_nodes is None
+            else traversal_tlas8)
+    return walk.trace_plain if plain else walk.trace
 
 
 def closest_hit_tlas(tl: TwoLevelFlat, o: V3, d: V3, t_min, t_max,
                      plain: bool = False):
     """(t, tri, inst, u, v) over planar rays: tri is the global pool id
-    and inst the instance id (-1 on a miss, t = t_max).  A CUDA tensor
-    goes to K4, a CPU tensor to its plain version; plain=True takes the
-    plain version on any device."""
-    return _walk(plain)(tl, *_planes(o, d, t_max), float(t_min), True)
+    and inst the instance id (-1 on a miss, t = t_max).  The table's
+    walk (K4 for a BVH8 table, K5 for a binary one) runs its kernel on a
+    CUDA tensor and its plain version on a CPU tensor; plain=True takes
+    the plain version on any device."""
+    return _walk(tl, plain)(tl, *_planes(o, d, t_max), float(t_min), True)
 
 
 def any_hit_tlas(tl: TwoLevelFlat, o: V3, d: V3, t_min, t_max,
                  plain: bool = False) -> torch.Tensor:
     """Occlusion of the segments (t_min, t_max): bool (N,)."""
-    return _walk(plain)(tl, *_planes(o, d, t_max), float(t_min), False)
+    return _walk(tl, plain)(tl, *_planes(o, d, t_max), float(t_min), False)
 
 
 def shade_attrs_tlas(tl: TwoLevelFlat, materials: torch.Tensor, tri_id,

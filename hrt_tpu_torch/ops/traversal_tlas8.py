@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from .intersect import INF, moller_trumbore, safe_inv_dir
+from .intersect import (leaf_hits, safe_inv_dir, slab_hit,
+                        to_object_space)
 
 # Launches of the CUDA kernel, by mode; the plain version never counts.
 LAUNCHES = {"closest": 0, "any_hit": 0}
@@ -87,16 +88,6 @@ def _rank(low):
         + 4 * ((low & 0xF0) != 0).long()
 
 
-def _to_object(m, ow, dw):
-    """World rays (m, 3) into object space by 3x4 rows m (m, 12)."""
-    o = torch.stack([m[:, 4 * a] * ow[:, 0] + m[:, 4 * a + 1] * ow[:, 1]
-                     + m[:, 4 * a + 2] * ow[:, 2] + m[:, 4 * a + 3]
-                     for a in range(3)], dim=1)
-    d = torch.stack([m[:, 4 * a] * dw[:, 0] + m[:, 4 * a + 1] * dw[:, 1]
-                     + m[:, 4 * a + 2] * dw[:, 2] for a in range(3)], dim=1)
-    return o, d
-
-
 def trace_plain(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                 find_closest: bool):
     """The same walk as a vectorised PyTorch stack machine: every live
@@ -129,7 +120,6 @@ def trace_plain(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
     stack[:, 0] = 1
     sp = (tmax >= 0).to(torch.int64)
     words = torch.arange(8, device=dev)
-    kk = torch.arange(k, device=dev)
 
     live = torch.nonzero(sp > 0).squeeze(1)
     while live.numel():
@@ -149,7 +139,7 @@ def trace_plain(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
         en = e < 0
         r, se = live[en], s[en]
         iid = -e[en] - 1
-        o[r], d[r] = _to_object(tf[iid], ow[r], dw[r])
+        o[r], d[r] = to_object_space(tf[iid], ow[r], dw[r])
         inv[r] = safe_inv_dir(d[r])
         oi[r] = o[r] * inv[r]
         cur_inst[r] = iid
@@ -179,17 +169,9 @@ def trace_plain(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                                 device=dev)
         for j in range(8):
             w = rec[node[:, None] + j * 128 + words]          # (m, 8)
-            box = w[:, :6].view(torch.float32)
             meta = w[:, 6].long()
-            ta = box[:, 0:3] * inv[rv] - oi[rv]
-            tb = box[:, 3:6] * inv[rv] - oi[rv]
-            lo = torch.minimum(ta, tb)
-            hi = torch.maximum(ta, tb)
-            t_near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]),
-                                   torch.clamp(lo[:, 2], min=t_min))
-            t_far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]),
-                                  torch.minimum(hi[:, 2], t[rv]))
-            hit = (t_near <= t_far) & (meta != 0) & alive
+            hit = slab_hit(w[:, :6].view(torch.float32), inv[rv], oi[rv],
+                           t_min, t[rv]) & (meta != 0) & alive
             int_mask |= torch.where(hit & (meta < 0),
                                     1 << torch.clamp(-meta - 1, 0, 7), 0)
             leaf = hit & (meta > 0)
@@ -199,28 +181,16 @@ def trace_plain(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
             if not bool(leaf.any()):
                 continue
             rays = rv[leaf]
-            ids = (meta[leaf] - 1)[:, None] + kk                # (m', K)
-            tr = tris[ids]
-            h, th, uh, vh = moller_trumbore(
-                o[rays][:, None], d[rays][:, None], tr[..., 0:3],
-                tr[..., 3:6], tr[..., 6:9], t_min, t[rays][:, None])
+            better, th, ids, uh, vh = leaf_hits(
+                tris, meta[leaf] - 1, k, o[rays], d[rays], t_min, t[rays])
+            rb = rays[better]
+            tri[rb] = ids[better]
             if find_closest:
-                th = torch.where(h, th, INF)
-                tj, jj = torch.min(th, dim=1)
-                better = tj < t[rays]
-                rb = rays[better]
-                pick = lambda a: torch.gather(a, 1, jj[:, None])[:, 0][better]
-                t[rb] = tj[better]
-                tri[rb] = torch.gather(ids, 1, jj[:, None])[:, 0][better] \
-                    .to(torch.int32)
+                t[rb], u[rb], v[rb] = th[better], uh[better], vh[better]
                 hit_inst[rb] = cur_inst[rb].to(torch.int32)
-                u[rb] = pick(uh)
-                v[rb] = pick(vh)
             else:
-                any_h = h.any(dim=1)
-                tri[rays[any_h]] = 0
                 dead = torch.zeros_like(alive)
-                dead[torch.nonzero(leaf).squeeze(1)[any_h]] = True
+                dead[torch.nonzero(leaf).squeeze(1)[better]] = True
                 alive &= ~dead
         # The internal-children entry first, then the instance entries
         # on top, in slot order: instances are walked before descending.

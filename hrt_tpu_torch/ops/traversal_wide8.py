@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .intersect import INF, moller_trumbore, safe_inv_dir
+from .intersect import leaf_hits, safe_inv_dir, slab_hit
 
 # Launches of the CUDA kernel, by mode; the plain version never counts.
 LAUNCHES = {"closest": 0, "any_hit": 0}
@@ -98,7 +98,6 @@ def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
     stack[:, 0] = 1
     sp = (tmax >= 0).to(torch.int64)
     words = torch.arange(8, device=dev)
-    kk = torch.arange(k, device=dev)
 
     live = torch.nonzero(sp > 0).squeeze(1)
     while live.numel():
@@ -120,44 +119,24 @@ def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
         alive = torch.ones_like(cur, dtype=torch.bool)
         for j in range(8):
             w = rec[node[:, None] + j * 128 + words]          # (m, 8)
-            box = w[:, :6].view(torch.float32)
             meta = w[:, 6].long()
-            ta = box[:, 0:3] * inv[live] - oi[live]
-            tb = box[:, 3:6] * inv[live] - oi[live]
-            lo = torch.minimum(ta, tb)
-            hi = torch.maximum(ta, tb)
-            t_near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]),
-                                   torch.clamp(lo[:, 2], min=t_min))
-            t_far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]),
-                                  torch.minimum(hi[:, 2], t[live]))
-            hit = (t_near <= t_far) & (meta != 0) & alive
+            hit = slab_hit(w[:, :6].view(torch.float32), inv[live],
+                           oi[live], t_min, t[live]) & (meta != 0) & alive
             int_mask |= torch.where(hit & (meta < 0),
                                     1 << torch.clamp(-meta - 1, 0, 7), 0)
             leaf = hit & (meta > 0)
             if not bool(leaf.any()):
                 continue
             rays = live[leaf]
-            ids = (meta[leaf] - 1)[:, None] + kk                # (m', K)
-            tr = tris[ids]
-            h, th, uh, vh = moller_trumbore(
-                o[rays][:, None], d[rays][:, None], tr[..., 0:3],
-                tr[..., 3:6], tr[..., 6:9], t_min, t[rays][:, None])
+            better, th, ids, uh, vh = leaf_hits(
+                tris, meta[leaf] - 1, k, o[rays], d[rays], t_min, t[rays])
+            rb = rays[better]
+            tri[rb] = ids[better]
             if find_closest:
-                th = torch.where(h, th, INF)
-                tj, jj = torch.min(th, dim=1)
-                better = tj < t[rays]
-                rb = rays[better]
-                pick = lambda a: torch.gather(a, 1, jj[:, None])[:, 0][better]
-                t[rb] = tj[better]
-                tri[rb] = torch.gather(ids, 1, jj[:, None])[:, 0][better] \
-                    .to(torch.int32)
-                u[rb] = pick(uh)
-                v[rb] = pick(vh)
+                t[rb], u[rb], v[rb] = th[better], uh[better], vh[better]
             else:
-                any_h = h.any(dim=1)
-                tri[rays[any_h]] = 0
                 dead = torch.zeros_like(alive)
-                dead[torch.nonzero(leaf).squeeze(1)[any_h]] = True
+                dead[torch.nonzero(leaf).squeeze(1)[better]] = True
                 alive &= ~dead
         push = (int_mask != 0) & alive
         stack[live[push], sp[live[push]]] = (first_child[push] << 8) \

@@ -59,12 +59,11 @@ def build_wide8(child_l, child_r, bmin_l, bmax_l, bmin_r, bmax_r,
     table to a fixed node count (default: nw rounded up to a row).
     Returns (records (R, 8, 128) int32, old_of_new (NL_pool,) int64: the
     reorder's permutation, new pool block b holds old block
-    old_of_new[b]; computed in either mode).  Raises ValueError past
-    MAX_WIDE_NODES or nw_pad."""
+    old_of_new[b]; computed in either mode), or None when the tree has
+    MAX_WIDE_NODES wide nodes or more (the JAX package then walks the
+    binary skip-link table).  Raises ValueError past nw_pad."""
     ni = child_l.shape[0]
     nl_pool = leaf_min.shape[0]
-    if reorder and nl_pool * leaf_size * 256 >= 2 ** 31:
-        raise ValueError("leaf pool too large for leaf_base << 8")
     cuts = _cut(child_l, child_r)
     is_leaf0 = (cuts < 0) & (cuts != _EMPTY)
     cls = np.where(is_leaf0, 0, np.where(cuts >= 0, 8, 16))
@@ -82,9 +81,9 @@ def build_wide8(child_l, child_r, bmin_l, bmax_l, bmin_r, bmax_r,
     node_of_id = np.concatenate(levels)
     nw = node_of_id.shape[0]
     if nw >= MAX_WIDE_NODES:
-        raise ValueError(f"{nw} wide nodes exceed MAX_WIDE_NODES "
-                         f"({MAX_WIDE_NODES}); the BVH8 table cannot "
-                         "index them")
+        return None
+    if reorder and nl_pool * leaf_size * 256 >= 2 ** 31:
+        raise ValueError("leaf pool too large for leaf_base << 8")
     id_of = np.zeros(ni, np.int64)
     id_of[node_of_id] = np.arange(nw)
 
@@ -215,9 +214,11 @@ def build_wide8_tlas(inst_bmin: np.ndarray, inst_bmax: np.ndarray,
     """BVH8 records for a TLAS over instance world AABBs (I, 3): Morton
     order, Karras tree, refit, collapse with leaf metas = original
     instance id + 1, padded to `nw_pad` nodes.  A single instance
-    duplicates its box (the radix tree needs two leaves)."""
+    duplicates its box (the radix tree needs two leaves).  Host numpy
+    throughout: at the instance counts of an animated scene this beats
+    the torch LBVH functions' per-op cost on the CPU."""
     from . import morton
-    from .lbvh import karras_hierarchy, refit
+    from .lbvh import karras_hierarchy_host, refit_host
 
     inst_bmin = np.asarray(inst_bmin, np.float32)
     inst_bmax = np.asarray(inst_bmax, np.float32)
@@ -229,11 +230,14 @@ def build_wide8_tlas(inst_bmin: np.ndarray, inst_bmax: np.ndarray,
     codes = morton.morton_codes(centroid, inst_bmin.min(axis=0),
                                 inst_bmax.max(axis=0))
     order = np.argsort(codes, kind="stable")
-    child_l, child_r = karras_hierarchy(codes[order])
+    child_l, child_r = karras_hierarchy_host(codes[order])
     lmin, lmax = inst_bmin[order], inst_bmax[order]
-    boxes = refit(child_l, child_r, lmin, lmax)
-    records, _ = build_wide8(child_l, child_r, *boxes, lmin, lmax, 1,
-                             reorder=False,
-                             leaf_vals=np.minimum(order, i_real - 1),
-                             nw_pad=nw_pad)
-    return records
+    boxes = refit_host(child_l, child_r, lmin, lmax)
+    out = build_wide8(child_l, child_r, *boxes, lmin, lmax, 1,
+                      reorder=False, leaf_vals=np.minimum(order, i_real - 1),
+                      nw_pad=nw_pad)
+    if out is None:
+        raise ValueError(f"a TLAS over {i_real} instances has "
+                         f"MAX_WIDE_NODES ({MAX_WIDE_NODES}) wide nodes "
+                         "or more")
+    return out[0]

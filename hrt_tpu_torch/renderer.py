@@ -1,21 +1,23 @@
 """The direct-lighting frame: raygen -> closest hit -> attribute
 gather + sky -> Disney BRDF (K2) + shadow any-hit -> accumulate.
 
-The accel is either the single-level BVH8 Accel (ops/lbvh.py), traced
-by K1, or the two-level TwoLevelFlat (ops/tlas.py), traced by K4 and
-shaded through the hit instance's normal matrix and material.
+The accel is either a single-level Accel (ops/lbvh.py), traced by K1
+when it has a BVH8 table and by K3 when it has not (an LBVH, or a SAH
+tree past MAX_WIDE_NODES), or a two-level TwoLevelFlat (ops/tlas.py),
+traced by K4 (BVH8 route) or K5 (binary route) and shaded through the
+hit instance's normal matrix and material.
 
 The subset of hrt_tpu/renderer.py that the benchmark frame runs
 (`max_depth=1`, no jitter, one shadow ray per light), in plain PyTorch
-around the two kernels.  Per-pixel output is the JAX package's; only the
+around the kernels.  Per-pixel output is the JAX package's; only the
 ray order differs: rays stay in pixel order (the TPU's pixel-block
 reorder and shadow interleave are layouts for its packet tiles), the
 shadow batch is light-major concatenated, and the k frames of
 `render_frames` are a Python loop over primary rays computed once.
 
-Every entry point takes `plain=False`; `plain=True` routes both kernels
-to their plain PyTorch versions on whatever device the tensors are on,
-which is how a reference frame is rendered on the card.
+Every entry point takes `plain=False`; `plain=True` routes the walks
+and the BRDF to their plain PyTorch versions on whatever device the
+tensors are on, which is how a reference frame is rendered on the card.
 """
 from __future__ import annotations
 
@@ -106,8 +108,8 @@ def direct_lighting_p(scene: SceneData, accel, mat: MatP, n: V3,
                       view: V3, world_pos: V3, config: RenderConfig,
                       ray_mask=None, plain: bool = False) -> V3:
     """Direct light at the hit points: the BRDF of all lights in one K2
-    call, all shadow rays in one light-major any-hit call (K1, or K4 for
-    a two-level accel)."""
+    call, all shadow rays in one light-major any-hit call (the accel's
+    walk: K1 or K3, K4 or K5 for a two-level accel)."""
     num_lights = scene.lights.shape[0]
     if num_lights == 0:
         return _zero3(n.x)
@@ -146,8 +148,8 @@ class SurfaceHits(NamedTuple):
 def surface_hits(scene: SceneData, accel, o: V3, d: V3,
                  config: RenderConfig, plain: bool = False) -> SurfaceHits:
     """Closest hit and the attribute gather: by leaf-pool id from the
-    Accel's table (K1), or by global pool id and instance from the
-    TwoLevelFlat (K4)."""
+    Accel's table (K1 or K3), or by global pool id and instance from the
+    TwoLevelFlat (K4 or K5)."""
     if isinstance(accel, TwoLevelFlat):
         t, tri, inst, u, v = tlas.closest_hit_tlas(
             accel, o, d, config.t_min, INF, plain=plain)
@@ -171,8 +173,8 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3,
     require_slice(config)
     if not isinstance(accel, (Accel, TwoLevelFlat)):
         raise NotImplementedError(
-            "only the single-level BVH8 Accel and the two-level "
-            "TwoLevelFlat are ported (no brute-force frame path)")
+            "only the single-level Accel and the two-level TwoLevelFlat "
+            "are ported (no brute-force frame path)")
     if scene.textures is not None and scene.textures.shape[0] > 0:
         raise NotImplementedError("textured scenes are not ported yet")
     radiance = _zero3(o.x)
@@ -233,8 +235,7 @@ def render(scene_obj, cam: Camera, config: RenderConfig, accel,
     """Host entry: build the scene on the accel's device if needed and
     render one frame -> (H, W, 3) numpy array.  `accel` is an Accel or
     a TwoLevelFlat."""
-    device = (accel.device if isinstance(accel, TwoLevelFlat)
-              else accel.w8.device)
+    device = accel.tris.device
     scene = (scene_obj.build(device) if isinstance(scene_obj, Scene)
              else scene_obj)
     cams = camera_arrays(cam, config, device)

@@ -6,9 +6,10 @@ import pytest
 import torch
 
 import bench
-from hrt_tpu.ops import lbvh as jlbvh
+from hrt_tpu.ops import lbvh as jlbvh, wide8 as jwide8
 from hrt_tpu_torch.models.scene import bench_scene
-from hrt_tpu_torch.ops import lbvh, traversal_wide8, wide8
+from hrt_tpu_torch.ops import (lbvh, traversal, traversal_skip,
+                               traversal_wide8, wide8)
 from hrt_tpu_torch.utils.interop import accel_from_numpy, scene_from_numpy
 
 from test_fuzz import random_scene_data
@@ -22,7 +23,8 @@ def jax_scene_dict(scene):
 def jax_accel_dict(accel):
     d = {k: np.asarray(v) for k, v in accel.tree._asdict().items()}
     d["attr"] = np.asarray(accel.attr)
-    d["w8"] = np.asarray(accel.w8)
+    d["nodes"] = np.asarray(accel.flat.nodes)
+    d["w8"] = None if accel.w8 is None else np.asarray(accel.w8)
     return d
 
 
@@ -98,13 +100,23 @@ def test_accel_from_numpy_matches_build():
     np.testing.assert_array_equal(ta.tris[:, 9:12].numpy(), 0.0)
 
 
-def test_wide_node_bound_raises(monkeypatch):
-    """Past MAX_WIDE_NODES the port raises instead of switching to
-    another traversal."""
+def test_wide_node_bound_routes_to_k3(monkeypatch):
+    """Past MAX_WIDE_NODES the SAH build attaches no BVH8 table, as the
+    JAX package's, and keeps the un-reordered pool and its skip-link
+    table; its walks take K3.  (Until the skip-link walk was ported the
+    port raised here.)"""
     monkeypatch.setattr(wide8, "MAX_WIDE_NODES", 4)
-    _, ts = scene_pair("rand0")
-    with pytest.raises(ValueError, match="MAX_WIDE_NODES"):
-        lbvh.build_bvh_sah(ts, leaf_size=8)
+    monkeypatch.setattr(jwide8, "MAX_WIDE_NODES", 4)
+    js, ts = scene_pair("rand0")
+    ja = jlbvh.build_bvh_sah(js, leaf_size=8)
+    ta = lbvh.build_bvh_sah(ts, leaf_size=8)
+    assert ja.w8 is None and ta.w8 is None and not ja.w8_lb
+    np.testing.assert_array_equal(_bits(ja.flat.nodes), _bits(ta.nodes))
+    np.testing.assert_array_equal(ja.tree.tri_perm, ta.tri_perm.numpy())
+    assert traversal._walk(ta, False) is traversal_skip.trace
+    ia = accel_from_numpy(jax_accel_dict(ja), 8, "cpu")
+    assert ia.w8 is None and torch.equal(ia.nodes, ta.nodes)
+    assert ia.m_real == ta.m_real
 
 
 def test_stack_depth_bound_raises_at_build(monkeypatch):

@@ -208,3 +208,103 @@ def test_two_level_frame_matches_plain_and_soup(cuda):
     for other in (ref, soup_img):
         assert psnr(img.clamp(0, 4).cpu().numpy(),
                     other.clamp(0, 4).cpu().numpy(), peak=4.0) > 45.0
+
+
+def _bits(t):
+    t = t.detach().cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def test_lbvh_on_the_card_is_bit_equal_to_the_cpu_build(cuda):
+    """The culling rebuild's LBVH, built on the card and on the CPU from
+    the same scene and mask: every tree field, the sorted codes and the
+    skip-link table agree bit for bit."""
+    from hrt_tpu_torch.ops import culling
+
+    sc = instance_grid_scene(4)
+    cpu, card = sc.build("cpu"), sc.build(cuda)
+    vis = torch.as_tensor(np.random.RandomState(1).rand(17) < 0.7)
+    mask = culling.triangle_mask(vis, cpu.tri_inst, cpu.tri_valid)
+    a = lbvh.lbvh_tree(cpu, 32, mask)
+    b = lbvh.lbvh_tree(card, 32, mask.to(cuda))
+    for k in a:
+        assert torch.equal(_bits(a[k]), _bits(b[k])), k
+    na, ma = lbvh.flatten_tree(a, 32)
+    nb, mb = lbvh.flatten_tree(b, 32)
+    assert ma == mb and torch.equal(_bits(na), _bits(nb))
+    assert nb.device.type == "cuda"
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_skip_kernel_matches_plain_and_bruteforce(cuda, closest):
+    """K3 on the LBVH of the bench scene."""
+    from hrt_tpu_torch.ops import traversal_skip
+
+    scene = bench_scene().build(cuda)
+    accel = lbvh.build_bvh(scene, 32)
+    assert accel.w8 is None
+    o, d = _rays(7, 4096, cuda)
+    tmax = torch.full((4096,), 1e32 if closest else 5.0, device=cuda)
+    tmax[::17] = -1.0                                   # dead rays
+    planes = (*o.T.contiguous(), *d.T.contiguous(), tmax)
+    mode = "closest" if closest else "any_hit"
+    before = traversal_skip.LAUNCHES[mode]
+    k = traversal_skip.trace_kernel(accel, *planes, 1e-3, closest)
+    p = traversal_skip.trace_plain(accel, *planes, 1e-3, closest)
+    torch.cuda.synchronize()
+    assert traversal_skip.LAUNCHES[mode] == before + 1
+    if closest:
+        kt, ktri = k[0], k[1]
+        assert (ktri == p[1]).float().mean().item() >= 0.999
+        same = (ktri == p[1]) & (ktri >= 0)
+        torch.testing.assert_close(kt[same], p[0][same], rtol=1e-4,
+                                   atol=1e-5)
+        assert (ktri[::17] == -1).all()
+        bt, bi, _, _ = closest_hit_bruteforce(
+            o, d, scene.tri_v0, scene.tri_e1, scene.tri_e2, 1e-3, tmax)
+        orig = torch.where(ktri >= 0,
+                           accel.tri_perm[ktri.clamp(min=0).long()], -1)
+        tie = (orig >= 0) & (bi >= 0) & ((kt - bt).abs() <= 1e-5 * bt.abs())
+        assert ((orig == bi) | tie).float().mean().item() >= 0.999
+    else:
+        assert (k == p).float().mean().item() >= 0.999
+        assert not k[::17].any()
+        bocc = any_hit_bruteforce(o, d, scene.tri_v0, scene.tri_e1,
+                                  scene.tri_e2, 1e-3, tmax)
+        assert (k == bocc).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_tlas_skip_kernel_matches_plain_and_k4(cuda, closest):
+    """K5 on the binary tables of the instanced scene (past a lowered
+    wide bound), against its plain walk and against K4 on the same
+    scene's unified BVH8 table."""
+    from hrt_tpu_torch.ops import traversal_tlas_skip
+
+    sc = _instanced_scene()
+    tl5 = tlas.build_two_level_flat(sc, 32, device=cuda, max_wide_nodes=32)
+    tl4 = tlas.build_two_level_flat(sc, 32, device=cuda)
+    assert tl5.w8_nodes is None and tl4.w8_nodes is not None
+    o, d = _rays(9, 4096, cuda)
+    tmax = torch.full((4096,), 1e32 if closest else 4.0, device=cuda)
+    tmax[::17] = -1.0                                   # dead rays
+    planes = (*o.T.contiguous(), *d.T.contiguous(), tmax)
+    mode = "closest" if closest else "any_hit"
+    before = traversal_tlas_skip.LAUNCHES[mode]
+    k = traversal_tlas_skip.trace_kernel(tl5, *planes, 1e-3, closest)
+    p = traversal_tlas_skip.trace_plain(tl5, *planes, 1e-3, closest)
+    k4 = traversal_tlas8.trace_kernel(tl4, *planes, 1e-3, closest)
+    torch.cuda.synchronize()
+    assert traversal_tlas_skip.LAUNCHES[mode] == before + 1
+    if closest:
+        for other in (p, k4):
+            same = (k[1] == other[1]) & (k[2] == other[2])
+            assert same.float().mean().item() >= 0.999
+            hit = same & (k[1] >= 0)
+            torch.testing.assert_close(k[0][hit], other[0][hit], rtol=1e-4,
+                                       atol=1e-5)
+        assert (k[1][::17] == -1).all() and (k[2][::17] == -1).all()
+    else:
+        for other in (p, k4):
+            assert (k == other).float().mean().item() >= 0.999
+        assert not k[::17].any()

@@ -1,11 +1,14 @@
 """The instanced (two-level) path of hrt_tpu_torch against the JAX
-package, on the CPU: the host two-level build and its TLAS refit bit for
-bit, the K4 plain walk against JAX's two-level walk (K5 in interpret
-mode, as the JAX package's own tests run it here) on the port's table
-and on a JAX-built one, the two-level shading gather, and the 64x48
-two-level FrameLoop frame.  The scene is test_tlas's four transformed
-instances; the JAX structures are built once per module.  The CUDA
-kernel is held against the plain walk on a card in test_torch_cuda.py.
+package, on the CPU: the two-level build on both routes (the unified
+BVH8 table, and the binary skip-link tables past the wide bound) and
+their TLAS refits bit for bit, with SAH and with LBVH (sah=False)
+BLAS; the K4 and K5 plain walks against JAX's two-level walk (K5 in
+interpret mode, as the JAX package's own tests run it here) on the
+port's tables and on JAX-built ones; the two-level shading gather, and
+the 64x48 two-level FrameLoop frame.  The scene is test_tlas's four
+transformed instances; the JAX structures are built once per module.
+The CUDA kernels are held against the plain walks on a card in
+test_torch_cuda.py.
 """
 import os
 import subprocess
@@ -21,15 +24,17 @@ from hrt_tpu.config import RenderConfig as JRenderConfig
 from hrt_tpu.frameloop import FrameLoop as JFrameLoop
 from hrt_tpu.models.camera import Camera as JCamera
 from hrt_tpu.models.instance import MeshInstance as JMeshInstance
-from hrt_tpu.ops import lbvh as jlbvh, morton as jmorton, tlas as jtlas
-from hrt_tpu.ops import wide8 as jwide8
+from hrt_tpu.ops import culling as jculling, lbvh as jlbvh
+from hrt_tpu.ops import morton as jmorton, tlas as jtlas, wide8 as jwide8
+from hrt_tpu.renderer import camera_arrays as jcamera_arrays
 from hrt_tpu.ops.v3 import V3 as JV3
 from hrt_tpu_torch.config import RenderConfig
 from hrt_tpu_torch.frameloop import FrameLoop
 from hrt_tpu_torch.models.camera import Camera
 from hrt_tpu_torch.models.instance import MeshInstance
 from hrt_tpu_torch.models.scene import Scene
-from hrt_tpu_torch.ops import lbvh, morton, tlas, traversal_tlas8, wide8
+from hrt_tpu_torch.ops import (lbvh, morton, tlas, traversal, traversal_skip,
+                               traversal_tlas8, traversal_tlas_skip, wide8)
 from hrt_tpu_torch.ops.intersect import closest_hit_bruteforce
 from hrt_tpu_torch.ops.v3 import V3
 from hrt_tpu_torch.utils.image import psnr
@@ -68,12 +73,19 @@ def _tv3(a):
                 for i in range(3)))
 
 
-def jax_two_level_dict(tl) -> dict:
+def jax_two_level_dict(tl, route: str = "bvh8") -> dict:
+    """The JAX TwoLevelFlat's arrays, with the tables of one route (JAX
+    builds the binary tables always and the BVH8 ones when they fit)."""
     d = {k: np.asarray(getattr(tl, k)) for k in (
-        "w8_nodes", "w8_root", "tris", "attr", "inst_mat", "inst_mesh",
-        "normal_mat", "world_from_obj", "obj_from_world", "root_bmin",
-        "root_bmax")}
-    d["w8_tlas_nw"] = tl.w8_tlas_nw
+        "tris", "attr", "inst_mat", "inst_mesh", "normal_mat",
+        "world_from_obj", "obj_from_world", "root_bmin", "root_bmax")}
+    if route == "bvh8":
+        d.update(w8_nodes=np.asarray(tl.w8_nodes),
+                 w8_root=np.asarray(tl.w8_root), w8_tlas_nw=tl.w8_tlas_nw)
+    else:
+        d.update(nodes=np.asarray(tl.nodes),
+                 blas_base=np.asarray(tl.blas_base),
+                 blas_end=np.asarray(tl.blas_end), tlas_m=tl.tlas_m)
     d["leaf_size"] = tl.leaf_size
     return d
 
@@ -93,12 +105,24 @@ def port_tl():
 
 
 @pytest.fixture(scope="module")
-def tables(jax_loop, port_tl):
-    """The port walks two tables: its own build and JAX's, carried over
-    through two_level_from_numpy."""
+def port_tl_binary():
+    """The port's build of the same scene past a lowered wide bound: the
+    binary route (K5)."""
+    return tlas.build_two_level_flat(port_scene(_instanced_scene()), 32,
+                                     max_wide_nodes=32)
+
+
+@pytest.fixture(scope="module")
+def tables(jax_loop, port_tl, port_tl_binary):
+    """The port walks four tables: its own builds on both routes (K4 and
+    K5) and JAX's tables of both routes, carried over through
+    two_level_from_numpy."""
     return {"port_build": port_tl,
             "jax_table": two_level_from_numpy(
-                jax_two_level_dict(jax_loop.accel), "cpu")}
+                jax_two_level_dict(jax_loop.accel), "cpu"),
+            "port_binary": port_tl_binary,
+            "jax_binary": two_level_from_numpy(
+                jax_two_level_dict(jax_loop.accel, "binary"), "cpu")}
 
 
 @pytest.fixture(scope="module")
@@ -154,6 +178,9 @@ def test_build_wide8_tlas_bit_equal(jax_loop, n_inst):
 
 
 def test_morton_and_karras_bit_equal():
+    """Morton codes, the radix tree and its refit: the host numpy
+    versions (the wide TLAS) and the torch ones (the LBVH and the binary
+    TLAS) against JAX's."""
     rs = np.random.RandomState(5)
     pts = rs.uniform(-3, 7, (300, 3)).astype(np.float32)
     pts[:4] = [[-3, -3, -3], [7, 7, 7], [2, 2, 2], [2, 2, 2]]  # edges, dup
@@ -163,18 +190,25 @@ def test_morton_and_karras_bit_equal():
                                            jnp.asarray(lo), jnp.asarray(hi)))
     assert codes.dtype == np.uint32
     np.testing.assert_array_equal(codes, want)
+    np.testing.assert_array_equal(morton.morton_codes_torch(
+        *map(torch.as_tensor, (pts, lo, hi))).numpy(), want)
     # The radix tree over sorted codes with duplicate keys (index
     # tiebreak) and the refit over it.
     keys = np.sort(codes)
     keys[10:20] = keys[10]
     boxes = (pts - 0.5, pts + 0.5)
-    cl, cr = lbvh.karras_hierarchy(keys)
     jcl, jcr = jlbvh.karras_hierarchy(jnp.asarray(keys))
-    np.testing.assert_array_equal(cl, np.asarray(jcl))
-    np.testing.assert_array_equal(cr, np.asarray(jcr))
-    for a, b in zip(lbvh.refit(cl, cr, *boxes),
-                    jlbvh.refit(jcl, jcr, *map(jnp.asarray, boxes))):
-        np.testing.assert_array_equal(_bits(a), _bits(b))
+    jboxes = jlbvh.refit(jcl, jcr, *map(jnp.asarray, boxes))
+    host = lbvh.karras_hierarchy_host(keys)
+    dev = [a.numpy() for a in lbvh.karras_hierarchy(
+        torch.as_tensor(keys.astype(np.int64)))]
+    for cl, cr in (host, dev):
+        np.testing.assert_array_equal(cl, np.asarray(jcl))
+        np.testing.assert_array_equal(cr, np.asarray(jcr))
+    for got in (lbvh.refit_host(*host, *boxes),
+                lbvh.refit(*map(torch.as_tensor, (*dev, *boxes)))):
+        for a, b in zip(got, jboxes):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
 
 
 def _moved(instances):
@@ -187,12 +221,25 @@ def _moved(instances):
             for k in ("transform", "inverse_transform", "normal_matrix")]
 
 
-def test_refit_bit_equal_and_moves_instance(jax_loop, port_tl):
-    """JAX's refit_two_level body runs unjitted (its jit compile alone
-    costs ~18 s on the CPU); the TLAS build inside it stays jitted."""
+@pytest.fixture(scope="module")
+def jax_refit(jax_loop):
+    """The moved transforms and JAX's refit of its table (both routes'
+    TLAS rebuilt).  JAX's refit_two_level body runs unjitted (its jit
+    compile alone costs ~18 s on the CPU); the TLAS builds inside it
+    stay jitted."""
     mats = _moved(jax_loop.scene_obj.instances)
-    jt2 = jtlas.refit_two_level.__wrapped__(jax_loop.accel,
-                                            *map(jnp.asarray, mats))
+    return mats, jtlas.refit_two_level.__wrapped__(jax_loop.accel,
+                                                   *map(jnp.asarray, mats))
+
+
+def _inst_of(tl, origin):
+    o = np.asarray([origin], np.float32)
+    d = np.asarray([[0.0, 0.0, 1.0]], np.float32)
+    return int(tlas.closest_hit_tlas(tl, _tv3(o), _tv3(d), 1e-3, 1e32)[2][0])
+
+
+def test_refit_bit_equal_and_moves_instance(jax_loop, jax_refit, port_tl):
+    mats, jt2 = jax_refit
     tl2 = tlas.refit_two_level(port_tl, *mats)
     np.testing.assert_array_equal(tl2.w8_nodes.numpy(),
                                   np.asarray(jt2.w8_nodes))
@@ -202,19 +249,50 @@ def test_refit_bit_equal_and_moves_instance(jax_loop, port_tl):
     # The refit leaves the table it started from as it was.
     np.testing.assert_array_equal(port_tl.w8_nodes.numpy(),
                                   np.asarray(jax_loop.accel.w8_nodes))
-
-    def inst_of(tl, origin):
-        o = np.asarray([origin], np.float32)
-        d = np.asarray([[0.0, 0.0, 1.0]], np.float32)
-        return int(tlas.closest_hit_tlas(tl, _tv3(o), _tv3(d), 1e-3,
-                                         1e32)[2][0])
-
-    assert inst_of(port_tl, (0.0, 0.0, -5.0)) == 1     # before the move
-    assert inst_of(tl2, (0.0, 0.0, -5.0)) != 1         # gone after it
-    assert inst_of(tl2, (0.0, -8.0, -5.0)) == 1        # found where it went
+    assert _inst_of(port_tl, (0.0, 0.0, -5.0)) == 1     # before the move
+    assert _inst_of(tl2, (0.0, 0.0, -5.0)) != 1         # gone after it
+    assert _inst_of(tl2, (0.0, -8.0, -5.0)) == 1        # found where it went
 
 
-@pytest.mark.parametrize("table", ["port_build", "jax_table"])
+def test_binary_refit_bit_equal_and_moves_instance(jax_loop, jax_refit,
+                                                   port_tl_binary):
+    """The binary route's refit rebuilds the TLAS rows (torch, on the
+    table's device) bit for bit as JAX's; the BLAS rows stay."""
+    mats, jt2 = jax_refit
+    tl = port_tl_binary
+    tl2 = tlas.refit_two_level(tl, *mats)
+    assert tl2.w8_nodes is None
+    np.testing.assert_array_equal(_bits(tl2.nodes.numpy()),
+                                  _bits(jt2.nodes))
+    np.testing.assert_array_equal(_bits(tl.nodes.numpy()),
+                                  _bits(jax_loop.accel.nodes))
+    np.testing.assert_array_equal(_bits(tl2.obj_from_world.numpy()),
+                                  _bits(jt2.obj_from_world))
+    assert _inst_of(tl, (0.0, 0.0, -5.0)) == 1
+    assert _inst_of(tl2, (0.0, 0.0, -5.0)) != 1
+    assert _inst_of(tl2, (0.0, -8.0, -5.0)) == 1
+
+
+def test_binary_tables_bit_equal(jax_loop, port_tl_binary):
+    """Past the wide bound the port builds JAX's binary tables: the
+    skip-link rows (TLAS, then the globalized BLAS), the BLAS ranges,
+    tlas_m and the transforms K5 reads; no BVH8 table."""
+    jt, tl = jax_loop.accel, port_tl_binary
+    assert tl.w8_nodes is None and tl.w8_root is None
+    np.testing.assert_array_equal(_bits(tl.nodes.numpy()), _bits(jt.nodes))
+    for key in ("blas_base", "blas_end", "obj_from_world", "attr",
+                "root_bmin", "root_bmax"):
+        a, b = np.asarray(getattr(jt, key)), getattr(tl, key).numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, key
+        np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=key)
+    assert tl.tlas_m == jt.tlas_m == 7
+    assert tlas._walk(tl, False) is traversal_tlas_skip.trace
+
+
+TABLES = ["port_build", "jax_table", "port_binary", "jax_binary"]
+
+
+@pytest.mark.parametrize("table", TABLES)
 def test_closest_matches_jax(tables, jax_closest, table):
     o, d, (jt, jtri, jinst, _, _) = jax_closest
     t, tri, inst, _, _ = [a.numpy() for a in tlas.closest_hit_tlas(
@@ -229,7 +307,7 @@ def test_closest_matches_jax(tables, jax_closest, table):
     assert (tri == jtri).mean() >= 0.99
 
 
-@pytest.mark.parametrize("table", ["port_build", "jax_table"])
+@pytest.mark.parametrize("table", TABLES)
 def test_any_hit_matches_jax(tables, jax_loop, table):
     o, d = _rays(512, seed=8)
     reach = np.full(512, 4.0, np.float32)
@@ -289,13 +367,13 @@ def test_two_level_frame_matches_soup_frame():
     assert np.isclose(tl_img, soup_img, rtol=1e-3, atol=1e-3).mean() > 0.995
 
 
-def test_single_instance_scene_walks(port_tl):
+def _single_instance_walk(max_wide_nodes: int):
     """One instance: the TLAS duplicates its box; the walk still finds
-    exactly the soup's hits."""
+    exactly the soup's hits.  Returns the table."""
     js = _instanced_scene()
     js.instances = js.instances[2:3]
     sc = port_scene(js)
-    tl = tlas.build_two_level_flat(sc, 32)
+    tl = tlas.build_two_level_flat(sc, 32, max_wide_nodes=max_wide_nodes)
     soup = sc.build("cpu")
     o, d = _rays(300, seed=4)
     t, tri, inst, _, _ = tlas.closest_hit_tlas(tl, _tv3(o), _tv3(d), 1e-3,
@@ -308,19 +386,21 @@ def test_single_instance_scene_walks(port_tl):
     both = bi >= 0
     np.testing.assert_allclose(t[both].numpy(), bt[both].numpy(),
                                rtol=2e-4, atol=2e-5)
+    return tl
+
+
+def test_single_instance_scene_walks(port_tl):
+    _single_instance_walk(wide8.MAX_WIDE_NODES)
+
+
+def test_single_instance_scene_walks_binary():
+    """The same on the binary route (K5): a TLAS of 3 nodes whose two
+    leaves both enter instance 0."""
+    tl = _single_instance_walk(32)
+    assert tl.w8_nodes is None and tl.tlas_m == 3
 
 
 @pytest.mark.parametrize("what,call,exc,match", [
-    ("sah=False", lambda: tlas.build_two_level_flat(
-        port_scene(_instanced_scene()), 32, sah=False),
-     NotImplementedError, "LBVH"),
-    ("past the wide bound", lambda: tlas.build_two_level_flat(
-        port_scene(_instanced_scene()), 32, max_wide_nodes=32),
-     ValueError, "K5"),
-    ("culling on a single-level accel", lambda: FrameLoop(
-        port_scene(_instanced_scene()), RenderConfig(**FRAME),
-        cull_threshold_px=1.0, device="cpu"), NotImplementedError,
-     "culling"),
     ("denoise", lambda: FrameLoop(
         port_scene(_instanced_scene()),
         RenderConfig(denoise=True, **FRAME), two_level=True,
@@ -331,23 +411,95 @@ def test_refusals(what, call, exc, match):
         call()
 
 
-def test_cpu_tensors_take_the_plain_version(port_tl):
+@pytest.fixture(scope="module")
+def jax_lbvh_tl():
+    """JAX's sah=False two-level table: every BLAS an LBVH, collapsed to
+    BVH8 (both routes' tables)."""
+    return jtlas.build_two_level_flat(_instanced_scene(), 32, sah=False)
+
+
+# A camera far enough back that two of the four instances fall below a
+# pixel at 64x48 (footprints 22.9, 2.32, 0.81, 0.97 px^2).
+FAR_CAM = dict(position=(0.0, -19.0, -60.0), rotation=(-0.15, 0.0, 0.0))
+
+
+@pytest.mark.parametrize("what", ["sah=False", "past the wide bound",
+                                  "culling on a single-level accel"])
+def test_former_refusals_route(what, jax_loop, jax_lbvh_tl):
+    """Calls the port refused until the skip-link walks were ported now
+    build what the JAX package builds and route as it does."""
+    sc = port_scene(_instanced_scene())
+    if what == "sah=False":
+        # LBVH BLAS collapsed to BVH8: JAX's unified table, walked by K4;
+        # past the bound, JAX's binary tables, walked by K5.
+        jt = jax_lbvh_tl
+        tl = tlas.build_two_level_flat(sc, 32, sah=False)
+        for key in ("w8_nodes", "w8_root", "attr", "root_bmin",
+                    "root_bmax"):
+            np.testing.assert_array_equal(
+                _bits(getattr(tl, key).numpy()),
+                _bits(getattr(jt, key)), err_msg=key)
+        rows = np.asarray(jt.tris).transpose(0, 2, 1).reshape(-1, 16)
+        np.testing.assert_array_equal(_bits(rows[:, :9]),
+                                      _bits(tl.tris.numpy()[:, :9]))
+        assert tl.w8_tlas_nw == jt.w8_tlas_nw
+        assert tlas._walk(tl, False) is traversal_tlas8.trace
+        tl = tlas.build_two_level_flat(sc, 32, sah=False, max_wide_nodes=32)
+        for key in ("nodes", "blas_base", "blas_end"):
+            np.testing.assert_array_equal(
+                _bits(getattr(tl, key).numpy()),
+                _bits(getattr(jt, key)), err_msg=key)
+        assert tl.tlas_m == jt.tlas_m
+        assert tlas._walk(tl, False) is traversal_tlas_skip.trace
+    elif what == "past the wide bound":
+        tl = tlas.build_two_level_flat(sc, 32, max_wide_nodes=32)
+        np.testing.assert_array_equal(_bits(tl.nodes.numpy()),
+                                      _bits(jax_loop.accel.nodes))
+        assert tl.w8_nodes is None
+        assert tlas._walk(tl, False) is traversal_tlas_skip.trace
+    else:
+        # The default cull_threshold_px: the first step culls two
+        # instances as JAX's culling does, and rebuilds with the LBVH.
+        cfg = RenderConfig(**FRAME)
+        loop = FrameLoop(sc, cfg, device="cpu")
+        assert loop.cull_threshold_px == 1.0 and loop.accel.w8 is not None
+        img = loop.step(Camera(**FAR_CAM))
+        want = jculling.cull_instances(
+            jnp.ones(4, bool), jax_loop.scene.inst_bmin,
+            jax_loop.scene.inst_bmax,
+            jcamera_arrays(JCamera(**FAR_CAM), JRenderConfig(**FRAME)),
+            64, 48)
+        np.testing.assert_array_equal(loop.visible.numpy(),
+                                      [True, True, False, False])
+        np.testing.assert_array_equal(loop.visible.numpy(),
+                                      np.asarray(want))
+        assert loop.rebuilds == 1 and loop.accel.w8 is None
+        assert traversal._walk(loop.accel, False) is traversal_skip.trace
+        assert img.shape == (48, 64, 3) and torch.isfinite(img).all()
+
+
+@pytest.mark.parametrize("route", ["bvh8", "binary"])
+def test_cpu_tensors_take_the_plain_version(port_tl, port_tl_binary, route):
+    tl, walk = ((port_tl, traversal_tlas8) if route == "bvh8"
+                else (port_tl_binary, traversal_tlas_skip))
     o, d = _rays(64, seed=2)
     planes = (*_tv3(o), *_tv3(d), torch.full((64,), 1e32))
-    before = dict(traversal_tlas8.LAUNCHES)
-    got = traversal_tlas8.trace(port_tl, *planes, 1e-3, True)
-    want = traversal_tlas8.trace_plain(port_tl, *planes, 1e-3, True)
-    assert traversal_tlas8.LAUNCHES == before
+    before = dict(walk.LAUNCHES)
+    got = walk.trace(tl, *planes, 1e-3, True)
+    want = walk.trace_plain(tl, *planes, 1e-3, True)
+    assert walk.LAUNCHES == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     meta = [p.to("meta") for p in planes]
     with pytest.raises(ValueError):
-        traversal_tlas8.trace(port_tl, *meta, 1e-3, True)
+        walk.trace(tl, *meta, 1e-3, True)
 
 
 def test_package_imports_with_jax_flax_hrt_tpu_blocked():
-    """hrt_tpu_torch imports, builds a two-level table and walks it with
-    jax, flax and hrt_tpu made unimportable."""
+    """hrt_tpu_torch imports, builds and walks both two-level routes
+    (K4's and K5's plain walks), builds an LBVH and walks it (K3's plain
+    walk), and runs a culled FrameLoop step, with jax, flax and hrt_tpu
+    made unimportable."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'hrt_tpu'):\n"
@@ -357,20 +509,35 @@ def test_package_imports_with_jax_flax_hrt_tpu_blocked():
         "'hrt_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import torch\n"
+        "from hrt_tpu_torch.config import RenderConfig\n"
+        "from hrt_tpu_torch.frameloop import FrameLoop\n"
+        "from hrt_tpu_torch.models.camera import orbit_camera\n"
         "from hrt_tpu_torch.models.scene import instance_grid_scene\n"
-        "from hrt_tpu_torch.ops import tlas\n"
+        "from hrt_tpu_torch.ops import lbvh, tlas, traversal\n"
         "from hrt_tpu_torch.ops.v3 import V3\n"
-        "tl = tlas.build_two_level_flat(instance_grid_scene(2), 32)\n"
         "o = V3(*torch.tensor([[0.0, 0.5, -5.0], [0.0, -5.0, 0.0]]).T)\n"
         "d = V3(*torch.tensor([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0]]).T)\n"
-        "t, tri, inst, u, v = tlas.closest_hit_tlas(tl, o, d, 1e-3, 1e32)\n"
-        "print(int(inst.min()))\n")
+        "for bound in (1 << 15, 32):\n"
+        "    tl = tlas.build_two_level_flat(instance_grid_scene(2), 32,\n"
+        "                                   max_wide_nodes=bound)\n"
+        "    inst = tlas.closest_hit_tlas(tl, o, d, 1e-3, 1e32)[2]\n"
+        "    print(int(inst.min()))\n"
+        "scene = instance_grid_scene(2).build('cpu')\n"
+        "acc = lbvh.build_bvh(scene, 32)\n"
+        "t, tri, u, v = traversal.closest_hit_bvh_p(scene, acc, o, d, 1e-3,\n"
+        "                                           1e32)\n"
+        "print(int(tri.min()))\n"
+        "loop = FrameLoop(instance_grid_scene(2), RenderConfig(\n"
+        "    width=16, height=12, max_depth=1), device='cpu')\n"
+        "loop.step(orbit_camera(0.0, radius=40.0, height=-1.0))\n"
+        "print(loop.rebuilds)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 0
+    out = [int(x) for x in proc.stdout.split()]
+    assert min(out[:3]) >= 0 and out[3] >= 1
 
 
 def test_instance_grid_scene_matches_bench_full():
