@@ -66,6 +66,29 @@ by K5, animated.  Phases:
      of the culled frame (still, and along the orbit with its rebuilds)
      and of the forest frame (still, and with a refit per frame), at both
      sizes
+ 20. K6 (the reprojection warp) vs its plain version on the inputs of a
+     moving-camera post frame at both of its shapes (SVGF's history,
+     1920x1080 C=10; the temporal upscaler's, 3840x2160 C=3): validity
+     identical, values within rel err 1e-5 (of the taps' absolute
+     weighted sum) and finite; both vs grid_sample (float64, corner
+     convention, border padding) at in-bounds pixels
+ 21. the post FrameLoop (SVGF + the temporal 2x upscaler with the
+     committed trained weights): 8 steps at 512x384 -> 1024x768 along
+     the bench camera moving each step; the launch counters must show per
+     step 2 K6, 1 K1 closest, 1 K1 any-hit, 1 K2 and no K3, with no
+     rebuild; the last frame vs the same loop replayed with the plain
+     versions (PSNR > 45); one spatial-mode and one denoise-only step
+ 22. the same at full size, 1920x1080 -> 3840x2160, 4 steps; peak memory
+ 23. times (CUDA events, median of 7): K6 at both shapes vs its plain
+     version and grid_sample, beside its bound; svgf, the upscaler
+     forward and reproject_history alone at 1080p; ms/frame of the post
+     loop at both sizes
+
+Every kernel line carries its bound: the larger of the bytes it must
+move (each input read once, each output written once) over 3.35 TB/s
+and its float32 operations over 67 TFLOP/s (H100 SXM data sheet).  The
+walks' operations depend on the visits, which are not counted on the
+card, so their bound is their bytes.
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails.  The line before the last is the kernels JSON; the last is
@@ -92,6 +115,15 @@ K3_SOURCE = "hrt_tpu_torch/csrc/skip_trace.cu"
 K3_REPLACES = "hrt_tpu/ops/traversal_pallas.py:522"
 K5_SOURCE = "hrt_tpu_torch/csrc/tlas_skip_trace.cu"
 K5_REPLACES = "hrt_tpu/ops/tlas.py:538"
+K6_SOURCE = "hrt_tpu_torch/csrc/warp_bilinear.cu"
+K6_REPLACES = "hrt_tpu/ops/warp_pallas.py:291"
+# H100 SXM (data sheet): device memory rate, float32 rate outside the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Float operations of one relevant K2 element, counted from
+# csrc/disney.cuh (each division, sqrt and log2 counted once).
+K2_OPS_PER_ELEMENT = 300
 
 
 class Smoke:
@@ -156,6 +188,28 @@ def soup_agreement(ids, inst, t, bi, bt, tri_inst) -> float:
     return float(ok.float().mean())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the float32 operations over the peak rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def post_cam(f: int):
+    """BENCH_CAM moving a little each step (x and yaw)."""
+    from hrt_tpu_torch.models.camera import Camera
+
+    (x, y, z), (rx, ry, rz) = BENCH_CAM["position"], BENCH_CAM["rotation"]
+    return Camera(position=(x + 0.03 * f, y, z),
+                  rotation=(rx, ry + 0.004 * f, rz))
+
+
 def reset(*counters) -> None:
     for c in counters:
         for key in c:
@@ -212,6 +266,198 @@ def frame_batches(scene, accel, cams, cfg):
     shadow = (lb.origin.x, lb.origin.y, lb.origin.z, lb.l.x, lb.l.y,
               lb.l.z, lb.t_max)
     return prim, shadow
+
+
+def run_post_loop(dev, cfg, steps: int):
+    """A post FrameLoop on the bench scene along post_cam, through the
+    kernels, then the same loop replayed with the plain versions.  The
+    counters are set to 0 just before the kernel loop and read just
+    after it.  Returns (per-step launch deltas, totals, peak bytes, last
+    kernel frame, last plain frame, the kernel loop)."""
+    import torch
+
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models.scene import bench_scene
+    from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
+    from hrt_tpu_torch.ops import traversal_wide8 as k1, warp_kernel as k6
+
+    def counts():
+        return {"k6": k6.LAUNCHES["warp_bilinear"],
+                "k1_closest": k1.LAUNCHES["closest"],
+                "k1_any_hit": k1.LAUNCHES["any_hit"],
+                "k2": shade_kernel.LAUNCHES["brdf_light_major"],
+                "k3": k3.LAUNCHES["closest"] + k3.LAUNCHES["any_hit"]}
+
+    loop = FrameLoop(bench_scene(), cfg, device=dev)
+    ref_loop = FrameLoop(bench_scene(), cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(k6.LAUNCHES, k1.LAUNCHES, k3.LAUNCHES, shade_kernel.LAUNCHES)
+    deltas = []
+    for f in range(steps):
+        before = counts()
+        img = loop.step(post_cam(f))
+        deltas.append({k: v - before[k] for k, v in counts().items()})
+    torch.cuda.synchronize()
+    totals = counts()
+    peak = torch.cuda.max_memory_allocated()
+    for f in range(steps):
+        ref = ref_loop.step(post_cam(f), plain=True)
+    torch.cuda.synchronize()
+    return deltas, totals, peak, img, ref, loop
+
+
+def post_phases(sm: Smoke, dev) -> dict:
+    """Phases 20-23, the post frame.  Returns K6's entry of the kernels
+    line (its ms, plain_ms, library_ms and bound_ms are those of one
+    frame's two launches, one at each shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.config import RenderConfig
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models import upscaler
+    from hrt_tpu_torch.models.scene import bench_scene
+    from hrt_tpu_torch.ops import denoise, warp_kernel as k6
+
+    post = dict(max_depth=1, sky=True, denoise=True, upscale=2,
+                upscale_mode="temporal")
+    full_cfg = RenderConfig(width=1920, height=1080, **post)
+
+    print("phase 20: K6 vs its plain version and grid_sample on a "
+          "moving-camera post frame's inputs", flush=True)
+    wloop = FrameLoop(bench_scene(), full_cfg, device=dev)
+    for f in range(2):
+        wloop.step(post_cam(f))
+    w_cams = renderer.camera_arrays(post_cam(2), full_cfg, dev)
+    w_img, w_gb = renderer.render_rows(wloop.scene, wloop.accel, w_cams, 0,
+                                       1080, full_cfg, want_gbuffer=True)
+    prev = wloop.prev_cams
+    proj = lambda wp, w, h: denoise._project(
+        wp, prev.origin, prev.basis, prev.tan_half_fovy, prev.aspect, w,
+        h)[:2]
+    shapes = {
+        "svgf 1920x1080 C=10": (torch.cat(list(wloop.dn_state), -1),
+                                *proj(w_gb["world_pos"], 1920, 1080)),
+        "upscaler 3840x2160 C=3": (wloop.up_history, *proj(
+            upscaler._upsample2_corner(w_gb["world_pos"]), 3840, 2160))}
+    k6_err = 0.0
+    grids = {}
+    for label, (img, px, py) in shapes.items():
+        kv, kvalid = k6.warp_bilinear_kernel(img, px, py)
+        pv, pvalid = k6.warp_bilinear_plain(img, px, py)
+        # The error scale of a pixel: its taps' absolute weighted sum.
+        scale = k6.warp_bilinear_plain(img.abs(), px, py)[0].clamp(
+            min=1e-30)
+        torch.cuda.synchronize()
+        inb = pvalid[..., None].expand_as(kv)
+        rel = float(((kv - pv).abs() / scale)[inb].max())
+        err = float((kv - pv)[inb].abs().max())
+        k6_err = max(k6_err, err)
+        sm.check(torch.equal(kvalid, pvalid),
+                 f"{label}: valid identical on {kvalid.numel()} pixels "
+                 f"({float(pvalid.float().mean()):.4f} in bounds)")
+        sm.check(rel <= 1e-5 and bool(torch.isfinite(kv).all()),
+                 f"{label}: rel err {rel:.3g} at in-bounds pixels (max abs "
+                 f"{err:.3g}), finite everywhere")
+        # grid_sample's normalized coordinates, in float64 for the check
+        # (in float32 their rounding moves a tap by ~1e-6 px, which the
+        # moments' steep edges turn into errors far above 1e-5).
+        hs, ws, c = img.shape
+        grid = lambda x, y: torch.stack([x / (ws - 1) * 2 - 1,
+                                         y / (hs - 1) * 2 - 1], -1)[None]
+        src = img.permute(2, 0, 1)[None].contiguous()
+        grids[label] = (src, grid(px, py))
+        gs = F.grid_sample(src.double(), grid(px.double(), py.double()),
+                           mode="bilinear", padding_mode="border",
+                           align_corners=True)
+        gs = gs[0].permute(1, 2, 0)
+        rel_gs = float(((kv.double() - gs).abs() / scale)[inb].max())
+        sm.check(rel_gs <= 1e-5, f"{label}: vs grid_sample (float64) rel "
+                 f"err {rel_gs:.3g} at in-bounds pixels")
+        del kv, pv, scale, gs
+
+    results = {}
+    for phase, (w, h, steps) in ((21, (512, 384, 8)), (22, (1920, 1080, 4))):
+        print(f"phase {phase}: post FrameLoop, {steps} steps at {w}x{h} -> "
+              f"{2 * w}x{2 * h} along the moving camera", flush=True)
+        cfg = RenderConfig(width=w, height=h, **post)
+        deltas, totals, peak, img, ref, loop = run_post_loop(dev, cfg, steps)
+        want = {"k6": 2, "k1_closest": 1, "k1_any_hit": 1, "k2": 1, "k3": 0}
+        sm.check(all(d == want for d in deltas) and loop.rebuilds == 0,
+                 f"launches per step {deltas[-1]} on all {steps} steps, "
+                 f"totals {totals}, {loop.rebuilds} rebuilds")
+        sm.check(tuple(img.shape) == (2 * h, 2 * w, 3)
+                 and bool(torch.isfinite(img).all()),
+                 f"frame {tuple(img.shape)} finite")
+        p = psnr4(img, ref)
+        sm.check(p > 45.0, f"last frame vs the plain replay PSNR {p:.2f}")
+        print(f"  peak memory of the kernel loop: {peak / 2**30:.3f} GiB",
+              flush=True)
+        results[phase] = dict(totals=totals, loop=loop, steps=steps)
+        if phase == 21:
+            for mode, kw in (("spatial", dict(upscale_mode="spatial")),
+                             ("denoise-only", dict(upscale=1))):
+                c = RenderConfig(width=w, height=h, **{**post, **kw})
+                before = k6.LAUNCHES["warp_bilinear"]
+                out = FrameLoop(bench_scene(), c, device=dev).step(
+                    post_cam(0))
+                torch.cuda.synchronize()
+                shape = (2 * h, 2 * w, 3) if c.upscale == 2 else (h, w, 3)
+                sm.check(tuple(out.shape) == shape
+                         and bool(torch.isfinite(out).all())
+                         and k6.LAUNCHES["warp_bilinear"] == before + 1,
+                         f"{mode} step: frame {tuple(out.shape)} finite, one "
+                         "K6 launch (SVGF)")
+        del ref
+
+    print("phase 23: post times (CUDA events, median of 7)", flush=True)
+    t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for label, (img, px, py) in shapes.items():
+        src, grid = grids[label]
+        ho, wo = px.shape
+        n_bytes = nbytes(img, px, py) + ho * wo * (4 * img.shape[2] + 1)
+        ops = ho * wo * (7 * img.shape[2] + 12)
+        row = {"ms": time_ms(lambda: k6.warp_bilinear_kernel(img, px, py)),
+               "plain_ms": time_ms(lambda: k6.warp_bilinear_plain(img, px,
+                                                                  py)),
+               "library_ms": time_ms(lambda: F.grid_sample(
+                   src, grid, mode="bilinear", padding_mode="border",
+                   align_corners=True)),
+               "bound_ms": bound(n_bytes, ops)[0]}
+        print(f"  K6 {label}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, grid_sample {row['library_ms']:.4f}"
+              f" ms, bound {row['bound_ms']:.4f} ms ({n_bytes} bytes, "
+              f"{bound(n_bytes, ops)[1]})", flush=True)
+        for k in t:
+            t[k] += row[k]
+    hist = upscaler.reproject_history(wloop.up_history, w_gb["world_pos"],
+                                      w_gb["hit"], prev, 1920, 1080)
+    stages = {
+        "svgf": lambda: denoise.svgf(wloop.dn_state, w_img, w_gb, prev, 1920,
+                                     1080),
+        "reproject_history": lambda: upscaler.reproject_history(
+            wloop.up_history, w_gb["world_pos"], w_gb["hit"], prev, 1920,
+            1080),
+        "upscale_temporal (bf16 trunk)": lambda: upscaler.upscale_temporal(
+            wloop.net, w_img, hist)}
+    for key, fn in stages.items():
+        print(f"  {key} at 1920x1080: {time_ms(fn):.4f} ms", flush=True)
+    for phase, size in ((21, "512x384"), (22, "1920x1080")):
+        r = results[phase]
+        k = 4 if phase == 21 else 1
+        nxt = [r["steps"]]
+
+        def steps_k(loop=r["loop"], k=k, nxt=nxt):
+            for _ in range(k):
+                loop.step(post_cam(nxt[0]))
+                nxt[0] += 1
+
+        ms = time_ms(steps_k, reps=5) / k
+        print(f"  post frame {size} -> 2x: {ms:.4f} ms/frame", flush=True)
+    return {"launches": results[22]["totals"]["k6"], "max_abs_err": k6_err,
+            "bound_by": "bytes", **t}
 
 
 def main() -> int:
@@ -957,43 +1203,77 @@ def main() -> int:
         print(f"  culled orbit at {size}: {cloop.rebuilds - r0} rebuilds "
               f"over {6 * k} orbit steps", flush=True)
 
+    post = post_phases(sm, dev)
+
+    # Bounds of the walks: rays in (7 planes) and hits out (t, tri, u, v
+    # and the instance where there is one; a byte of occlusion), the
+    # tables the kernel reads once.
+    w8_tab = nbytes(accel.w8, accel.tris)
+    k4_tab = nbytes(tl.w8_nodes, tl.tris, tl.obj_from_world, tl.w8_root)
+    k3_tab = nbytes(caccel.nodes, caccel.tris)
+    k5_tab = nbytes(ftl.nodes, ftl.tris, ftl.obj_from_world, ftl.blas_base,
+                    ftl.blas_end)
+    n_rel = int(lb.relevant.sum())
+    bounds = {
+        "k1_closest": bound(w8_tab + n * (28 + 16)),
+        "k1_any_hit": bound(w8_tab + ns * (28 + 1)),
+        "k2": bound(18 * 4 * n + ns * (12 + 1 + 12),
+                    n_rel * K2_OPS_PER_ELEMENT),
+        "k4_closest": bound(k4_tab + gn * (28 + 20)),
+        "k4_any_hit": bound(k4_tab + gns * (28 + 1)),
+        "k3_closest": bound(k3_tab + c_prim[0].numel() * (28 + 16)),
+        "k3_any_hit": bound(k3_tab + c_shadow[0].numel() * (28 + 1)),
+        "k5_closest": bound(k5_tab + f_prim[0].numel() * (28 + 20)),
+        "k5_any_hit": bound(k5_tab + f_shadow[0].numel() * (28 + 1)),
+    }
+    for key, (ms, by) in bounds.items():
+        print(f"  bound {key}: {ms:.6f} ms ({by})", flush=True)
+
+    def extra(key):
+        ms, by = bounds[key]
+        return {"bound_ms": ms, "bound_by": by, "library_ms": None}
+
     kernels = [
         {"name": "bvh8_trace_closest", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["closest"],
          "max_abs_err": k1c_err, "ms": times["k1_closest"],
-         "plain_ms": times["k1_closest_plain"]},
+         "plain_ms": times["k1_closest_plain"], **extra("k1_closest")},
         {"name": "bvh8_trace_any_hit", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["any_hit"],
          "max_abs_err": k1a_err, "ms": times["k1_any_hit"],
-         "plain_ms": times["k1_any_hit_plain"]},
+         "plain_ms": times["k1_any_hit_plain"], **extra("k1_any_hit")},
         {"name": "brdf_light_major", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["brdf_light_major"],
          "max_abs_err": k2_err, "ms": times["k2"],
-         "plain_ms": times["k2_plain"]},
+         "plain_ms": times["k2_plain"], **extra("k2")},
         {"name": "tlas8_trace_closest", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4_REPLACES, "launches": launches4["k4_closest"],
          "max_abs_err": k4c_err, "ms": times["k4_closest"],
-         "plain_ms": times["k4_closest_plain"]},
+         "plain_ms": times["k4_closest_plain"], **extra("k4_closest")},
         {"name": "tlas8_trace_any_hit", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4_REPLACES, "launches": launches4["k4_any_hit"],
          "max_abs_err": k4a_err, "ms": times["k4_any_hit"],
-         "plain_ms": times["k4_any_hit_plain"]},
+         "plain_ms": times["k4_any_hit_plain"], **extra("k4_any_hit")},
         {"name": "skip_trace_closest", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": launches3["k3_closest"],
          "max_abs_err": k3c_err, "ms": times["k3_closest"],
-         "plain_ms": times["k3_closest_plain"]},
+         "plain_ms": times["k3_closest_plain"], **extra("k3_closest")},
         {"name": "skip_trace_any_hit", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": launches3["k3_any_hit"],
          "max_abs_err": k3a_err, "ms": times["k3_any_hit"],
-         "plain_ms": times["k3_any_hit_plain"]},
+         "plain_ms": times["k3_any_hit_plain"], **extra("k3_any_hit")},
         {"name": "tlas_skip_trace_closest", "route": "cuda",
          "source": K5_SOURCE, "replaces": K5_REPLACES,
          "launches": launches5["k5_closest"], "max_abs_err": k5c_err,
-         "ms": times["k5_closest"], "plain_ms": times["k5_closest_plain"]},
+         "ms": times["k5_closest"], "plain_ms": times["k5_closest_plain"],
+         **extra("k5_closest")},
         {"name": "tlas_skip_trace_any_hit", "route": "cuda",
          "source": K5_SOURCE, "replaces": K5_REPLACES,
          "launches": launches5["k5_any_hit"], "max_abs_err": k5a_err,
-         "ms": times["k5_any_hit"], "plain_ms": times["k5_any_hit_plain"]},
+         "ms": times["k5_any_hit"], "plain_ms": times["k5_any_hit_plain"],
+         **extra("k5_any_hit")},
+        {"name": "warp_bilinear", "route": "cuda", "source": K6_SOURCE,
+         "replaces": K6_REPLACES, **post},
     ]
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} check(s) failed: "

@@ -3,7 +3,8 @@
 A second package beside the JAX reference `hrt_tpu`.  It renders the
 direct-lighting frame (primary closest hit, Disney BRDF, one shadow ray
 per light, sky on miss) on single-level and two-level (instanced)
-scenes through hand-written CUDA kernels:
+scenes, and its post stages (accumulate, SVGF, the learned 2x
+upscalers), through hand-written CUDA kernels:
 
 - ``ops/traversal_wide8`` — the BVH8 walk (K1), ``csrc/bvh8_trace.cu``;
 - ``ops/traversal_skip`` — the binary skip-link walk (K3) of accels
@@ -14,7 +15,9 @@ scenes through hand-written CUDA kernels:
 - ``ops/traversal_tlas_skip`` — the binary two-level walk (K5) of
   instance scenes past the wide bound, ``csrc/tlas_skip_trace.cu``;
 - ``ops/shade_kernel`` — the light-major Disney BRDF (K2),
-  ``csrc/brdf_light_major.cu``.
+  ``csrc/brdf_light_major.cu``;
+- ``ops/warp_kernel`` — the bilinear reprojection warp (K6) of SVGF's
+  history and the temporal upscaler's, ``csrc/warp_bilinear.cu``.
 
 The walks run closest hit and any hit.  Each kernel has a plain PyTorch
 version beside it, used for CPU tensors (and by the tests); CUDA tensors

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -51,13 +53,17 @@ class RenderConfig:
 def require_slice(config: RenderConfig) -> None:
     """Raise NotImplementedError for any feature this package does not
     render yet: the port covers the direct-lighting frame (primary
-    closest hit, Disney BRDF, one shadow ray per light, sky on miss)."""
+    closest hit, Disney BRDF, one shadow ray per light, sky on miss) and
+    its post stages (accumulate, SVGF, the spatial or temporal 2x
+    upscaler).  An upscale_mode the JAX package does not know raises
+    ValueError."""
+    if config.upscale_mode not in ("spatial", "temporal"):
+        raise ValueError(f"upscale_mode must be 'spatial' or 'temporal', "
+                         f"not {config.upscale_mode!r}")
     unsupported = {
         "indirect": config.indirect,
         "jitter": config.jitter,
         "light_samples>0": config.light_samples > 0,
-        "denoise": config.denoise,
-        "upscale>1": config.upscale > 1,
         "brdf='pbr'": config.brdf == "pbr",
         "sort_bounces": config.sort_bounces,
         "traversal='bruteforce'": config.traversal == "bruteforce",
@@ -66,3 +72,14 @@ def require_slice(config: RenderConfig) -> None:
     if names:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(names))
+
+
+def resolve_device(device) -> torch.device:
+    """`device`, or the first CUDA device when it is None.  Never picks
+    the CPU on its own: with no card, a None device raises."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to run the "
+                           "plain PyTorch versions")
+    return torch.device("cuda")

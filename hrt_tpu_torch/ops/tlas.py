@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..models.materials import MatP
 from ..models.scene import PAD, Scene
 from . import (lbvh, morton, traversal_tlas8, traversal_tlas_skip, v3,
@@ -222,7 +223,8 @@ def _tlas_nodes(inst_bmin: torch.Tensor, inst_bmax: torch.Tensor):
 def build_two_level_flat(scene: Scene, leaf_size: int = 16,
                          sah: bool = True, device=None,
                          max_wide_nodes: int | None = None) -> TwoLevelFlat:
-    """Per-mesh BLAS + TLAS on `device` (default: the CPU), on the BVH8
+    """Per-mesh BLAS + TLAS on `device` (default: the first CUDA device;
+    raises without one), on the BVH8
     route when every BLAS collapses and the unified table stays below
     `max_wide_nodes` wide nodes (default: wide8.MAX_WIDE_NODES, read at
     call time), else on the binary route.  Raises ValueError when a BVH8
@@ -231,7 +233,7 @@ def build_two_level_flat(scene: Scene, leaf_size: int = 16,
         max_wide_nodes = wide8.MAX_WIDE_NODES
     if not scene.meshes or not scene.instances:
         raise ValueError("scene needs meshes and instances")
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
     blases = [_blas(mesh, leaf_size, sah) for mesh in scene.meshes]
     inst_mesh, inst_mat, w_from_o, o_from_w, normal_mat = \
         _instance_arrays(scene)

@@ -18,6 +18,9 @@ shadow batch is light-major concatenated, and the k frames of
 Every entry point takes `plain=False`; `plain=True` routes the walks
 and the BRDF to their plain PyTorch versions on whatever device the
 tensors are on, which is how a reference frame is rendered on the card.
+`trace_paths` and `render_rows` also return the first hit's G-buffer
+when asked (`want_gbuffer`), for the post stages (ops/denoise.py,
+models/upscaler.py).
 """
 from __future__ import annotations
 
@@ -166,10 +169,29 @@ def surface_hits(scene: SceneData, accel, o: V3, d: V3,
     return SurfaceHits(t, tri >= 0, nrm, mat, o + d * t, view)
 
 
+def _gbuffer(sh: SurfaceHits) -> dict:
+    """The first hit's G-buffer, (N, ·) per field: `normal` (facing the
+    viewer, 0 on a miss), `depth` (t, 0 on a miss), `albedo` (the base
+    color, 1 on a miss), `world_pos` (0 on a miss) and `hit` (1.0 or
+    0.0)."""
+    hit = sh.hit
+    zero = _zero3(sh.t)
+    one = torch.ones_like(sh.t)
+    return {
+        "normal": v3.where(hit, sh.normal, zero).to_array(),
+        "depth": torch.where(hit, sh.t, 0.0),
+        "albedo": v3.where(hit, sh.mat.color, V3(one, one, one)).to_array(),
+        "world_pos": v3.where(hit, sh.world_pos, zero).to_array(),
+        "hit": hit.to(torch.float32),
+    }
+
+
 def trace_paths(scene: SceneData, accel, o: V3, d: V3,
-                config: RenderConfig, plain: bool = False) -> V3:
+                config: RenderConfig, plain: bool = False,
+                want_gbuffer: bool = False):
     """Radiance of one camera ray batch at depth 0: sky on a miss,
-    direct light plus emission on a hit."""
+    direct light plus emission on a hit.  With `want_gbuffer`, returns
+    (radiance, _gbuffer(first hits))."""
     require_slice(config)
     if not isinstance(accel, (Accel, TwoLevelFlat)):
         raise NotImplementedError(
@@ -179,7 +201,13 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3,
         raise NotImplementedError("textured scenes are not ported yet")
     radiance = _zero3(o.x)
     if config.max_depth < 1:
-        return radiance
+        if not want_gbuffer:
+            return radiance
+        n = o.x.shape[0]
+        zeros = lambda *s: torch.zeros((n, *s), device=o.x.device)
+        return radiance, {"normal": zeros(3), "depth": zeros(),
+                          "albedo": zeros(3) + 1.0, "world_pos": zeros(3),
+                          "hit": zeros()}
     sh = surface_hits(scene, accel, o, d, config, plain=plain)
     sky_rad = eval_sky_p(scene.sky, d, enabled=config.sky)
     radiance = radiance + v3.where(~sh.hit, sky_rad, 0.0)
@@ -187,7 +215,8 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3,
                                sh.world_pos, config, ray_mask=sh.hit,
                                plain=plain)
     emissive = sh.mat.emissive * sh.mat.emission_strength
-    return radiance + v3.where(sh.hit, direct + emissive, 0.0)
+    radiance = radiance + v3.where(sh.hit, direct + emissive, 0.0)
+    return (radiance, _gbuffer(sh)) if want_gbuffer else radiance
 
 
 def primary_rays(cam: CameraArrays, rows: int, y0: int,
@@ -205,16 +234,29 @@ def primary_rays(cam: CameraArrays, rows: int, y0: int,
 
 def render_rows(scene: SceneData, accel, cam: CameraArrays,
                 y0: int, rows: int, config: RenderConfig,
-                plain: bool = False, _rays=None) -> torch.Tensor:
-    """Render rows [y0, y0 + rows) -> (rows, W, 3) linear radiance.
-    _rays: primary rays computed once by render_frames."""
+                plain: bool = False, want_gbuffer: bool = False,
+                _rays=None):
+    """Render rows [y0, y0 + rows) -> (rows, W, 3) linear radiance, and
+    with `want_gbuffer` also the first sample's G-buffer, each field
+    (rows, W, ·) in pixel order.  _rays: primary rays computed once by
+    render_frames."""
     o, d = _rays if _rays is not None else primary_rays(cam, rows, y0,
                                                          config)
     acc = _zero3(o.x)
-    for _ in range(config.spp):
-        acc = acc + trace_paths(scene, accel, o, d, config, plain=plain)
+    gbuffer = None
+    for s in range(config.spp):
+        take_gb = want_gbuffer and s == 0
+        out = trace_paths(scene, accel, o, d, config, plain=plain,
+                          want_gbuffer=take_gb)
+        if take_gb:
+            out, gbuffer = out
+        acc = acc + out
     img = (acc * (1.0 / config.spp)).to_array()
-    return img.reshape(rows, config.width, 3)
+    img = img.reshape(rows, config.width, 3)
+    if not want_gbuffer:
+        return img
+    return img, {k: v.reshape((rows, config.width) + v.shape[1:])
+                 for k, v in gbuffer.items()}
 
 
 def render_frames(scene: SceneData, accel, cam: CameraArrays,

@@ -5,7 +5,8 @@ structure.  These take dicts of numpy arrays — as a caller gets them
 with `{k: np.asarray(v) for k, v in obj._asdict().items()}` from the JAX
 package's SceneData, from its Accel's tree fields plus `attr`,
 `flat.nodes` and `w8`, or from the fields of its TwoLevelFlat — so one
-structure can be fed to both packages.
+structure can be fed to both packages.  The learned upscalers' weights
+come over the same way (`upscaler_from_numpy`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..models.scene import SceneData
+from ..models.upscaler import TemporalUpscalerNet, UpscalerNet
 from ..ops import tlas, wide8
 from ..ops.lbvh import Accel, make_accel, tri_table
 
@@ -88,3 +90,24 @@ def two_level_from_numpy(d: dict, device) -> tlas.TwoLevelFlat:
         root_bmin=dev(root_bmin), root_bmax=dev(root_bmax),
         leaf_size=int(d["leaf_size"]), root_box_host=(root_bmin, root_bmax),
         **route)
+
+
+def upscaler_from_numpy(d: dict, temporal: bool, device):
+    """The spatial (or temporal) upscaler net on `device` from flax
+    parameters as numpy, keyed `Conv_i/kernel` (HWIO) and `Conv_i/bias`
+    — as `{f"{k}/{f}": np.asarray(v[f]) for k, v in params["params"]
+    .items() for f in ("kernel", "bias")}` gives them.  HWIO kernels
+    become OIHW weights.  The net holds no gradients."""
+    net = TemporalUpscalerNet() if temporal else UpscalerNet()
+    with torch.no_grad():
+        for name, conv in net.named_children():
+            k = torch.as_tensor(np.array(d[f"{name}/kernel"], np.float32))
+            b = torch.as_tensor(np.array(d[f"{name}/bias"], np.float32))
+            w = k.permute(3, 2, 0, 1)
+            if w.shape != conv.weight.shape or b.shape != conv.bias.shape:
+                raise ValueError(f"{name}: kernel {tuple(k.shape)} / bias "
+                                 f"{tuple(b.shape)} do not fit "
+                                 f"{type(net).__name__}")
+            conv.weight.copy_(w)
+            conv.bias.copy_(b)
+    return net.requires_grad_(False).eval().to(device)

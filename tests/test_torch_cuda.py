@@ -308,3 +308,72 @@ def test_tlas_skip_kernel_matches_plain_and_k4(cuda, closest):
         for other in (p, k4):
             assert (k == other).float().mean().item() >= 0.999
         assert not k[::17].any()
+
+
+def test_warp_kernel_matches_plain(cuda):
+    """K6 at a shape that is no multiple of the block (a 37x53x10 source,
+    a 41x67 grid), coordinates in and out of bounds and some at +-1e10:
+    validity identical; values within rel 1e-5 of the taps' absolute
+    weighted sum (nvcc contracts the sum into FMAs) and finite."""
+    from hrt_tpu_torch.ops import warp_kernel
+
+    rs = np.random.RandomState(11)
+    hs, ws, c, ho, wo = 37, 53, 10, 41, 67
+    img = torch.as_tensor(rs.uniform(-2, 2, (hs, ws, c)).astype(np.float32),
+                          device=cuda)
+    px = rs.uniform(-5, ws + 4, (ho, wo)).astype(np.float32)
+    py = rs.uniform(-5, hs + 4, (ho, wo)).astype(np.float32)
+    px[::7, ::5] = 1e10
+    py[::11, ::3] = -1e10
+    px, py = (torch.as_tensor(a, device=cuda) for a in (px, py))
+    before = warp_kernel.LAUNCHES["warp_bilinear"]
+    kv, kvalid = warp_kernel.warp_bilinear(img, px, py)
+    pv, pvalid = warp_kernel.warp_bilinear_plain(img, px, py)
+    scale = warp_kernel.warp_bilinear_plain(img.abs(), px, py)[0]
+    torch.cuda.synchronize()
+    assert warp_kernel.LAUNCHES["warp_bilinear"] == before + 1
+    assert kv.shape == (ho, wo, c) and kvalid.dtype == torch.bool
+    assert torch.equal(kvalid, pvalid)
+    assert 0.3 < kvalid.float().mean().item() < 0.95
+    assert torch.isfinite(kv).all()
+    assert ((kv - pv).abs() <= 1e-5 * scale).all()
+
+
+def _post_cam(f: int) -> Camera:
+    return Camera(position=(0.03 * f, -1.0, -6.0),
+                  rotation=(-0.15, 0.004 * f, 0.0))
+
+
+def test_post_loop_steps_on_the_card(cuda):
+    """Two post steps (SVGF + the temporal 2x upscaler, the committed
+    weights) of a FrameLoop made without a device: each launches K6
+    twice, K1 closest and any-hit and K2 once; the last frame against
+    the same loop replayed with the plain versions."""
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.ops import warp_kernel
+
+    cfg = RenderConfig(width=96, height=64, max_depth=1, sky=True,
+                       denoise=True, upscale=2, upscale_mode="temporal")
+    loop = FrameLoop(bench_scene(), cfg)
+    ref_loop = FrameLoop(bench_scene(), cfg, device=cuda)
+    assert loop.device.type == "cuda"
+    counters = (warp_kernel.LAUNCHES, traversal_wide8.LAUNCHES,
+                shade_kernel.LAUNCHES)
+    for f in range(2):
+        before = [dict(c) for c in counters]
+        img = loop.step(_post_cam(f))
+        assert warp_kernel.LAUNCHES["warp_bilinear"] \
+            == before[0]["warp_bilinear"] + 2
+        assert traversal_wide8.LAUNCHES == {m: c + 1
+                                            for m, c in before[1].items()}
+        assert shade_kernel.LAUNCHES == {m: c + 1
+                                         for m, c in before[2].items()}
+        ref = ref_loop.step(_post_cam(f), plain=True)
+    assert img.shape == (128, 192, 3) and torch.isfinite(img).all()
+    assert psnr(img.clamp(0, 4).cpu().numpy(), ref.clamp(0, 4).cpu().numpy(),
+                peak=4.0) > 45.0
+
+
+def test_two_level_build_defaults_to_the_card(cuda):
+    tl = tlas.build_two_level_flat(_instanced_scene(), 32)
+    assert tl.tris.device.type == "cuda" and tl.w8_nodes.is_cuda

@@ -1,7 +1,8 @@
 """hrt_tpu_torch.frameloop.FrameLoop on the CPU (plain versions): the
 accumulate branch of the JAX package's `_post_stages`, resolution
 switches, instance animation through the TLAS refit, and what the port
-refuses.  The scene is test_tlas's four instances at 32x24."""
+refuses (the denoise and upscale branches are held against JAX in
+test_torch_post_loop.py).  The scene is test_tlas's four instances at 32x24."""
 import numpy as np
 import pytest
 import torch
@@ -89,7 +90,12 @@ def test_single_level_loop_renders_and_refuses_animation():
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(cfg=dict(upscale=2))])
+                                dict(cfg=dict(indirect=True))])
 def test_loop_refusals(kw):
     with pytest.raises(NotImplementedError):
         _loop(**kw)
+
+
+def test_unknown_upscale_mode_raises():
+    with pytest.raises(ValueError, match="upscale_mode"):
+        _loop(cfg=dict(upscale=2, upscale_mode="bicubic"))

@@ -27,7 +27,9 @@ from hrt_tpu.models.instance import MeshInstance as JMeshInstance
 from hrt_tpu.ops import culling as jculling, lbvh as jlbvh
 from hrt_tpu.ops import morton as jmorton, tlas as jtlas, wide8 as jwide8
 from hrt_tpu.renderer import camera_arrays as jcamera_arrays
+from hrt_tpu.renderer import render_rows as jrender_rows
 from hrt_tpu.ops.v3 import V3 as JV3
+from hrt_tpu_torch import renderer
 from hrt_tpu_torch.config import RenderConfig
 from hrt_tpu_torch.frameloop import FrameLoop
 from hrt_tpu_torch.models.camera import Camera
@@ -101,7 +103,8 @@ def jax_loop():
 
 @pytest.fixture(scope="module")
 def port_tl():
-    return tlas.build_two_level_flat(port_scene(_instanced_scene()), 32)
+    return tlas.build_two_level_flat(port_scene(_instanced_scene()), 32,
+                                     device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +112,7 @@ def port_tl_binary():
     """The port's build of the same scene past a lowered wide bound: the
     binary route (K5)."""
     return tlas.build_two_level_flat(port_scene(_instanced_scene()), 32,
-                                     max_wide_nodes=32)
+                                     device="cpu", max_wide_nodes=32)
 
 
 @pytest.fixture(scope="module")
@@ -354,6 +357,24 @@ def test_frame_matches_jax_frameloop(jax_loop):
     assert np.isclose(img, jimg, rtol=1e-3, atol=1e-3).all(-1).mean() >= 0.995
 
 
+def test_two_level_gbuffer_matches_jax(jax_loop, tables):
+    """The G-buffer of the two-level frame (render_rows(want_gbuffer=True))
+    on JAX's table, carried over, against JAX's render_rows on it."""
+    from test_torch_post_loop import check_gbuffer
+
+    cfg = JRenderConfig(shade_pallas=False, **FRAME)
+    fn = jax.jit(lambda s, a, c: jrender_rows(s, a, c, 0, 0, 48, cfg,
+                                              want_gbuffer=True))
+    _, jgb = fn(jax_loop.scene, jax_loop.accel,
+                jcamera_arrays(JCamera(**CAM), cfg))
+    tcfg = RenderConfig(**FRAME)
+    _, gb = renderer.render_rows(
+        port_scene(_instanced_scene()).build("cpu"), tables["jax_table"],
+        renderer.camera_arrays(Camera(**CAM), tcfg, "cpu"), 0, 48, tcfg,
+        want_gbuffer=True)
+    check_gbuffer(gb, jgb)
+
+
 def test_two_level_frame_matches_soup_frame():
     cfg = RenderConfig(**FRAME)
     tl_img = FrameLoop(port_scene(_instanced_scene()), cfg, two_level=True,
@@ -373,7 +394,8 @@ def _single_instance_walk(max_wide_nodes: int):
     js = _instanced_scene()
     js.instances = js.instances[2:3]
     sc = port_scene(js)
-    tl = tlas.build_two_level_flat(sc, 32, max_wide_nodes=max_wide_nodes)
+    tl = tlas.build_two_level_flat(sc, 32, device="cpu",
+                                   max_wide_nodes=max_wide_nodes)
     soup = sc.build("cpu")
     o, d = _rays(300, seed=4)
     t, tri, inst, _, _ = tlas.closest_hit_tlas(tl, _tv3(o), _tv3(d), 1e-3,
@@ -401,10 +423,10 @@ def test_single_instance_scene_walks_binary():
 
 
 @pytest.mark.parametrize("what,call,exc,match", [
-    ("denoise", lambda: FrameLoop(
+    ("indirect", lambda: FrameLoop(
         port_scene(_instanced_scene()),
-        RenderConfig(denoise=True, **FRAME), two_level=True,
-        device="cpu"), NotImplementedError, "denoise"),
+        RenderConfig(indirect=True, **FRAME), two_level=True,
+        device="cpu"), NotImplementedError, "indirect"),
 ])
 def test_refusals(what, call, exc, match):
     with pytest.raises(exc, match=match):
@@ -433,7 +455,7 @@ def test_former_refusals_route(what, jax_loop, jax_lbvh_tl):
         # LBVH BLAS collapsed to BVH8: JAX's unified table, walked by K4;
         # past the bound, JAX's binary tables, walked by K5.
         jt = jax_lbvh_tl
-        tl = tlas.build_two_level_flat(sc, 32, sah=False)
+        tl = tlas.build_two_level_flat(sc, 32, sah=False, device="cpu")
         for key in ("w8_nodes", "w8_root", "attr", "root_bmin",
                     "root_bmax"):
             np.testing.assert_array_equal(
@@ -444,7 +466,8 @@ def test_former_refusals_route(what, jax_loop, jax_lbvh_tl):
                                       _bits(tl.tris.numpy()[:, :9]))
         assert tl.w8_tlas_nw == jt.w8_tlas_nw
         assert tlas._walk(tl, False) is traversal_tlas8.trace
-        tl = tlas.build_two_level_flat(sc, 32, sah=False, max_wide_nodes=32)
+        tl = tlas.build_two_level_flat(sc, 32, sah=False, device="cpu",
+                                       max_wide_nodes=32)
         for key in ("nodes", "blas_base", "blas_end"):
             np.testing.assert_array_equal(
                 _bits(getattr(tl, key).numpy()),
@@ -452,7 +475,8 @@ def test_former_refusals_route(what, jax_loop, jax_lbvh_tl):
         assert tl.tlas_m == jt.tlas_m
         assert tlas._walk(tl, False) is traversal_tlas_skip.trace
     elif what == "past the wide bound":
-        tl = tlas.build_two_level_flat(sc, 32, max_wide_nodes=32)
+        tl = tlas.build_two_level_flat(sc, 32, device="cpu",
+                                       max_wide_nodes=32)
         np.testing.assert_array_equal(_bits(tl.nodes.numpy()),
                                       _bits(jax_loop.accel.nodes))
         assert tl.w8_nodes is None
@@ -498,8 +522,9 @@ def test_cpu_tensors_take_the_plain_version(port_tl, port_tl_binary, route):
 def test_package_imports_with_jax_flax_hrt_tpu_blocked():
     """hrt_tpu_torch imports, builds and walks both two-level routes
     (K4's and K5's plain walks), builds an LBVH and walks it (K3's plain
-    walk), and runs a culled FrameLoop step, with jax, flax and hrt_tpu
-    made unimportable."""
+    walk), runs a culled FrameLoop step, and runs a 16x12 post step
+    (SVGF and the temporal 2x upscaler with the committed weights, K6's
+    plain warp), with jax, flax and hrt_tpu made unimportable."""
     code = (
         "import sys\n"
         "for m in ('jax', 'flax', 'hrt_tpu'):\n"
@@ -519,6 +544,7 @@ def test_package_imports_with_jax_flax_hrt_tpu_blocked():
         "d = V3(*torch.tensor([[0.0, 0.0, 1.0], [0.0, 1.0, 0.0]]).T)\n"
         "for bound in (1 << 15, 32):\n"
         "    tl = tlas.build_two_level_flat(instance_grid_scene(2), 32,\n"
+        "                                   device='cpu',\n"
         "                                   max_wide_nodes=bound)\n"
         "    inst = tlas.closest_hit_tlas(tl, o, d, 1e-3, 1e32)[2]\n"
         "    print(int(inst.min()))\n"
@@ -530,14 +556,21 @@ def test_package_imports_with_jax_flax_hrt_tpu_blocked():
         "loop = FrameLoop(instance_grid_scene(2), RenderConfig(\n"
         "    width=16, height=12, max_depth=1), device='cpu')\n"
         "loop.step(orbit_camera(0.0, radius=40.0, height=-1.0))\n"
-        "print(loop.rebuilds)\n")
+        "print(loop.rebuilds)\n"
+        "from hrt_tpu_torch.models.scene import bench_scene\n"
+        "post = FrameLoop(bench_scene(), RenderConfig(\n"
+        "    width=16, height=12, max_depth=1, denoise=True, upscale=2,\n"
+        "    upscale_mode='temporal'), device='cpu')\n"
+        "for f in range(2):\n"
+        "    img = post.step(orbit_camera(0.01 * f, radius=6.0))\n"
+        "print(int(img.shape == (24, 32, 3) and bool(img.isfinite().all())))\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     out = [int(x) for x in proc.stdout.split()]
-    assert min(out[:3]) >= 0 and out[3] >= 1
+    assert min(out[:3]) >= 0 and out[3] >= 1 and out[4] == 1
 
 
 def test_instance_grid_scene_matches_bench_full():
