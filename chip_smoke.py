@@ -65,7 +65,10 @@ by K5, animated.  Phases:
      7; 3 for the plain walks), the LBVH rebuild, and ms/frame and Mray/s
      of the culled frame (still, and along the orbit with its rebuilds)
      and of the forest frame (still, and with a refit per frame), at both
-     sizes
+     sizes; K3's visits per ray on the culled frame's batches
+     (traversal_skip.visit_counts) and the operation bound they give;
+     K3 against a baseline build of an earlier K3, in turns (baseline,
+     current, current, baseline), where chip_scratch/baseline/ holds one
  20. K6 (the reprojection warp) vs its plain version on the inputs of a
      moving-camera post frame at both of its shapes (SVGF's history,
      1920x1080 C=10; the temporal upscaler's, 3840x2160 C=3): validity
@@ -80,15 +83,31 @@ by K5, animated.  Phases:
      versions (PSNR > 45); one spatial-mode and one denoise-only step
  22. the same at full size, 1920x1080 -> 3840x2160, 4 steps; peak memory
  23. times (CUDA events, median of 7): K6 at both shapes vs its plain
-     version and grid_sample, beside its bound; svgf, the upscaler
-     forward and reproject_history alone at 1080p; ms/frame of the post
-     loop at both sizes
+     version and grid_sample, beside its bound, and against the baseline
+     K6 in turns where there is one (each sample of these four 10 calls
+     back to back, so that the card and not the host's cost of one call
+     sets a 0.1 ms kernel's time; one call alone is printed beside);
+     svgf, the upscaler forward and reproject_history alone at 1080p;
+     ms/frame of the post loop at both sizes
 
 Every kernel line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
-and its float32 operations over 67 TFLOP/s (H100 SXM data sheet).  The
-walks' operations depend on the visits, which are not counted on the
-card, so their bound is their bytes.
+and its float32 operations over 67 TFLOP/s (H100 SXM data sheet).  K3's
+operations are counted from this run's visits (every node's slab test
+and every triangle test up to the point where it can first reject); the
+other walks' visits are not counted, so their bound is their bytes.
+
+The baseline (phases 19 and 23) is optional: copies of an earlier
+commit's skip_trace.cu, walk_common.cuh and warp_bilinear.cu under the
+gitignored chip_scratch/baseline/, e.g.
+
+    mkdir -p chip_scratch/baseline
+    for f in skip_trace.cu walk_common.cuh warp_bilinear.cu; do
+      git show <commit>:hrt_tpu_torch/csrc/$f > chip_scratch/baseline/$f
+    done
+
+built into their own library at phase 19.  A plain checkout has none,
+and the comparison is skipped.
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails.  The line before the last is the kernels JSON; the last is
@@ -124,6 +143,13 @@ F32_OPS_PER_S = 67e12
 # Float operations of one relevant K2 element, counted from
 # csrc/disney.cuh (each division, sqrt and log2 counted once).
 K2_OPS_PER_ELEMENT = 300
+# Float operations (an FMA counts two) of one K3 node visit, its slab
+# test: 6 FMAs and 13 min/max/compares; and of one triangle test up to
+# its first rejection (csrc/skip_common.cuh `moller_scaled`): P = D x E2
+# (9), det (5), T (3), T.P (5) and 3 compares.
+K3_OPS_PER_NODE = 25
+K3_OPS_PER_TEST = 25
+BASELINE_DIR = os.path.join(ROOT, "chip_scratch", "baseline")
 
 
 class Smoke:
@@ -136,8 +162,11 @@ class Smoke:
             self.failures.append(what)
 
 
-def time_ms(fn, reps: int = 7) -> float:
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
+def time_ms(fn, reps: int = 7, calls: int = 1) -> float:
+    """Median CUDA-event time of one fn() call in ms, after one warm-up
+    call.  Each of the `reps` samples times `calls` calls back to back
+    between its two events; with calls > 1 the card, not the host's
+    cost of one call, sets the time of a short kernel."""
     import torch
 
     fn()
@@ -147,11 +176,107 @@ def time_ms(fn, reps: int = 7) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
+
+
+def load_baseline():
+    """The baseline K3 and K6 from BASELINE_DIR, with the entry points
+    they had there (hrt_skip_trace over the (Mp/128, 8, 128) skip-link
+    table, hrt_warp_bilinear over a contiguous image), built like the
+    package's kernels into chip_scratch/_build/; None without copies."""
+    import ctypes
+    import glob
+    import hashlib
+
+    from hrt_tpu_torch.kernels import build
+
+    srcs = [os.path.join(BASELINE_DIR, f)
+            for f in ("skip_trace.cu", "walk_common.cuh", "warp_bilinear.cu")]
+    if not all(os.path.exists(f) for f in srcs):
+        return None
+    h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
+    for f in srcs:
+        with open(f, "rb") as fh:
+            h.update(fh.read())
+    path = os.path.join(ROOT, "chip_scratch", "_build",
+                        f"baseline-{h.hexdigest()[:16]}.so")
+    nvcc = build.nvcc_path()
+    cu = [f for f in srcs if f.endswith(".cu")]
+
+    def stages(tmp):
+        objs = [f"{tmp}.{os.path.basename(f)}.o" for f in cu]
+        return [[[nvcc, *build.NVCC_FLAGS, "-I", BASELINE_DIR, "-c", "-o",
+                  o, f] for f, o in zip(cu, objs)],
+                [[nvcc, *build.ARCH_FLAGS, "-shared", "-o", tmp, *objs]]]
+
+    try:
+        build.build_once(path, stages, "nvcc (baseline)", timeout=600)
+    finally:
+        for leftover in glob.glob(f"{path}.*.tmp.*.o"):
+            os.remove(leftover)
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hrt_skip_trace.restype = i
+    lib.hrt_skip_trace.argtypes = [p] * 7 + [i, p, p, i, i, ctypes.c_float,
+                                             i] + [p] * 5 + [p]
+    lib.hrt_warp_bilinear.restype = i
+    lib.hrt_warp_bilinear.argtypes = [p, i, i, i, p, p, i, p, p, p]
+    return lib
+
+
+def baseline_k3(lib, accel, planes, t_min: float, closest: bool):
+    """The baseline K3 on the accel's skip-link table."""
+    import torch
+
+    planes = [q.contiguous() for q in planes]
+    n, dev = planes[0].numel(), planes[0].device
+    if closest:
+        res = (torch.empty(n, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, device=dev), torch.empty(n, device=dev))
+        outs = [q.data_ptr() for q in res] + [None]
+    else:
+        res = torch.empty(n, dtype=torch.bool, device=dev)
+        outs = [None] * 4 + [res.data_ptr()]
+    rc = lib.hrt_skip_trace(*[q.data_ptr() for q in planes], n,
+                            accel.nodes.data_ptr(), accel.tris.data_ptr(),
+                            accel.m_real, accel.leaf_size, float(t_min),
+                            int(closest), *outs,
+                            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"baseline skip_trace: CUDA error {rc}")
+    return res
+
+
+def baseline_k6(lib, img, px, py):
+    """The baseline K6 as its wrapper ran it: on a contiguous copy of
+    the image."""
+    import torch
+
+    img, px, py = img.contiguous(), px.contiguous(), py.contiguous()
+    hs, ws, c = img.shape
+    val = torch.empty((*px.shape, c), device=img.device)
+    valid = torch.empty(px.shape, dtype=torch.bool, device=img.device)
+    rc = lib.hrt_warp_bilinear(img.data_ptr(), hs, ws, c, px.data_ptr(),
+                               py.data_ptr(), px.numel(), val.data_ptr(),
+                               valid.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"baseline warp_bilinear: CUDA error {rc}")
+    return val, valid
+
+
+def in_turns(base, cur, reps: int = 7, calls: int = 1):
+    """time_ms of `base` and `cur` in turns base, cur, cur, base:
+    ([base, base], [cur, cur])."""
+    b1, c1, c2, b2 = (time_ms(f, reps, calls) for f in (base, cur, cur,
+                                                          base))
+    return [b1, b2], [c1, c2]
 
 
 def psnr4(a, b) -> float:
@@ -307,10 +432,11 @@ def run_post_loop(dev, cfg, steps: int):
     return deltas, totals, peak, img, ref, loop
 
 
-def post_phases(sm: Smoke, dev) -> dict:
-    """Phases 20-23, the post frame.  Returns K6's entry of the kernels
-    line (its ms, plain_ms, library_ms and bound_ms are those of one
-    frame's two launches, one at each shape)."""
+def post_phases(sm: Smoke, dev, baseline=None) -> dict:
+    """Phases 20-23, the post frame; `baseline` is load_baseline()'s
+    library or None.  Returns K6's entry of the kernels line (its ms,
+    plain_ms, library_ms and bound_ms are those of one frame's two
+    launches, one at each shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -412,24 +538,43 @@ def post_phases(sm: Smoke, dev) -> dict:
                          "K6 launch (SVGF)")
         del ref
 
-    print("phase 23: post times (CUDA events, median of 7)", flush=True)
+    print("phase 23: post times (CUDA events, median of 7; K6, its plain "
+          "version, grid_sample and the baseline K6 10 calls per sample)",
+          flush=True)
     t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for label, (img, px, py) in shapes.items():
         src, grid = grids[label]
         ho, wo = px.shape
         n_bytes = nbytes(img, px, py) + ho * wo * (4 * img.shape[2] + 1)
         ops = ho * wo * (7 * img.shape[2] + 12)
-        row = {"ms": time_ms(lambda: k6.warp_bilinear_kernel(img, px, py)),
+        kernel = lambda: k6.warp_bilinear_kernel(img, px, py)
+        row = {"ms": time_ms(kernel, calls=10),
                "plain_ms": time_ms(lambda: k6.warp_bilinear_plain(img, px,
-                                                                  py)),
+                                                                  py),
+                                   calls=10),
                "library_ms": time_ms(lambda: F.grid_sample(
                    src, grid, mode="bilinear", padding_mode="border",
-                   align_corners=True)),
+                   align_corners=True), calls=10),
                "bound_ms": bound(n_bytes, ops)[0]}
         print(f"  K6 {label}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, grid_sample {row['library_ms']:.4f}"
               f" ms, bound {row['bound_ms']:.4f} ms ({n_bytes} bytes, "
-              f"{bound(n_bytes, ops)[1]})", flush=True)
+              f"{bound(n_bytes, ops)[1]}); one call alone (the host's "
+              f"cost included) {time_ms(kernel):.4f} ms", flush=True)
+        if baseline is not None:
+            bv, bvalid = baseline_k6(baseline, img, px, py)
+            kv, kvalid = k6.warp_bilinear_kernel(img, px, py)
+            dv = float(((bv - kv).abs() / bv.abs().clamp(min=1.0)).max())
+            sm.check(torch.equal(bvalid, kvalid) and dv <= 1e-6,
+                     f"K6 {label} vs the baseline K6: valid identical, "
+                     f"values within rel {dv:.3g}")
+            del bv, kv
+            b, c = in_turns(lambda: baseline_k6(baseline, img, px, py),
+                            kernel, calls=10)
+            print(f"  K6 {label} in turns (baseline, current, current, "
+                  f"baseline): {b[0]:.4f}, {c[0]:.4f}, {c[1]:.4f}, "
+                  f"{b[1]:.4f} ms; current / baseline "
+                  f"{sum(c) / sum(b):.4f}", flush=True)
         for k in t:
             t[k] += row[k]
     hist = upscaler.reproject_history(wloop.up_history, w_gb["world_pos"],
@@ -497,7 +642,9 @@ def main() -> int:
           flush=True)
     with open(path[:-3] + ".log") as f:
         for line in f:
-            if "registers" in line or "spill" in line:
+            if "entry function" in line:  # the mangled name, cut short
+                print("  ptxas:", line.split("'")[1][:72])
+            elif "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
 
     print("phase 3: scene + accel", flush=True)
@@ -1161,6 +1308,62 @@ def main() -> int:
         print(f"  {key}: {times[key]:.4f} ms", flush=True)
     print(f"  LBVH rebuild of the culled grid (host clock, median of 7): "
           f"{lbvh_ms:.4f} ms", flush=True)
+    rec_ms = time_ms(lambda: k3.skip_records(caccel.nodes, caccel.m_real))
+    print(f"  K3 node records from the table (skip_records, at each "
+          f"rebuild): {rec_ms:.4f} ms", flush=True)
+    k3_ops = {}
+    for key, planes, closest in (("k3_closest", c_prim, True),
+                                 ("k3_any_hit", c_shadow, False)):
+        cnt = k3.visit_counts(caccel, *planes, g_cfg.t_min, closest)
+        live = int((planes[6] >= 0).sum())
+        tot = {c: int(v.sum()) for c, v in cnt.items()}
+        k3_ops[key] = (tot["nodes"] * K3_OPS_PER_NODE
+                       + tot["tests"] * K3_OPS_PER_TEST)
+        # A warp steps through the union of its rays' leaves: at least
+        # as many steps as its busiest ray.
+        lw = cnt["leaves"][:cnt["leaves"].numel() // 32 * 32].view(-1, 32)
+        lw = lw[cnt["nodes"][:lw.numel()].view(-1, 32).amax(1) > 0]
+        print(f"  K3 {key[3:]} visits per live ray ({live} of "
+              f"{planes[0].numel()} live): nodes "
+              f"{tot['nodes'] / max(live, 1):.1f} (max "
+              f"{int(cnt['nodes'].max())}), leaves "
+              f"{tot['leaves'] / max(live, 1):.1f} (max "
+              f"{int(cnt['leaves'].max())}), triangle tests "
+              f"{tot['tests'] / max(live, 1):.1f}; leaves of a warp's "
+              f"busiest ray {float(lw.amax(1).float().mean()):.1f} (mean "
+              f"over {lw.shape[0]} warps with a live ray); "
+              f"{k3_ops[key]:.4e} operations, bound "
+              f"{bound(0, k3_ops[key])[0]:.4f} ms", flush=True)
+        sah = {c: int(v.sum()) for c, v in k3.visit_counts(
+            sah_c, *planes, g_cfg.t_min, closest).items()}
+        print(f"    the same rays over the SAH tree of the same mask "
+              f"(phase 15's K1 frame): nodes "
+              f"{sah['nodes'] / max(live, 1):.1f}, leaves "
+              f"{sah['leaves'] / max(live, 1):.1f}, triangle tests "
+              f"{sah['tests'] / max(live, 1):.1f} per live ray", flush=True)
+    baseline = load_baseline()
+    if baseline is None:
+        print("  K3 baseline: none (chip_scratch/baseline/ holds no copies)",
+              flush=True)
+    else:
+        for key, planes, closest in (("k3_closest", c_prim, True),
+                                     ("k3_any_hit", c_shadow, False)):
+            base = baseline_k3(baseline, caccel, planes, g_cfg.t_min,
+                               closest)
+            cur = k3.trace_kernel(caccel, *planes, g_cfg.t_min, closest)
+            same = (base[1] == cur[1]) if closest else (base == cur)
+            agree = float(same.float().mean())
+            sm.check(agree >= 0.999, f"K3 {key[3:]} vs the baseline K3: "
+                     f"agree on {agree:.6f} of {same.numel()} rays")
+            b, c = in_turns(
+                lambda: baseline_k3(baseline, caccel, planes, g_cfg.t_min,
+                                    closest),
+                lambda: k3.trace_kernel(caccel, *planes, g_cfg.t_min,
+                                        closest))
+            print(f"  K3 {key[3:]} in turns (baseline, current, current, "
+                  f"baseline): {b[0]:.4f}, {c[0]:.4f}, {c[1]:.4f}, "
+                  f"{b[1]:.4f} ms; current / baseline "
+                  f"{sum(c) / sum(b):.4f}", flush=True)
     nf_orbit = [steps]
 
     def orbit_steps(k: int):
@@ -1203,14 +1406,14 @@ def main() -> int:
         print(f"  culled orbit at {size}: {cloop.rebuilds - r0} rebuilds "
               f"over {6 * k} orbit steps", flush=True)
 
-    post = post_phases(sm, dev)
+    post = post_phases(sm, dev, baseline)
 
     # Bounds of the walks: rays in (7 planes) and hits out (t, tri, u, v
     # and the instance where there is one; a byte of occlusion), the
     # tables the kernel reads once.
     w8_tab = nbytes(accel.w8, accel.tris)
     k4_tab = nbytes(tl.w8_nodes, tl.tris, tl.obj_from_world, tl.w8_root)
-    k3_tab = nbytes(caccel.nodes, caccel.tris)
+    k3_tab = nbytes(caccel.skip_rec, caccel.tris)
     k5_tab = nbytes(ftl.nodes, ftl.tris, ftl.obj_from_world, ftl.blas_base,
                     ftl.blas_end)
     n_rel = int(lb.relevant.sum())
@@ -1221,8 +1424,10 @@ def main() -> int:
                     n_rel * K2_OPS_PER_ELEMENT),
         "k4_closest": bound(k4_tab + gn * (28 + 20)),
         "k4_any_hit": bound(k4_tab + gns * (28 + 1)),
-        "k3_closest": bound(k3_tab + c_prim[0].numel() * (28 + 16)),
-        "k3_any_hit": bound(k3_tab + c_shadow[0].numel() * (28 + 1)),
+        "k3_closest": bound(k3_tab + c_prim[0].numel() * (28 + 16),
+                            k3_ops["k3_closest"]),
+        "k3_any_hit": bound(k3_tab + c_shadow[0].numel() * (28 + 1),
+                            k3_ops["k3_any_hit"]),
         "k5_closest": bound(k5_tab + f_prim[0].numel() * (28 + 20)),
         "k5_any_hit": bound(k5_tab + f_shadow[0].numel() * (28 + 1)),
     }

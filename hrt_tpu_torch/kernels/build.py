@@ -141,7 +141,8 @@ def load() -> ctypes.CDLL:
     cdll.hrt_brdf_light_major.restype = i
     cdll.hrt_brdf_light_major.argtypes = [p, p, p, i, i, p, p]
     cdll.hrt_warp_bilinear.restype = i
-    cdll.hrt_warp_bilinear.argtypes = [p, i, i, i, p, p, i, p, p, p]
+    cdll.hrt_warp_bilinear.argtypes = [p, i, i, i, i, i, i, p, p, i, p, p,
+                                         p]
     cdll.hrt_cuda_error_string.restype = ctypes.c_char_p
     cdll.hrt_cuda_error_string.argtypes = [i]
     _lib = cdll

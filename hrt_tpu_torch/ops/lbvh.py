@@ -31,7 +31,7 @@ import torch
 
 from .. import native
 from ..models.scene import SceneData
-from . import morton, traversal_wide8, wide8
+from . import morton, traversal_skip, traversal_wide8, wide8
 
 # Column where the material row starts inside Accel.attr.
 ATTR_MAT = 16
@@ -54,7 +54,9 @@ class Accel:
     mat_id|material row); `tris` (T, 12) float32 the pool as v0|e1|e2|pad
     rows for the walks.  `nodes` (Mp/128, 8, 128) float32 is the JAX
     FlatBVH skip-link table (rows 6-7 hold int32 bits: leaf code, skip)
-    over `m_real` nodes.  `w8` is the (R, 8, 128) int32 BVH8 record table
+    over `m_real` nodes, and `skip_rec` (m_real, 8) int32 the same nodes
+    as 32-byte records, the layout K3 reads (traversal_skip.skip_records).
+    `w8` is the (R, 8, 128) int32 BVH8 record table
     (None for an LBVH or a tree past MAX_WIDE_NODES) and `w8_depth` its
     depth (root = 0), which sizes the BVH8 walk's per-ray stack."""
 
@@ -66,6 +68,7 @@ class Accel:
     tris: torch.Tensor
     nodes: torch.Tensor
     m_real: int
+    skip_rec: torch.Tensor
     leaf_size: int
     w8: torch.Tensor | None = None
     w8_depth: int = 0
@@ -92,9 +95,9 @@ def tri_table(tri_v0, tri_e1, tri_e2) -> torch.Tensor:
 def make_accel(tri_v0, tri_e1, tri_e2, tri_perm, attr, nodes, m_real: int,
                leaf_size: int, w8=None) -> Accel:
     """Assemble an Accel from the pool tensors and the tables (all on
-    one device), deriving the walks' triangle table and the BVH8 stack
-    depth.  Raises ValueError if the wide tree is too deep for the BVH8
-    walk's per-ray stack."""
+    one device), deriving the walks' triangle table, K3's node records
+    and the BVH8 stack depth.  Raises ValueError if the wide tree is too
+    deep for the BVH8 walk's per-ray stack."""
     depth = 0
     if w8 is not None:
         depth = wide8.record_depth(w8.cpu().numpy())
@@ -103,10 +106,12 @@ def make_accel(tri_v0, tri_e1, tri_e2, tri_perm, attr, nodes, m_real: int,
                              f"walk's stack ({traversal_wide8.MAX_STACK} "
                              "levels)")
         w8 = w8.contiguous()
+    nodes = nodes.contiguous()
     return Accel(tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2,
                  tri_perm=tri_perm, attr=attr,
                  tris=tri_table(tri_v0, tri_e1, tri_e2),
-                 nodes=nodes.contiguous(), m_real=int(m_real),
+                 nodes=nodes, m_real=int(m_real),
+                 skip_rec=traversal_skip.skip_records(nodes, int(m_real)),
                  leaf_size=leaf_size, w8=w8, w8_depth=depth)
 
 

@@ -6,7 +6,12 @@ Replaces the Pallas kernel of hrt_tpu/ops/warp_pallas.py
 csrc/warp_bilinear.cu; its source note says what bounds it on the card
 (bytes) and why it drops the TPU kernel's +-margin window: both
 versions compute the JAX package's unbounded gather path,
-hrt_tpu/ops/denoise.py `_bilinear`, at every pixel.
+hrt_tpu/ops/denoise.py `_bilinear`, at every pixel.  The kernel lays
+the work out for coalesced access: a block per tile of 128 output
+pixels computes their taps and weights once into shared memory, then
+its threads run over the tile's contiguous (pixel, channel) output
+floats, four each, with 16-byte stores; it reads the image through its
+strides, so a channels-first history is not copied first.
 
 Contract: warp an (Hs, Ws, C) float32 image to the (Ho, Wo) grid of
 float source coordinates (px, py), corner convention (pixel (i, j)'s
@@ -34,12 +39,17 @@ def _check_inputs(img, px, py) -> None:
 
 
 def warp_bilinear_kernel(img, px, py):
-    """Launch csrc/warp_bilinear.cu on CUDA tensors."""
+    """Launch csrc/warp_bilinear.cu on CUDA tensors.  The kernel reads
+    `img` through its strides (no copy for a channels-first view)."""
     from ..kernels import build
 
     _check_inputs(img, px, py)
-    img, px, py = img.contiguous(), px.contiguous(), py.contiguous()
     hs, ws, c = img.shape
+    sy, sx, sc = img.stride()
+    if (hs - 1) * sy + (ws - 1) * sx + (c - 1) * sc >= 2**31:
+        raise ValueError("warp_bilinear: the kernel takes images whose "
+                         "offsets stay under 2^31 floats")
+    px, py = px.contiguous(), py.contiguous()
     ho, wo = px.shape
     dev = img.device
     val = torch.empty((ho, wo, c), dtype=torch.float32, device=dev)
@@ -47,8 +57,9 @@ def warp_bilinear_kernel(img, px, py):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = build.load().hrt_warp_bilinear(
-            img.data_ptr(), hs, ws, c, px.data_ptr(), py.data_ptr(),
-            ho * wo, val.data_ptr(), valid.data_ptr(), stream)
+            img.data_ptr(), hs, ws, c, sy, sx, sc, px.data_ptr(),
+            py.data_ptr(), ho * wo, val.data_ptr(), valid.data_ptr(),
+            stream)
     build.check(rc, "warp_bilinear")
     LAUNCHES["warp_bilinear"] += 1
     return val, valid

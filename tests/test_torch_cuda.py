@@ -275,6 +275,59 @@ def test_skip_kernel_matches_plain_and_bruteforce(cuda, closest):
 
 
 @pytest.mark.parametrize("closest", [True, False])
+@pytest.mark.parametrize("which,leaf", [("lbvh", 64),
+                                        ("sah_past_bound", 8)])
+def test_skip_kernel_records_match_plain_and_bruteforce(cuda, monkeypatch,
+                                                        which, leaf, closest):
+    """K3 through the 32-byte records on the bench scene's LBVH with
+    64-triangle leaves (staged 32 at a time) and on its SAH tree past a
+    lowered MAX_WIDE_NODES with 8-triangle leaves, for a ray count that
+    leaves the last warp partial: ids (occlusion) agree with the plain
+    walk and brute force on >= 99.9% of rays, t within rtol 1e-4."""
+    from hrt_tpu_torch.ops import traversal_skip, wide8
+
+    scene = bench_scene().build(cuda)
+    if which == "lbvh":
+        accel = lbvh.build_bvh(scene, leaf)
+    else:
+        monkeypatch.setattr(wide8, "MAX_WIDE_NODES", 4)
+        accel = lbvh.build_bvh_sah(scene, leaf_size=leaf)
+    assert accel.leaf_size == leaf
+    assert accel.w8 is None and accel.skip_rec.is_cuda
+    assert torch.equal(accel.skip_rec, traversal_skip.node_words(
+        accel.nodes, torch.arange(accel.m_real, device=cuda)))
+    n = 4093
+    o, d = _rays(8, n, cuda)
+    tmax = torch.full((n,), 1e32 if closest else 5.0, device=cuda)
+    tmax[::13] = -1.0                                   # dead rays
+    planes = (*o.T.contiguous(), *d.T.contiguous(), tmax)
+    k = traversal_skip.trace_kernel(accel, *planes, 1e-3, closest)
+    p = traversal_skip.trace_plain(accel, *planes, 1e-3, closest)
+    torch.cuda.synchronize()
+    if closest:
+        kt, ktri = k[0], k[1]
+        assert (ktri == p[1]).float().mean().item() >= 0.999
+        same = (ktri == p[1]) & (ktri >= 0)
+        torch.testing.assert_close(kt[same], p[0][same], rtol=1e-4,
+                                   atol=1e-5)
+        assert (ktri[::13] == -1).all() and (kt[::13] == -1.0).all()
+        bt, bi, _, _ = closest_hit_bruteforce(
+            o, d, scene.tri_v0, scene.tri_e1, scene.tri_e2, 1e-3, tmax)
+        orig = torch.where(ktri >= 0,
+                           accel.tri_perm[ktri.clamp(min=0).long()], -1)
+        tie = (orig >= 0) & (bi >= 0) & ((kt - bt).abs() <= 1e-5 * bt.abs())
+        assert ((orig == bi) | tie).float().mean().item() >= 0.999
+        assert (ktri >= 0).float().mean().item() > 0.1
+    else:
+        assert (k == p).float().mean().item() >= 0.999
+        assert not k[::13].any()
+        bocc = any_hit_bruteforce(o, d, scene.tri_v0, scene.tri_e1,
+                                  scene.tri_e2, 1e-3, tmax)
+        assert (k == bocc).float().mean().item() >= 0.999
+        assert 0.05 < k.float().mean().item() < 0.95
+
+
+@pytest.mark.parametrize("closest", [True, False])
 def test_tlas_skip_kernel_matches_plain_and_k4(cuda, closest):
     """K5 on the binary tables of the instanced scene (past a lowered
     wide bound), against its plain walk and against K4 on the same
@@ -333,6 +386,44 @@ def test_warp_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert warp_kernel.LAUNCHES["warp_bilinear"] == before + 1
     assert kv.shape == (ho, wo, c) and kvalid.dtype == torch.bool
+    assert torch.equal(kvalid, pvalid)
+    assert 0.3 < kvalid.float().mean().item() < 0.95
+    assert torch.isfinite(kv).all()
+    assert ((kv - pv).abs() <= 1e-5 * scale).all()
+
+
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+@pytest.mark.parametrize("c", [1, 3, 10])
+def test_warp_kernel_tiles_match_plain(cuda, c, layout):
+    """K6's tiles at a ragged size (a 37x29 grid from a 31x23 source, so
+    the last tile and its last 16-byte store are partial) for each
+    channel count, from a contiguous image and from a channels-first
+    view (read through its strides): validity identical, values within
+    rel 1e-5 of the taps' absolute weighted sum, finite."""
+    from hrt_tpu_torch.ops import warp_kernel
+
+    rs = np.random.RandomState(13 + c)
+    hs, ws, ho, wo = 23, 31, 29, 37
+    src = rs.uniform(-2, 2, (hs, ws, c)).astype(np.float32)
+    if layout == "hwc":
+        img = torch.as_tensor(src, device=cuda)
+    else:
+        img = torch.as_tensor(np.ascontiguousarray(src.transpose(2, 0, 1)),
+                              device=cuda).permute(1, 2, 0)
+        assert c == 1 or not img.is_contiguous()
+    px = rs.uniform(-4, ws + 3, (ho, wo)).astype(np.float32)
+    py = rs.uniform(-4, hs + 3, (ho, wo)).astype(np.float32)
+    px[::5, ::3] = 1e10
+    py[::7, ::2] = -1e10
+    px[1::6, 1::4] = -1e10
+    px, py = (torch.as_tensor(a, device=cuda) for a in (px, py))
+    before = warp_kernel.LAUNCHES["warp_bilinear"]
+    kv, kvalid = warp_kernel.warp_bilinear(img, px, py)
+    pv, pvalid = warp_kernel.warp_bilinear_plain(img, px, py)
+    scale = warp_kernel.warp_bilinear_plain(img.abs(), px, py)[0]
+    torch.cuda.synchronize()
+    assert warp_kernel.LAUNCHES["warp_bilinear"] == before + 1
+    assert kv.shape == (ho, wo, c) and kv.is_contiguous()
     assert torch.equal(kvalid, pvalid)
     assert 0.3 < kvalid.float().mean().item() < 0.95
     assert torch.isfinite(kv).all()
