@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from hrt_tpu_torch/csrc/, then drives the
-port's four paths.  The bench frame: the bench scene (three icospheres +
+port's five paths.  The bench frame: the bench scene (three icospheres +
 ground plane, two point lights), SAH build with 32-triangle leaves and
 its BVH8 records, and `render_frames` of 32 frames at 512x384
 (max_depth=1, sky on), plus one 1920x1080 frame.  The instanced frame:
@@ -15,10 +15,12 @@ the default culling, rebuilt with the LBVH on the card as the orbiting
 camera changes which instances show, traced by K3.  The instance forest:
 a 182x182 grid (33,125 instances) whose unified BVH8 table would pass
 MAX_WIDE_NODES, so its build makes the binary two-level tables, traced
-by K5, animated.  Phases:
+by K5, animated.  The post frame: SVGF and the temporal 2x upscaler
+over the bench frame, whose history fetches run K6.  Phases:
 
   1. device facts (name, nvidia-smi power limit)
-  2. kernel build, timed
+  2. kernel build, timed, with ptxas's registers and spills; the
+     baseline kernels, where chip_scratch/baseline/ holds copies
   3. scene + accel on the card
   4. K1 (BVH8 walk) closest and any-hit vs its plain version on the
      frame's primary and light-major shadow batches; both vs brute force
@@ -35,14 +37,20 @@ by K5, animated.  Phases:
      plane, one light): two-level build on the card, timed
  11. K4 (two-level wide walk) closest and any-hit vs its plain version on
      the 512x384 frame's primary and shadow batches; both vs brute force
-     over the flattened soup on 4096-ray subsets
+     over the flattened soup on 4096-ray subsets; K4 and K5 (on the
+     grid's binary tables) vs their plain versions and the soup's brute
+     force on 4093 of those rays (a partial last warp)
  12. FrameLoop(two_level=True): 32 steps at 512x384, each after moving
      one sphere (set_instance_transform); the launch counters must show
      32 K4 closest, 32 K4 any-hit and 32 K2 launches; the last frame vs
      the plain-path frame and vs the soup frame through K1
  13. one 1920x1080 two-level frame, same checks
- 14. CUDA-event times (median of 7): K4 vs its plain version at the
-     512x384 shapes, one refit, ms/frame and Mray/s at both sizes
+ 14. CUDA-event times (median of 7; the kernels 10 calls per sample,
+     one call alone beside): K4 vs its plain version at the 512x384
+     shapes, one refit, ms/frame and Mray/s at both sizes; K4's node
+     records' times; K4's visits per live ray in the table's order and
+     nearest first (traversal_tlas8.visit_counts) and the operation
+     bound they give; K4 against the baseline K4 in turns
  15. the culled FrameLoop (default cull_threshold_px) over the 16x16 grid
      soup: 32 steps at 512x384 along orbit_camera(0.15 f, radius 4,
      height -1), the visible count per frame, >= 2 LBVH rebuilds; the
@@ -67,8 +75,10 @@ by K5, animated.  Phases:
      and of the forest frame (still, and with a refit per frame), at both
      sizes; K3's visits per ray on the culled frame's batches
      (traversal_skip.visit_counts) and the operation bound they give;
-     K3 against a baseline build of an earlier K3, in turns (baseline,
-     current, current, baseline), where chip_scratch/baseline/ holds one
+     K5's node records' times, its visits per live ray on the forest's
+     batches in both orders (traversal_tlas_skip.visit_counts) and its
+     operation bound; K3 and K5 against the baseline ones in turns
+     (baseline, current, current, baseline)
  20. K6 (the reprojection warp) vs its plain version on the inputs of a
      moving-camera post frame at both of its shapes (SVGF's history,
      1920x1080 C=10; the temporal upscaler's, 3840x2160 C=3): validity
@@ -92,22 +102,25 @@ by K5, animated.  Phases:
 
 Every kernel line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
-and its float32 operations over 67 TFLOP/s (H100 SXM data sheet).  K3's
-operations are counted from this run's visits (every node's slab test
-and every triangle test up to the point where it can first reject); the
-other walks' visits are not counted, so their bound is their bytes.
+and its float32 operations over 67 TFLOP/s (H100 SXM data sheet).  The
+walks' operations are counted from this run's visits: K3's, and K4's and
+K5's in the cheaper of the two orders (every box's slab test, every
+triangle test up to the point where it can first reject, every instance
+entry's transform); K1's visits are not counted, so its bound is its
+bytes.
 
-The baseline (phases 19 and 23) is optional: copies of an earlier
-commit's skip_trace.cu, walk_common.cuh and warp_bilinear.cu under the
-gitignored chip_scratch/baseline/, e.g.
+The baseline (phases 14, 19 and 23) is optional: copies of an earlier
+commit's kernels (any of skip_trace.cu, warp_bilinear.cu, tlas8_trace.cu
+and tlas_skip_trace.cu, with the headers they include) under the
+gitignored chip_scratch/baseline/, e.g. for the K4 and K5 of f3a1248
 
     mkdir -p chip_scratch/baseline
-    for f in skip_trace.cu walk_common.cuh warp_bilinear.cu; do
-      git show <commit>:hrt_tpu_torch/csrc/$f > chip_scratch/baseline/$f
+    for f in tlas8_trace.cu tlas_skip_trace.cu walk_common.cuh; do
+      git show f3a1248:hrt_tpu_torch/csrc/$f > chip_scratch/baseline/$f
     done
 
-built into their own library at phase 19.  A plain checkout has none,
-and the comparison is skipped.
+built into their own library at phase 2.  A plain checkout has none,
+and the comparisons are skipped.
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails.  The line before the last is the kernels JSON; the last is
@@ -149,7 +162,14 @@ K2_OPS_PER_ELEMENT = 300
 # (9), det (5), T (3), T.P (5) and 3 compares.
 K3_OPS_PER_NODE = 25
 K3_OPS_PER_TEST = 25
+# K4's and K5's operations: K3's per box test and per triangle test, and
+# one instance entry (csrc/walk_common.cuh `enter_instance`): the origin's
+# 3x4 affine map (3 x 7), the direction's linear one (3 x 5), three
+# clamped reciprocals (3 x 4) and o * inv (3).
+ENTER_OPS = 51
 BASELINE_DIR = os.path.join(ROOT, "chip_scratch", "baseline")
+BASELINE_KERNELS = ("skip_trace.cu", "warp_bilinear.cu", "tlas8_trace.cu",
+                    "tlas_skip_trace.cu")
 
 
 class Smoke:
@@ -185,28 +205,33 @@ def time_ms(fn, reps: int = 7, calls: int = 1) -> float:
 
 
 def load_baseline():
-    """The baseline K3 and K6 from BASELINE_DIR, with the entry points
-    they had there (hrt_skip_trace over the (Mp/128, 8, 128) skip-link
-    table, hrt_warp_bilinear over a contiguous image), built like the
-    package's kernels into chip_scratch/_build/; None without copies."""
+    """The baseline kernels in BASELINE_DIR (any of K3 skip_trace.cu, K6
+    warp_bilinear.cu, K4 tlas8_trace.cu and K5 tlas_skip_trace.cu, beside
+    the headers they include), built like the package's kernels into
+    chip_scratch/_build/, with the entry points they had at f3a1248
+    (hrt_skip_trace over the (Mp/128, 8, 128) skip-link table,
+    hrt_warp_bilinear over a contiguous image, hrt_tlas8_trace over the
+    (R, 8, 128) BVH8 table, hrt_tlas_skip_trace over the (R, 8, 128)
+    two-level skip-link table) bound for the copies present; None without
+    copies."""
     import ctypes
     import glob
     import hashlib
 
     from hrt_tpu_torch.kernels import build
 
-    srcs = [os.path.join(BASELINE_DIR, f)
-            for f in ("skip_trace.cu", "walk_common.cuh", "warp_bilinear.cu")]
-    if not all(os.path.exists(f) for f in srcs):
+    cu = [os.path.join(BASELINE_DIR, f) for f in BASELINE_KERNELS
+          if os.path.exists(os.path.join(BASELINE_DIR, f))]
+    if not cu:
         return None
+    srcs = cu + sorted(glob.glob(os.path.join(BASELINE_DIR, "*.cuh")))
     h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
     for f in srcs:
         with open(f, "rb") as fh:
-            h.update(fh.read())
+            h.update(os.path.basename(f).encode() + fh.read())
     path = os.path.join(ROOT, "chip_scratch", "_build",
                         f"baseline-{h.hexdigest()[:16]}.so")
     nvcc = build.nvcc_path()
-    cu = [f for f in srcs if f.endswith(".cu")]
 
     def stages(tmp):
         objs = [f"{tmp}.{os.path.basename(f)}.o" for f in cu]
@@ -220,13 +245,59 @@ def load_baseline():
         for leftover in glob.glob(f"{path}.*.tmp.*.o"):
             os.remove(leftover)
     lib = ctypes.CDLL(path)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hrt_skip_trace.restype = i
-    lib.hrt_skip_trace.argtypes = [p] * 7 + [i, p, p, i, i, ctypes.c_float,
-                                             i] + [p] * 5 + [p]
-    lib.hrt_warp_bilinear.restype = i
-    lib.hrt_warp_bilinear.argtypes = [p, i, i, i, p, p, i, p, p, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    argtypes = {
+        "hrt_skip_trace": [p] * 7 + [i, p, p, i, i, f, i] + [p] * 5 + [p],
+        "hrt_warp_bilinear": [p, i, i, i, p, p, i, p, p, p],
+        "hrt_tlas8_trace": [p] * 7 + [i, p, p, p, p, i, i, f, i, i]
+        + [p] * 6 + [p],
+        "hrt_tlas_skip_trace": [p] * 7 + [i, p, p, p, p, p, i, i, f, i]
+        + [p] * 6 + [p]}
+    for name, args in argtypes.items():
+        if hasattr(lib, name):
+            getattr(lib, name).restype = i
+            getattr(lib, name).argtypes = args
     return lib
+
+
+def has_baseline(lib, name: str) -> bool:
+    return lib is not None and hasattr(lib, name)
+
+
+def baseline_two_level(lib, tl, planes, t_min: float, closest: bool):
+    """The baseline K4 (BVH8 route) or K5 (binary route) on the tables
+    the kernels of f3a1248 read: the (R, 8, 128) w8_nodes or nodes."""
+    import torch
+
+    planes = [q.contiguous() for q in planes]
+    n, dev = planes[0].numel(), planes[0].device
+    if closest:
+        res = (torch.empty(n, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, device=dev), torch.empty(n, device=dev))
+        outs = [q.data_ptr() for q in res] + [None]
+    else:
+        res = torch.empty(n, dtype=torch.bool, device=dev)
+        outs = [None] * 5 + [res.data_ptr()]
+    tf = tl.obj_from_world.reshape(-1, 12).contiguous()
+    rays = [q.data_ptr() for q in planes]
+    stream = torch.cuda.current_stream().cuda_stream
+    if tl.w8_nodes is not None:
+        rc = lib.hrt_tlas8_trace(
+            *rays, n, tl.w8_nodes.data_ptr(), tl.tris.data_ptr(),
+            tf.data_ptr(), tl.w8_root.data_ptr(), tl.w8_tlas_nw,
+            tl.leaf_size, float(t_min), tl.stack, int(closest), *outs,
+            stream)
+    else:
+        rc = lib.hrt_tlas_skip_trace(
+            *rays, n, tl.nodes.data_ptr(), tl.tris.data_ptr(),
+            tf.data_ptr(), tl.blas_base.data_ptr(), tl.blas_end.data_ptr(),
+            tl.tlas_m, tl.leaf_size, float(t_min), int(closest), *outs,
+            stream)
+    if rc:
+        raise RuntimeError(f"baseline two-level walk: CUDA error {rc}")
+    return res
 
 
 def baseline_k3(lib, accel, planes, t_min: float, closest: bool):
@@ -324,6 +395,93 @@ def bound(n_bytes: float, ops: float = 0.0):
     by_ops = ops / F32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def two_level_ops(mod, tl, planes, t_min: float, closest: bool,
+                  label: str) -> int:
+    """Visits per live ray of a two-level walk (`mod.visit_counts`) on
+    this batch in the table's order and nearest first, printed; returns
+    the operations of the cheaper order (K3_OPS_PER_NODE per box test,
+    K3_OPS_PER_TEST per triangle test, ENTER_OPS per instance entered),
+    a floor for a walk in either order."""
+    live = max(int((planes[6] >= 0).sum()), 1)
+    n32 = planes[6].numel() // 32 * 32
+    warp_live = (planes[6][:n32] >= 0).view(-1, 32).any(1)
+    ops = []
+    for nearest in (False, True):
+        cnt = mod.visit_counts(tl, *planes, t_min, closest, nearest=nearest)
+        cnt.pop("hits")
+        tot = {k: int(v.sum()) for k, v in cnt.items()}
+        boxes = (tot.get("tlas_boxes", tot["tlas_nodes"])
+                 + tot.get("blas_boxes", tot["blas_nodes"]))
+        ops.append(boxes * K3_OPS_PER_NODE + tot["tests"] * K3_OPS_PER_TEST
+                   + tot["instances"] * ENTER_OPS)
+        # Box and triangle tests per ray: the longest walks, and a warp's
+        # busiest ray (what a warp of a thread per ray waits for).
+        work = (cnt.get("tlas_boxes", cnt["tlas_nodes"])
+                + cnt.get("blas_boxes", cnt["blas_nodes"]) + cnt["tests"])
+        busiest = work[:n32].view(-1, 32).amax(1)[warp_live].float()
+        print(f"  {label} visits per live ray ({live} live), "
+              f"{'nearest first' if nearest else 'table order'}: "
+              + ", ".join(f"{k} {v / live:.2f}" for k, v in tot.items())
+              + f"; {ops[-1]:.4e} operations; box and triangle tests per "
+              f"ray: max {int(work.max())}, a warp's busiest ray "
+              f"{float(busiest.mean()):.1f} (mean over {busiest.numel()} "
+              "warps with a live ray)", flush=True)
+    return min(ops)
+
+
+def time_walk_vs_baseline(sm: Smoke, baseline, name: str, kernel, tl,
+                          planes, t_min: float, closest: bool) -> None:
+    """A two-level kernel against the baseline one: agreement (>= 0.999,
+    as check_closest / check_occlusion) and times in turns (10 calls per
+    event pair)."""
+    base = baseline_two_level(baseline, tl, planes, t_min, closest)
+    cur = kernel(tl, *planes, t_min, closest)
+    (check_closest if closest else check_occlusion)(
+        sm, f"{name} vs the baseline", cur, base)
+    b, c = in_turns(lambda: baseline_two_level(baseline, tl, planes, t_min,
+                                               closest),
+                    lambda: kernel(tl, *planes, t_min, closest), calls=10)
+    print(f"  {name} in turns (baseline, current, current, baseline; 10 "
+          f"calls per sample): {b[0]:.4f}, {c[0]:.4f}, {c[1]:.4f}, "
+          f"{b[1]:.4f} ms; current / baseline {sum(c) / sum(b):.4f}",
+          flush=True)
+
+
+def frame_vs_baseline(baseline, mod, frames, label: str,
+                      pairs: int = 10) -> None:
+    """`frames()` (still frames through `mod`'s walk) against the same
+    frames through the baseline kernel put in the place of
+    `mod.trace_kernel`: `pairs` pairs of one sample each, alternating
+    which runs first; prints both medians and the pairs the current
+    kernel wins (times only; no launch counter is read).  The frames
+    are host-bound, so their spread is the host's."""
+    cur = mod.trace_kernel
+
+    def base_kernel(tl, *args):
+        return baseline_two_level(baseline, tl, args[:7], args[7], args[8])
+
+    def with_base():
+        mod.trace_kernel = base_kernel
+        try:
+            frames()
+        finally:
+            mod.trace_kernel = cur
+
+    b, c = [], []
+    for p in range(pairs):
+        for fn in ((with_base, frames) if p % 2 == 0 else (frames,
+                                                            with_base)):
+            (b if fn is with_base else c).append(time_ms(fn, reps=1))
+    wins = sum(x < y for x, y in zip(c, b))
+    mb, mc = statistics.median(b), statistics.median(c)
+    print(f"  {label}, {pairs} pairs alternating: median baseline kernel "
+          f"{mb:.4f} ms, current {mc:.4f} ms (current / baseline "
+          f"{mc / mb:.4f}); current faster in {wins} of {pairs}; baseline "
+          f"quartiles "
+          f"{' '.join(f'{q:.4f}' for q in statistics.quantiles(b, n=4))}",
+          flush=True)
 
 
 def post_cam(f: int):
@@ -561,7 +719,7 @@ def post_phases(sm: Smoke, dev, baseline=None) -> dict:
               f" ms, bound {row['bound_ms']:.4f} ms ({n_bytes} bytes, "
               f"{bound(n_bytes, ops)[1]}); one call alone (the host's "
               f"cost included) {time_ms(kernel):.4f} ms", flush=True)
-        if baseline is not None:
+        if has_baseline(baseline, "hrt_warp_bilinear"):
             bv, bvalid = baseline_k6(baseline, img, px, py)
             kv, kvalid = k6.warp_bilinear_kernel(img, px, py)
             dv = float(((bv - kv).abs() / bv.abs().clamp(min=1.0)).max())
@@ -646,6 +804,12 @@ def main() -> int:
                 print("  ptxas:", line.split("'")[1][:72])
             elif "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    baseline = load_baseline()
+    copies = [f for f in BASELINE_KERNELS
+              if os.path.exists(os.path.join(BASELINE_DIR, f))]
+    print(f"  baseline kernels: {', '.join(copies) or 'none'} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     print("phase 3: scene + accel", flush=True)
     t0 = time.perf_counter()
@@ -913,7 +1077,29 @@ def main() -> int:
         a = float((occ[gssub] == bocc4).float().mean())
         sm.check(a >= 0.999, f"any-hit {who} vs soup brute force on 4096 "
                  f"rays: {a:.6f}")
-    del bt4, bi4, bocc4
+    # 4093 of those rays (a partial last warp) through K4 and through K5
+    # on the grid's binary tables, against their plain walks and brute
+    # force over the soup.
+    from hrt_tpu_torch.ops import traversal_tlas_skip as k5
+
+    tl5g = tlas.build_two_level_flat(grid, 32, device=dev, max_wide_nodes=32)
+    pp = [q[gsub[:4093]] for q in g_prim]
+    ps = [q[gssub[:4093]] for q in g_shadow]
+    for kname, walk, table in (("K4", k4, tl), ("K5", k5, tl5g)):
+        kc = walk.trace_kernel(table, *pp, g_cfg.t_min, True)
+        check_closest(sm, f"{kname} vs plain on 4093 primary rays", kc,
+                      walk.trace_plain(table, *pp, g_cfg.t_min, True))
+        a = soup_agreement(kc[1], kc[2], kc[0], bi4[:4093], bt4[:4093],
+                           g_scene.tri_inst)
+        sm.check(a >= 0.999, f"{kname} closest vs soup brute force on 4093 "
+                 f"rays (hit, instance, modulo ties): {a:.6f}")
+        ka = walk.trace_kernel(table, *ps, g_cfg.t_min, False)
+        check_occlusion(sm, f"{kname} vs plain on 4093 shadow rays", ka,
+                        walk.trace_plain(table, *ps, g_cfg.t_min, False))
+        a = float((ka == bocc4[:4093]).float().mean())
+        sm.check(a >= 0.999, f"{kname} any-hit vs soup brute force on 4093 "
+                 f"rays: {a:.6f}")
+    del bt4, bi4, bocc4, tl5g
 
     print("phase 12: animated FrameLoop(two_level=True), 32 steps at "
           "512x384", flush=True)
@@ -991,8 +1177,12 @@ def main() -> int:
           flush=True)
     times.update({
         "k4_closest": time_ms(lambda: k4.trace_kernel(
-            tl, *g_prim, g_cfg.t_min, True)),
+            tl, *g_prim, g_cfg.t_min, True), calls=10),
         "k4_any_hit": time_ms(lambda: k4.trace_kernel(
+            tl, *g_shadow, g_cfg.t_min, False), calls=10),
+        "k4_closest_one_call": time_ms(lambda: k4.trace_kernel(
+            tl, *g_prim, g_cfg.t_min, True)),
+        "k4_any_hit_one_call": time_ms(lambda: k4.trace_kernel(
             tl, *g_shadow, g_cfg.t_min, False)),
         # The plain walk takes most of a second per call: 3 reps.
         "k4_closest_plain": time_ms(lambda: k4.trace_plain(
@@ -1024,11 +1214,33 @@ def main() -> int:
                         "mrays_per_s": rays4[size] / still / 1e3,
                         "animated_ms_per_frame": animated,
                         "animated_mrays_per_s": rays4[size] / animated / 1e3}
-    for key in ("k4_closest", "k4_closest_plain", "k4_any_hit",
-                "k4_any_hit_plain"):
+    for key in ("k4_closest", "k4_closest_one_call", "k4_closest_plain",
+                "k4_any_hit", "k4_any_hit_one_call", "k4_any_hit_plain"):
         print(f"  {key}: {times[key]:.4f} ms", flush=True)
     print(f"  refit (set_instance_transform, host clock): {refit_ms:.4f} ms",
           flush=True)
+    rows = tl.w8_tlas_nw // 16
+    rec_full = time_ms(lambda: k4.node_records(tl.w8_nodes))
+    rec_tlas = time_ms(lambda: k4.node_records(tl.w8_nodes[:rows]))
+    print(f"  K4 node records (traversal_tlas8.node_records): whole table "
+          f"{rec_full:.4f} ms at the build, TLAS region {rec_tlas:.4f} ms at "
+          f"each refit", flush=True)
+    k4_ops = {
+        "k4_closest": two_level_ops(k4, tl, g_prim, g_cfg.t_min, True,
+                                    "K4 closest"),
+        "k4_any_hit": two_level_ops(k4, tl, g_shadow, g_cfg.t_min, False,
+                                    "K4 any-hit")}
+    if has_baseline(baseline, "hrt_tlas8_trace"):
+        for key, planes, closest in (("closest", g_prim, True),
+                                     ("any-hit", g_shadow, False)):
+            time_walk_vs_baseline(sm, baseline, f"K4 {key}", k4.trace_kernel,
+                                  tl, planes, g_cfg.t_min, closest)
+        loop.set_resolution(512, 384)
+        frame_vs_baseline(baseline, k4,
+                          lambda: [loop.step(cam) for _ in range(4)],
+                          "instanced still frame 512x384, 4 frames")
+    else:
+        print("  K4 baseline: none", flush=True)
     for size, v in frame4.items():
         print(f"  instanced frame {size}: {v['ms_per_frame']:.4f} ms/frame, "
               f"{v['mrays_per_s']:.2f} Mray/s; with a refit per frame "
@@ -1288,24 +1500,49 @@ def main() -> int:
         "k3_any_hit_plain": time_ms(lambda: k3.trace_plain(
             caccel, *c_shadow, g_cfg.t_min, False), reps=3),
         "k5_closest": time_ms(lambda: k5.trace_kernel(
-            ftl, *f_prim, g_cfg.t_min, True)),
+            ftl, *f_prim, g_cfg.t_min, True), calls=10),
         "k5_any_hit": time_ms(lambda: k5.trace_kernel(
+            ftl, *f_shadow, g_cfg.t_min, False), calls=10),
+        "k5_closest_one_call": time_ms(lambda: k5.trace_kernel(
+            ftl, *f_prim, g_cfg.t_min, True)),
+        "k5_any_hit_one_call": time_ms(lambda: k5.trace_kernel(
             ftl, *f_shadow, g_cfg.t_min, False)),
         "k5_closest_plain": time_ms(lambda: k5.trace_plain(
             ftl, *f_prim, g_cfg.t_min, True), reps=3),
         "k5_any_hit_plain": time_ms(lambda: k5.trace_plain(
             ftl, *f_shadow, g_cfg.t_min, False), reps=3),
         "k4_forest_closest": time_ms(lambda: k4.trace_kernel(
-            ftl4, *f_prim, g_cfg.t_min, True)),
+            ftl4, *f_prim, g_cfg.t_min, True), calls=10),
         "k4_forest_any_hit": time_ms(lambda: k4.trace_kernel(
-            ftl4, *f_shadow, g_cfg.t_min, False)),
+            ftl4, *f_shadow, g_cfg.t_min, False), calls=10),
     })
     lbvh_ms = host_ms(lambda: lbvh.build_bvh(cscene, 32, tri_mask=cmask))
     for key in ("k3_closest", "k3_closest_plain", "k3_any_hit",
-                "k3_any_hit_plain", "k5_closest", "k5_closest_plain",
-                "k5_any_hit", "k5_any_hit_plain", "k4_forest_closest",
+                "k3_any_hit_plain", "k5_closest", "k5_closest_one_call",
+                "k5_closest_plain", "k5_any_hit", "k5_any_hit_one_call",
+                "k5_any_hit_plain", "k4_forest_closest",
                 "k4_forest_any_hit"):
         print(f"  {key}: {times[key]:.4f} ms", flush=True)
+    tl_rows = int(ftl.blas_base.min()) // 128
+    rec_full = time_ms(lambda: k3.skip_records(ftl.nodes,
+                                               ftl.nodes.shape[0] * 128))
+    rec_tlas = time_ms(lambda: k3.skip_records(ftl.nodes[:tl_rows],
+                                               tl_rows * 128))
+    print(f"  K5 node records (traversal_skip.skip_records): whole table "
+          f"{rec_full:.4f} ms at the build, TLAS rows {rec_tlas:.4f} ms at "
+          f"each refit", flush=True)
+    k5_ops = {
+        "k5_closest": two_level_ops(k5, ftl, f_prim, g_cfg.t_min, True,
+                                    "K5 closest"),
+        "k5_any_hit": two_level_ops(k5, ftl, f_shadow, g_cfg.t_min, False,
+                                    "K5 any-hit")}
+    if has_baseline(baseline, "hrt_tlas_skip_trace"):
+        for key, planes, closest in (("closest", f_prim, True),
+                                     ("any-hit", f_shadow, False)):
+            time_walk_vs_baseline(sm, baseline, f"K5 {key}", k5.trace_kernel,
+                                  ftl, planes, g_cfg.t_min, closest)
+    else:
+        print("  K5 baseline: none", flush=True)
     print(f"  LBVH rebuild of the culled grid (host clock, median of 7): "
           f"{lbvh_ms:.4f} ms", flush=True)
     rec_ms = time_ms(lambda: k3.skip_records(caccel.nodes, caccel.m_real))
@@ -1341,9 +1578,8 @@ def main() -> int:
               f"{sah['nodes'] / max(live, 1):.1f}, leaves "
               f"{sah['leaves'] / max(live, 1):.1f}, triangle tests "
               f"{sah['tests'] / max(live, 1):.1f} per live ray", flush=True)
-    baseline = load_baseline()
-    if baseline is None:
-        print("  K3 baseline: none (chip_scratch/baseline/ holds no copies)",
+    if not has_baseline(baseline, "hrt_skip_trace"):
+        print("  K3 baseline: none (chip_scratch/baseline/ holds no copy)",
               flush=True)
     else:
         for key, planes, closest in (("k3_closest", c_prim, True),
@@ -1405,6 +1641,10 @@ def main() -> int:
                   f"{rays / v / 1e3:.2f} Mray/s", flush=True)
         print(f"  culled orbit at {size}: {cloop.rebuilds - r0} rebuilds "
               f"over {6 * k} orbit steps", flush=True)
+    if has_baseline(baseline, "hrt_tlas_skip_trace"):
+        floop.set_resolution(512, 384)
+        frame_vs_baseline(baseline, k5, lambda: forest_steps(4, False),
+                          "forest still frame 512x384, 4 frames")
 
     post = post_phases(sm, dev, baseline)
 
@@ -1412,24 +1652,26 @@ def main() -> int:
     # and the instance where there is one; a byte of occlusion), the
     # tables the kernel reads once.
     w8_tab = nbytes(accel.w8, accel.tris)
-    k4_tab = nbytes(tl.w8_nodes, tl.tris, tl.obj_from_world, tl.w8_root)
+    k4_tab = nbytes(tl.w8_rec, tl.tris, tl.obj_from_world, tl.w8_root)
     k3_tab = nbytes(caccel.skip_rec, caccel.tris)
-    k5_tab = nbytes(ftl.nodes, ftl.tris, ftl.obj_from_world, ftl.blas_base,
-                    ftl.blas_end)
+    k5_tab = nbytes(ftl.skip_rec, ftl.tris, ftl.obj_from_world,
+                    ftl.blas_base, ftl.blas_end)
     n_rel = int(lb.relevant.sum())
     bounds = {
         "k1_closest": bound(w8_tab + n * (28 + 16)),
         "k1_any_hit": bound(w8_tab + ns * (28 + 1)),
         "k2": bound(18 * 4 * n + ns * (12 + 1 + 12),
                     n_rel * K2_OPS_PER_ELEMENT),
-        "k4_closest": bound(k4_tab + gn * (28 + 20)),
-        "k4_any_hit": bound(k4_tab + gns * (28 + 1)),
+        "k4_closest": bound(k4_tab + gn * (28 + 20), k4_ops["k4_closest"]),
+        "k4_any_hit": bound(k4_tab + gns * (28 + 1), k4_ops["k4_any_hit"]),
         "k3_closest": bound(k3_tab + c_prim[0].numel() * (28 + 16),
                             k3_ops["k3_closest"]),
         "k3_any_hit": bound(k3_tab + c_shadow[0].numel() * (28 + 1),
                             k3_ops["k3_any_hit"]),
-        "k5_closest": bound(k5_tab + f_prim[0].numel() * (28 + 20)),
-        "k5_any_hit": bound(k5_tab + f_shadow[0].numel() * (28 + 1)),
+        "k5_closest": bound(k5_tab + f_prim[0].numel() * (28 + 20),
+                            k5_ops["k5_closest"]),
+        "k5_any_hit": bound(k5_tab + f_shadow[0].numel() * (28 + 1),
+                            k5_ops["k5_any_hit"]),
     }
     for key, (ms, by) in bounds.items():
         print(f"  bound {key}: {ms:.6f} ms ({by})", flush=True)

@@ -1,10 +1,15 @@
-// K3's own node read and triangle test (skip_trace.cu).  K1, K4 and K5
-// keep walk_common.cuh's `skip_node_test`, `moller` and `leaf_hits`.
+// The redesigned walks' node reads, staging and triangle test: K3
+// (skip_trace.cu), K5 (tlas_skip_trace.cu) and K4 (tlas8_trace.cu).  K1
+// keeps walk_common.cuh's `child_test`, `moller` and `leaf_hits`.
 //
 // Node record (hrt_tpu_torch/ops/traversal_skip.py `skip_records`): node
-// i of the skip-link table as the 8 int32 words at rec + 8 * i -- six box
-// floats as bits, the leaf code and the skip index -- so a node is two
-// 16-byte loads instead of eight 4-byte loads 512 bytes apart.
+// i of the skip-link table (hrt_tpu_torch/ops/lbvh.py `flatten_bvh`, the
+// JAX FlatBVH, word c of node i at (i / 128) * 1024 + c * 128 + i % 128)
+// as the 8 int32 words at rec + 8 * i -- six box floats as bits, the
+// leaf code (0 internal, else the leaf's first pool slot + 1; in a
+// two-level TLAS -(instance + 1)) and the skip index (the node after its
+// subtree) -- so a node is two 16-byte loads instead of eight 4-byte
+// loads 512 bytes apart.
 //
 // Triangle test: Möller-Trumbore without a division on the way to a miss.
 // It computes det, T.P, D.Q and E2.Q term for term as `moller` and
@@ -37,6 +42,43 @@ __device__ __forceinline__ bool skip_rec_test(const int4* __restrict__ rec,
   return slab_hit(__int_as_float(w0.x), __int_as_float(w0.y),
                   __int_as_float(w0.z), __int_as_float(w0.w),
                   __int_as_float(w1.x), __int_as_float(w1.y), r, t_min, t);
+}
+
+// slab_hit (walk_common.cuh), term for term, also giving the entry
+// distance t_near (>= t_min) for a nearest-first order.
+__device__ __forceinline__ bool slab_entry(float bminx, float bminy,
+                                           float bminz, float bmaxx,
+                                           float bmaxy, float bmaxz,
+                                           const Ray& r, float t_min,
+                                           float t, float& t_near) {
+  const float tx0 = bminx * r.ix - r.oix;
+  const float ty0 = bminy * r.iy - r.oiy;
+  const float tz0 = bminz * r.iz - r.oiz;
+  const float tx1 = bmaxx * r.ix - r.oix;
+  const float ty1 = bmaxy * r.iy - r.oiy;
+  const float tz1 = bmaxz * r.iz - r.oiz;
+  t_near = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                 fmaxf(fminf(tz0, tz1), t_min));
+  const float t_far =
+      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+            fminf(fmaxf(tz0, tz1), t));
+  return t_near <= t_far;
+}
+
+// The warp copies triangles start .. start + kn - 1 (kn <= 32) of the
+// (T, 12) pool into its 32 * 3 float4 of shared memory, lane k triangle
+// k (three coalesced 16-byte loads); the warp's lanes may then read them.
+__device__ __forceinline__ void stage_tris(float4* st,
+                                           const float4* __restrict__ tris,
+                                           int start, int kn, int lane) {
+  __syncwarp();  // the last chunk's reads are done
+  if (lane < kn) {
+    const float4* src = tris + static_cast<size_t>(start + lane) * 3;
+    st[3 * lane] = __ldg(src);
+    st[3 * lane + 1] = __ldg(src + 1);
+    st[3 * lane + 2] = __ldg(src + 2);
+  }
+  __syncwarp();
 }
 
 // x * sign(s) for the sign bit `s` of det (0 or 0x80000000).

@@ -1,9 +1,10 @@
 // Shared pieces of the four walks (K1 bvh8_trace.cu, K3 skip_trace.cu,
 // K4 tlas8_trace.cu, K5 tlas_skip_trace.cu): the ray with its slab-test
-// terms, the slab test of one box, the node reads of both table layouts,
-// the instance ray transform and Möller-Trumbore over the (T, 12)
-// v0|e1|e2|pad triangle table.  All four run exactly this arithmetic,
-// which follows the JAX package's:
+// terms, the slab test of one box, K1's BVH8 node reads, the instance
+// ray transform and Möller-Trumbore over the (T, 12) v0|e1|e2|pad
+// triangle table (K1's; K3, K4 and K5 read their node records and test
+// triangles through skip_common.cuh).  This arithmetic follows the JAX
+// package's:
 //   slab_hit        hrt_tpu/ops/traversal_pallas.py `_slab_test` (:215)
 //   moller          hrt_tpu/ops/traversal_pallas.py `_moller` (:236)
 //   enter_instance  hrt_tpu/ops/tlas.py `do_enter` (:455-468)
@@ -14,12 +15,6 @@
 // box floats as bits, the meta word (> 0 leaf payload + 1, < 0 internal
 // of rank -(meta + 1), 0 empty), and on slot 0 the id of the node's first
 // internal child.  Slots are leaf-first, then internal, then empty.
-//
-// Skip-link layout (hrt_tpu_torch/ops/lbvh.py `flatten_bvh`, the JAX
-// FlatBVH): word c of node i is at (i / 128) * 1024 + c * 128 + i % 128:
-// six box floats as bits, the leaf code (0 internal, else the leaf's
-// first pool slot + 1; in a two-level TLAS -(instance + 1)) and the skip
-// index (the node after its subtree).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,7 +23,6 @@ namespace hrt {
 
 constexpr int kRowWords = 1024;   // 16 nodes x 8 slots x 8 words
 constexpr int kSlotWords = 128;
-constexpr int kLanes = 128;       // skip-link nodes per row
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -89,22 +83,6 @@ __device__ __forceinline__ int child_test(const int* node, int j,
                  __int_as_float(w0.z), __int_as_float(w0.w),
                  __int_as_float(w1.x), __int_as_float(w1.y), r, t_min, t);
   return w1.z;
-}
-
-// Skip-link node i: eight 4-byte loads, one per word, 512 bytes apart.
-// Returns the slab test of its box and sets its leaf code and skip.
-__device__ __forceinline__ bool skip_node_test(const int* nodes, int i,
-                                               const Ray& r, float t_min,
-                                               float t, int& code,
-                                               int& skip) {
-  const int* w = nodes + (i >> 7) * kRowWords + (i & (kLanes - 1));
-  code = __ldg(w + 6 * kLanes);
-  skip = __ldg(w + 7 * kLanes);
-  return slab_hit(__int_as_float(__ldg(w)), __int_as_float(__ldg(w + kLanes)),
-                  __int_as_float(__ldg(w + 2 * kLanes)),
-                  __int_as_float(__ldg(w + 3 * kLanes)),
-                  __int_as_float(__ldg(w + 4 * kLanes)),
-                  __int_as_float(__ldg(w + 5 * kLanes)), r, t_min, t);
 }
 
 // The world ray (wo, wd) into instance `inst`'s object space: three

@@ -135,8 +135,8 @@ def load() -> ctypes.CDLL:
     cdll.hrt_skip_trace.argtypes = [p] * 7 + [i, p, p, i, i, ctypes.c_float,
                                               i] + [p] * 5 + [p]
     cdll.hrt_tlas_skip_trace.restype = i
-    cdll.hrt_tlas_skip_trace.argtypes = [p] * 7 + [i, p, p, p, p, p, i, i,
-                                                   ctypes.c_float, i] \
+    cdll.hrt_tlas_skip_trace.argtypes = [p] * 7 + [i, p, p, p, p, i,
+                                                   ctypes.c_float, i, i] \
         + [p] * 6 + [p]
     cdll.hrt_brdf_light_major.restype = i
     cdll.hrt_brdf_light_major.argtypes = [p, p, p, i, i, p, p]

@@ -56,6 +56,11 @@ def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
 def slab_hit(box, inv, oi, t_min: float, t):
     """Whether rays (m, 3 inverse directions `inv`, `oi` = o * inv) meet
     boxes (m, 6: min xyz, max xyz) within (t_min, t)."""
+    return slab_near(box, inv, oi, t_min, t)[0]
+
+
+def slab_near(box, inv, oi, t_min: float, t):
+    """slab_hit and the entry distance: (hit (m,), t_near (m,))."""
     ta = box[:, 0:3] * inv - oi
     tb = box[:, 3:6] * inv - oi
     lo = torch.minimum(ta, tb)
@@ -64,7 +69,7 @@ def slab_hit(box, inv, oi, t_min: float, t):
                            torch.clamp(lo[:, 2], min=t_min))
     t_far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]),
                           torch.minimum(hi[:, 2], t))
-    return t_near <= t_far
+    return t_near <= t_far, t_near
 
 
 def leaf_hits(tris, start, leaf_size: int, o, d, t_min: float, t):
@@ -81,6 +86,87 @@ def leaf_hits(tris, start, leaf_size: int, o, d, t_min: float, t):
     tj, jj = torch.min(torch.where(h, th, INF), dim=1)
     pick = lambda a: torch.gather(a, 1, jj[:, None])[:, 0]
     return h.any(dim=1), tj, pick(ids).to(torch.int32), pick(uh), pick(vh)
+
+
+def first_hit_slot(tris, start, leaf_size: int, o, d, t_min: float, t):
+    """Slot (0..K-1) of the first triangle in slot order that each ray
+    hits in the leaf at pool slot `start` (rays that hit it): where an
+    any-hit walk stops testing."""
+    ids = start[:, None] + torch.arange(leaf_size, device=start.device)
+    tr = tris[ids]
+    h = moller_trumbore(o[:, None], d[:, None], tr[..., 0:3], tr[..., 3:6],
+                        tr[..., 6:9], t_min, t[:, None])[0]
+    return torch.argmax(h.to(torch.int8), dim=1)
+
+
+def leaf_test_counts(tris, leaf_size: int, rays, start, better, o, d,
+                     t_min: float, t, find_closest: bool):
+    """Triangle tests of rays `rays` entering the leaves at pool slots
+    `start` (`better`: leaf_hits' hit flags): K each, or in any-hit mode
+    up to the first hit of a retiring ray (where a walk stops)."""
+    tests = torch.full_like(rays, leaf_size)
+    if not find_closest and bool(better.any()):
+        rb = rays[better]
+        tests[better] = 1 + first_hit_slot(tris, start[better], leaf_size,
+                                           o[rb], d[rb], t_min, t[rb])
+    return tests
+
+
+class ActiveRays:
+    """The two-level plain walks' rays: the world rays (ow, dw) of a
+    batch's seven planes and the active-space rays (world, or the current
+    instance's object space) with their slab-test terms."""
+
+    def __init__(self, planes):
+        ox, oy, oz, dx, dy, dz, _ = planes
+        self.ow = torch.stack([ox, oy, oz], dim=1)
+        self.dw = torch.stack([dx, dy, dz], dim=1)
+        self.o, self.d = self.ow.clone(), self.dw.clone()
+        self.inv = safe_inv_dir(self.d)
+        self.oi = self.o * self.inv
+
+    def enter(self, r, tf_rows):
+        """Rays `r` into object space by their instances' 3x4 rows."""
+        self.o[r], self.d[r] = to_object_space(tf_rows, self.ow[r],
+                                               self.dw[r])
+        self.inv[r] = safe_inv_dir(self.d[r])
+        self.oi[r] = self.o[r] * self.inv[r]
+
+    def leave(self, r):
+        """Rays `r` back to world space."""
+        self.o[r], self.d[r] = self.ow[r], self.dw[r]
+        self.inv[r] = safe_inv_dir(self.dw[r])
+        self.oi[r] = self.o[r] * self.inv[r]
+
+
+class RayStacks:
+    """Per-ray stacks of (int64 entry, float32 entry distance) for the
+    plain nearest-first walks, grown on demand."""
+
+    def __init__(self, n: int, device):
+        self.e = torch.zeros((n, 16), dtype=torch.int64, device=device)
+        self.t = torch.zeros((n, 16), device=device)
+        self.sp = torch.zeros(n, dtype=torch.int64, device=device)
+
+    def push(self, rows, entries, t_near):
+        """Push one entry on each of `rows` (distinct rays)."""
+        if rows.numel() == 0:
+            return
+        if int(self.sp[rows].max()) >= self.e.shape[1]:
+            self.e = torch.cat([self.e, torch.zeros_like(self.e)], dim=1)
+            self.t = torch.cat([self.t, torch.zeros_like(self.t)], dim=1)
+        s = self.sp[rows]
+        self.e[rows, s] = entries
+        self.t[rows, s] = t_near
+        self.sp[rows] = s + 1
+
+    def pop(self):
+        """(rays, entries, entry distances) of every ray with an entry,
+        each popping its top one."""
+        live = torch.nonzero(self.sp > 0).squeeze(1)
+        s = self.sp[live] - 1
+        self.sp[live] = s
+        return live, self.e[live, s], self.t[live, s]
 
 
 def to_object_space(m, ow, dw):

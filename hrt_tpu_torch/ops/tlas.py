@@ -37,8 +37,8 @@ import torch
 from ..config import resolve_device
 from ..models.materials import MatP
 from ..models.scene import PAD, Scene
-from . import (lbvh, morton, traversal_tlas8, traversal_tlas_skip, v3,
-               wide, wide8)
+from . import (lbvh, morton, traversal_skip, traversal_tlas8,
+               traversal_tlas_skip, v3, wide, wide8)
 from .twolevel import mesh_scene_arrays
 from .v3 import V3
 
@@ -56,13 +56,19 @@ class TwoLevelFlat:
     world_from_obj / obj_from_world (I, 3, 4); root_bmin / root_bmax
       (I, 3) object-space BLAS root boxes.
     The BVH8 route (K4): w8_nodes (R, 8, 128) int32, the TLAS region then
-      the BLAS regions; w8_root (I, 1) int32, each instance's BLAS root
-      wide id; tlas_depth / blas_depth, the deepest wide node of the TLAS
-      region and of any BLAS region (root = 0), which size the walk's
-      per-ray stack (`stack`).  None / 0 on the binary route.
+      the BLAS regions; w8_rec (R * 16, 64) int32, the same nodes as
+      256-byte records, the layout K4 reads (traversal_tlas8.node_records);
+      w8_root (I, 1) int32, each instance's BLAS root wide id; tlas_depth /
+      blas_depth, the deepest wide node of the TLAS region and of any BLAS
+      region (root = 0), which size the walks' stacks (`stack`).  None / 0
+      on the binary route, except blas_depth.
     The binary route (K5): nodes (R, 8, 128) float32 skip-link rows (rows
-      6-7 int32 bits), the TLAS's `tlas_m` nodes first; blas_base /
-      blas_end (I,) int32.  None / 0 on the BVH8 route.
+      6-7 int32 bits), the TLAS's `tlas_m` nodes first; skip_rec (R * 128,
+      8) int32, every row's nodes as 32-byte records, the layout K5 reads
+      (traversal_skip.skip_records); blas_base / blas_end (I,) int32;
+      blas_depth, the deepest binary BLAS node (root = 0), which with the
+      instance count sizes K5's stack (`skip_stack`).  None / 0 on the
+      BVH8 route.
     root_box_host: root_bmin / root_bmax as numpy, so a refit needs no
       device read."""
 
@@ -77,11 +83,13 @@ class TwoLevelFlat:
     root_bmax: torch.Tensor
     leaf_size: int
     w8_nodes: torch.Tensor | None = None
+    w8_rec: torch.Tensor | None = None
     w8_root: torch.Tensor | None = None
     w8_tlas_nw: int = 0
     tlas_depth: int = 0
     blas_depth: int = 0
     nodes: torch.Tensor | None = None
+    skip_rec: torch.Tensor | None = None
     blas_base: torch.Tensor | None = None
     blas_end: torch.Tensor | None = None
     tlas_m: int = 0
@@ -94,17 +102,74 @@ class TwoLevelFlat:
 
     @property
     def stack(self) -> int:
-        """Per-ray stack entries the BVH8 walk needs (`stack_bound`)."""
+        """Stack entries the BVH8 walks need (`stack_bound`)."""
         return stack_bound(self.tlas_depth, self.blas_depth)
+
+    @property
+    def skip_stack(self) -> int:
+        """Stack entries K5's walk needs (`skip_stack_bound`)."""
+        return skip_stack_bound(self.inst_mesh.shape[0], self.blas_depth)
 
 
 def stack_bound(tlas_depth: int, blas_depth: int) -> int:
-    """Per-ray stack entries of the two-level walk.  A TLAS node visit
-    leaves at most 9 entries on its level (its node entry's remaining
-    mask, and up to 8 pushes: the internal-children entry and instance
-    entries), over tlas_depth + 1 levels; inside an instance the BLAS
-    walk holds at most one entry per BLAS level, blas_depth + 1."""
-    return 9 * (tlas_depth + 1) + blas_depth + 1
+    """Stack entries of the two-level BVH8 walks, the larger of two.
+    The per-ray stacks (trace_plain; K4's any-hit kernel): a TLAS node
+    visit leaves at most 9 entries on its level (its node entry's
+    remaining mask, and up to 8 pushes: the internal-children entry and
+    instance entries), over tlas_depth + 1 levels; inside an instance
+    the walk holds at most one entry per BLAS level, blas_depth + 1, and
+    K4's any-hit kernel up to 8 leaf entries on top.  K4's closest
+    kernel's warp stack: a node visit pushes at most 7 children (the
+    nearest is walked next), over tlas_depth + 1 and blas_depth + 1
+    levels, plus the instance's marker."""
+    return max(9 * (tlas_depth + 1) + blas_depth + 9,
+               7 * (tlas_depth + blas_depth + 2) + 1)
+
+
+def skip_stack_bound(num_instances: int, blas_depth: int) -> int:
+    """Per-ray stack entries of K5's nearest-first walk, which pushes at
+    most one entry per internal node on its path: over the TLAS, a radix
+    tree of 30-bit Morton codes with an index tiebreak, whose common
+    prefix grows at every level, so a path meets at most 30 +
+    ceil(log2(leaves)) internal nodes whatever the instance boxes (a
+    refit needs no new bound); the instance's marker; over the BLAS,
+    blas_depth internal nodes."""
+    leaves = max(num_instances, 2)
+    return 30 + (leaves - 1).bit_length() + 1 + blas_depth
+
+
+def skip_depth(words: np.ndarray, base: int) -> int:
+    """Depth (root = 0) of the binary tree in skip-link node records
+    (m, 8) int32 whose node ids start at `base`: the children of an
+    internal node i (leaf code 0) are i + 1 and that child's skip."""
+    m = words.shape[0]
+    inner = np.nonzero(words[:, 6] == 0)[0]
+    parent = np.full(m, -1, np.int64)
+    parent[inner + 1] = inner
+    parent[words[inner + 1, 7] - base] = inner
+    depth = np.zeros(m, np.int64)
+    # One level per sweep, until nothing moves.
+    while True:
+        new = np.where(parent >= 0, depth[np.maximum(parent, 0)] + 1, 0)
+        if np.array_equal(new, depth):
+            return int(depth.max())
+        depth = new
+
+
+def binary_blas_depth(skip_rec: torch.Tensor, blas_base: np.ndarray,
+                      blas_end: np.ndarray) -> int:
+    """The deepest binary BLAS node of a binary two-level table, read
+    from each BLAS's node records; raises ValueError when K5's stack
+    cannot hold the walk (`skip_stack_bound`)."""
+    depth = max(skip_depth(skip_rec[b:e].cpu().numpy(), b)
+                for b, e in set(zip(blas_base.tolist(), blas_end.tolist())))
+    s = skip_stack_bound(blas_base.shape[0], depth)
+    if s > traversal_tlas_skip.MAX_STACK:
+        raise ValueError(
+            f"binary two-level walk needs {s} stack entries "
+            f"({blas_base.shape[0]} instances, BLAS depth {depth}); K5 holds "
+            f"{traversal_tlas_skip.MAX_STACK}")
+    return depth
 
 
 def world_aabbs(root_bmin, root_bmax, world_from_obj):
@@ -220,6 +285,12 @@ def _tlas_nodes(inst_bmin: torch.Tensor, inst_bmax: torch.Tensor):
     return nodes, 2 * i - 1
 
 
+def _skip_rec(nodes: torch.Tensor) -> torch.Tensor:
+    """K5's node records of every row of a binary table: the BLAS
+    indices run past the TLAS's padded rows, so no row is cut."""
+    return traversal_skip.skip_records(nodes, nodes.shape[0] * 128)
+
+
 def build_two_level_flat(scene: Scene, leaf_size: int = 16,
                          sah: bool = True, device=None,
                          max_wide_nodes: int | None = None) -> TwoLevelFlat:
@@ -270,8 +341,10 @@ def build_two_level_flat(scene: Scene, leaf_size: int = 16,
                for b, tb, wb in zip(blases, tri_base, mesh_w8_base)])
         tlas_depth, blas_depth = _depths(w8_nodes, tlas_pad)
         check_depths(tlas_depth, blas_depth)
+        w8_nodes = dev(w8_nodes)
         return TwoLevelFlat(
-            **common, w8_nodes=dev(w8_nodes),
+            **common, w8_nodes=w8_nodes,
+            w8_rec=traversal_tlas8.node_records(w8_nodes),
             w8_root=dev(mesh_w8_base[:-1].astype(np.int32)[inst_mesh]
                         [:, None]),
             w8_tlas_nw=int(tlas_pad), tlas_depth=tlas_depth,
@@ -290,11 +363,14 @@ def build_two_level_flat(scene: Scene, leaf_size: int = 16,
         parts.append(bits.view(torch.float32).to(device))
     m_real = np.asarray([b.m_real for b in blases])
     blas_base = (tlas_words + node_base[:-1])[inst_mesh]
+    blas_end = blas_base + m_real[inst_mesh]
+    nodes = torch.cat(parts)
+    skip_rec = _skip_rec(nodes)
     return TwoLevelFlat(
-        **common, nodes=torch.cat(parts),
+        **common, nodes=nodes, skip_rec=skip_rec,
         blas_base=dev(blas_base.astype(np.int32)),
-        blas_end=dev((blas_base + m_real[inst_mesh]).astype(np.int32)),
-        tlas_m=int(tlas_m))
+        blas_end=dev(blas_end.astype(np.int32)), tlas_m=int(tlas_m),
+        blas_depth=binary_blas_depth(skip_rec, blas_base, blas_end))
 
 
 def refit_two_level(tl: TwoLevelFlat, world_from_obj, obj_from_world,
@@ -302,23 +378,29 @@ def refit_two_level(tl: TwoLevelFlat, world_from_obj, obj_from_world,
     """New instance transforms (numpy (I, 3, 4), (I, 3, 4), (I, 3, 3))
     -> new instance boxes -> a rebuilt TLAS in a new table: the wide
     TLAS region on the host (BVH8 route), or the binary TLAS rows on the
-    table's device (binary route).  No BLAS is touched and `tl` is left
-    as it was."""
+    table's device (binary route), and the kernel's records of that
+    region, joined to the BLAS records as they were.  No BLAS is touched
+    and `tl` is left as it was."""
     world_from_obj = np.asarray(world_from_obj, np.float32)
     bmin, bmax = world_aabbs(*tl.root_box_host, world_from_obj)
     dev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                     device=tl.device)
     if tl.w8_nodes is None:
         tlas, _ = _tlas_nodes(dev(bmin), dev(bmax))
-        tables = dict(nodes=torch.cat([tlas, tl.nodes[tlas.shape[0]:]]))
+        rows = tlas.shape[0]
+        tables = dict(nodes=torch.cat([tlas, tl.nodes[rows:]]),
+                      skip_rec=torch.cat([_skip_rec(tlas),
+                                          tl.skip_rec[rows * 128:]]))
     else:
         tlas = wide8.build_wide8_tlas(bmin, bmax, tl.w8_tlas_nw)
         tlas_depth = int(wide8.node_depths(tlas).max())
         check_depths(tlas_depth, tl.blas_depth)
         rows = tl.w8_tlas_nw // wide8.NODES_PER_ROW
+        tlas = torch.as_tensor(tlas, device=tl.device)
         tables = dict(
-            w8_nodes=torch.cat([torch.as_tensor(tlas, device=tl.device),
-                                tl.w8_nodes[rows:]]),
+            w8_nodes=torch.cat([tlas, tl.w8_nodes[rows:]]),
+            w8_rec=torch.cat([traversal_tlas8.node_records(tlas),
+                              tl.w8_rec[tl.w8_tlas_nw:]]),
             tlas_depth=tlas_depth)
     return dataclasses.replace(
         tl, **tables, world_from_obj=dev(world_from_obj),

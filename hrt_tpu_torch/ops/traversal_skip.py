@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from .intersect import (_DET_EPS, _cross, _dot, leaf_hits, moller_trumbore,
+from .intersect import (_DET_EPS, _cross, _dot, first_hit_slot, leaf_hits,
                         safe_inv_dir, slab_hit)
 
 # Launches of the CUDA kernel, by mode; the plain version never counts.
@@ -172,16 +172,6 @@ def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
     return tri >= 0
 
 
-def _first_hit(accel, start, o, d, t_min: float, t):
-    """Slot (0..K-1) of the first triangle in slot order that each ray
-    hits in the leaf at pool slot `start` (rays that hit it)."""
-    ids = start[:, None] + torch.arange(accel.leaf_size, device=start.device)
-    tr = accel.tris[ids]
-    h = moller_trumbore(o[:, None], d[:, None], tr[..., 0:3], tr[..., 3:6],
-                        tr[..., 6:9], t_min, t[:, None])[0]
-    return torch.argmax(h.to(torch.int8), dim=1)
-
-
 def visit_counts(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                  find_closest: bool) -> dict:
     """Per-ray work of the walk on this batch: {"nodes", "leaves",
@@ -223,9 +213,9 @@ def visit_counts(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
             if find_closest:
                 t[rays[better]] = th[better]
             elif bool(better.any()):
-                tests[better] = 1 + _first_hit(
-                    accel, code[leaf][better] - 1, o[rays[better]],
-                    d[rays[better]], t_min, t[rays[better]])
+                tests[better] = 1 + first_hit_slot(
+                    accel.tris, code[leaf][better] - 1, accel.leaf_size,
+                    o[rays[better]], d[rays[better]], t_min, t[rays[better]])
                 nxt[torch.nonzero(leaf).squeeze(1)[better]] = accel.m_real
             counts["tests"][rays] += tests
         cur[live] = nxt

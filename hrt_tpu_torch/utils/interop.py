@@ -15,7 +15,7 @@ import torch
 
 from ..models.scene import SceneData
 from ..models.upscaler import TemporalUpscalerNet, UpscalerNet
-from ..ops import tlas, wide8
+from ..ops import tlas, traversal_skip, traversal_tlas8, wide8
 from ..ops.lbvh import Accel, make_accel, tri_table
 
 
@@ -59,7 +59,8 @@ def two_level_from_numpy(d: dict, device) -> tlas.TwoLevelFlat:
     None (the walk's depths and stack bound are read back from the
     records; a table K4 cannot walk raises ValueError), else nodes,
     blas_base, blas_end and tlas_m (JAX's packed `inst` rows are a TPU
-    layout of obj_from_world and the BLAS ranges, and are not read)."""
+    layout of obj_from_world and the BLAS ranges, and are not read).
+    The kernels' record tables and stack bounds are derived here."""
     jt = np.asarray(d["tris"], np.float32)                  # (TR, 16, 128)
     rows = jt.transpose(0, 2, 1).reshape(-1, 16)            # (T, 16)
     dev = lambda a: torch.as_tensor(np.array(a), device=device)
@@ -73,14 +74,18 @@ def two_level_from_numpy(d: dict, device) -> tlas.TwoLevelFlat:
         blas_depth = int(depth[tlas_nw:].max())
         tlas.check_depths(tlas_depth, blas_depth)
         route = dict(w8_nodes=dev(rec),
+                     w8_rec=traversal_tlas8.node_records(dev(rec)),
                      w8_root=dev(np.asarray(d["w8_root"], np.int32)),
                      w8_tlas_nw=tlas_nw, tlas_depth=tlas_depth,
                      blas_depth=blas_depth)
     else:
-        route = dict(nodes=dev(np.asarray(d["nodes"], np.float32)),
-                     blas_base=dev(np.asarray(d["blas_base"], np.int32)),
-                     blas_end=dev(np.asarray(d["blas_end"], np.int32)),
-                     tlas_m=int(d["tlas_m"]))
+        nodes = dev(np.asarray(d["nodes"], np.float32))
+        skip_rec = traversal_skip.skip_records(nodes, nodes.shape[0] * 128)
+        base = np.asarray(d["blas_base"], np.int32)
+        end = np.asarray(d["blas_end"], np.int32)
+        route = dict(nodes=nodes, skip_rec=skip_rec, blas_base=dev(base),
+                     blas_end=dev(end), tlas_m=int(d["tlas_m"]),
+                     blas_depth=tlas.binary_blas_depth(skip_rec, base, end))
     return tlas.TwoLevelFlat(
         tris=tri_table(dev(rows[:, 0:3]), dev(rows[:, 3:6]),
                        dev(rows[:, 6:9])),

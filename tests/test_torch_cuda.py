@@ -363,6 +363,86 @@ def test_tlas_skip_kernel_matches_plain_and_k4(cuda, closest):
         assert not k[::17].any()
 
 
+def _moved_mats(sc, idx, position):
+    """The scene's per-instance matrices with instance idx moved."""
+    from hrt_tpu_torch.models.instance import MeshInstance
+
+    insts = list(sc.instances)
+    cur = insts[idx]
+    insts[idx] = MeshInstance(cur.mesh_id, cur.material_id, position,
+                              cur.rotation, cur.scale)
+    return [np.stack([getattr(i, k) for i in insts]).astype(np.float32)
+            for k in ("transform", "inverse_transform", "normal_matrix")]
+
+
+def _check_walks(k, p, closest, dead):
+    """A kernel's result against its plain walk: closest ids and instance
+    ids agree on >= 99.9% of rays, t within rtol 1e-4 where they do;
+    occlusion agrees on >= 99.9%; dead rays miss."""
+    if closest:
+        same = (k[1] == p[1]) & (k[2] == p[2])
+        assert same.float().mean().item() >= 0.999
+        hit = same & (k[1] >= 0)
+        torch.testing.assert_close(k[0][hit], p[0][hit], rtol=1e-4,
+                                   atol=1e-5)
+        assert (k[1][dead] == -1).all() and (k[2][dead] == -1).all()
+        assert (p[1] >= 0).float().mean().item() > 0.1
+    else:
+        assert (k == p).float().mean().item() >= 0.999
+        assert not k[dead].any()
+        assert 0.05 < p.float().mean().item() < 0.95
+
+
+@pytest.mark.parametrize("closest", [True, False])
+@pytest.mark.parametrize("leaf", [8, 64])
+@pytest.mark.parametrize("route", ["k4", "k5"])
+def test_two_level_kernels_match_plain_after_refit(cuda, route, leaf,
+                                                   closest):
+    """K4 (256-byte node records, nearest-first packet walk) and K5
+    (32-byte records, the packet walk in key order) with 8- and
+    64-triangle leaves (staged 32 at a time), for 4093 rays (a partial
+    last warp) with dead rays: against their plain walks, on the built
+    table and after a refit that moves an instance; K5 also against K4
+    on the same scene."""
+    from hrt_tpu_torch.ops import traversal_skip, traversal_tlas_skip
+
+    sc = _instanced_scene()
+    bound = dict(max_wide_nodes=32) if route == "k5" else {}
+    tl = tlas.build_two_level_flat(sc, leaf, device=cuda, **bound)
+    walk = traversal_tlas_skip if route == "k5" else traversal_tlas8
+    n = 4093
+    o, d = _rays(10 + leaf, n, cuda)
+    tmax = torch.full((n,), 1e32 if closest else 4.0, device=cuda)
+    dead = torch.zeros(n, dtype=torch.bool, device=cuda)
+    dead[::13] = True
+    tmax[dead] = -1.0
+    planes = (*o.T.contiguous(), *d.T.contiguous(), tmax)
+    mode = "closest" if closest else "any_hit"
+    for step in ("built", "refit"):
+        if step == "refit":
+            tl = tlas.refit_two_level(tl, *_moved_mats(sc, 1,
+                                                       (0.4, -0.6, 0.3)))
+        if route == "k5":
+            assert torch.equal(tl.skip_rec, traversal_skip.skip_records(
+                tl.nodes, tl.nodes.shape[0] * 128))
+        else:
+            assert torch.equal(tl.w8_rec,
+                               traversal_tlas8.node_records(tl.w8_nodes))
+        before = walk.LAUNCHES[mode]
+        k = walk.trace_kernel(tl, *planes, 1e-3, closest)
+        p = walk.trace_plain(tl, *planes, 1e-3, closest)
+        torch.cuda.synchronize()
+        assert walk.LAUNCHES[mode] == before + 1
+        _check_walks(k, p, closest, dead)
+    if route == "k5":
+        tl4 = tlas.refit_two_level(
+            tlas.build_two_level_flat(sc, leaf, device=cuda),
+            *_moved_mats(sc, 1, (0.4, -0.6, 0.3)))
+        _check_walks(k, traversal_tlas8.trace_kernel(tl4, *planes, 1e-3,
+                                                     closest),
+                     closest, dead)
+
+
 def test_warp_kernel_matches_plain(cuda):
     """K6 at a shape that is no multiple of the block (a 37x53x10 source,
     a 41x67 grid), coordinates in and out of bounds and some at +-1e10:
