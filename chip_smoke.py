@@ -24,15 +24,22 @@ over the bench frame, whose history fetches run K6.  Phases:
   3. scene + accel on the card
   4. K1 (BVH8 walk) closest and any-hit vs its plain version on the
      frame's primary and light-major shadow batches; both vs brute force
-     on a 4096-ray subset
-  5. K2 (light-major Disney BRDF) vs its plain version on the frame's batch
+     on a 4096-ray subset, and kernel vs plain and brute force on 4093
+     of those rays (a partial last warp); K1's visits per live ray in
+     the table's order and nearest first (traversal_wide8.visit_counts)
+  5. K2 (light-major Disney BRDF) vs its plain version on the frame's
+     batch, read in place from its strided material planes, and on
+     batches of the same rays with L = 1 and L = 3 lights
   6. render_frames x32 through the kernels vs the plain-path frame; the
      launch counters must show 32 closest, 32 any-hit and 32 BRDF launches
   7. one 1920x1080 frame, same checks
   8. the JAX package's golden frames (tests/goldens/bench_direct,
      demo_parity, demo_sky at 64x48) rendered through the kernels
-  9. CUDA-event times (median of 7): each kernel vs its plain version at
-     the 512x384 shapes, ms/frame and Mray/s at both sizes
+  9. CUDA-event times (median of 7; the kernels 10 calls per sample,
+     one call alone beside): K1 and K2 vs their plain versions at the
+     512x384 and 1920x1080 shapes (K1's visits and K2 at 1080p too),
+     ms/frame and Mray/s at both sizes; K1 and K2 against the baseline
+     ones in turns, and the bench frames through either
  10. the instanced scene (16x16 grid of icosphere instances on a ground
      plane, one light): two-level build on the card, timed
  11. K4 (two-level wide walk) closest and any-hit vs its plain version on
@@ -98,25 +105,27 @@ over the bench frame, whose history fetches run K6.  Phases:
      back to back, so that the card and not the host's cost of one call
      sets a 0.1 ms kernel's time; one call alone is printed beside);
      svgf, the upscaler forward and reproject_history alone at 1080p;
-     ms/frame of the post loop at both sizes
+     ms/frame of the post loop at both sizes, and through the baseline
+     K1 and K2 in turns
 
 Every kernel line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s (H100 SXM data sheet).  The
-walks' operations are counted from this run's visits: K3's, and K4's and
-K5's in the cheaper of the two orders (every box's slab test, every
-triangle test up to the point where it can first reject, every instance
-entry's transform); K1's visits are not counted, so its bound is its
-bytes.
+walks' operations are counted from this run's visits: K3's, and K1's,
+K4's and K5's in the cheaper of the two orders (every box's slab test,
+every triangle test up to the point where it can first reject, every
+instance entry's transform).
 
-The baseline (phases 14, 19 and 23) is optional: copies of an earlier
-commit's kernels (any of skip_trace.cu, warp_bilinear.cu, tlas8_trace.cu
-and tlas_skip_trace.cu, with the headers they include) under the
-gitignored chip_scratch/baseline/, e.g. for the K4 and K5 of f3a1248
+The baseline (phases 9, 14, 19 and 23) is optional: copies of an
+earlier commit's kernels (any of skip_trace.cu, warp_bilinear.cu,
+tlas8_trace.cu, tlas_skip_trace.cu, bvh8_trace.cu and
+brdf_light_major.cu, with the headers they include) under the
+gitignored chip_scratch/baseline/, e.g. for the K1 and K2 of 6f624a9
 
     mkdir -p chip_scratch/baseline
-    for f in tlas8_trace.cu tlas_skip_trace.cu walk_common.cuh; do
-      git show f3a1248:hrt_tpu_torch/csrc/$f > chip_scratch/baseline/$f
+    for f in bvh8_trace.cu brdf_light_major.cu walk_common.cuh disney.cuh
+    do
+      git show 6f624a9:hrt_tpu_torch/csrc/$f > chip_scratch/baseline/$f
     done
 
 built into their own library at phase 2.  A plain checkout has none,
@@ -169,7 +178,8 @@ K3_OPS_PER_TEST = 25
 ENTER_OPS = 51
 BASELINE_DIR = os.path.join(ROOT, "chip_scratch", "baseline")
 BASELINE_KERNELS = ("skip_trace.cu", "warp_bilinear.cu", "tlas8_trace.cu",
-                    "tlas_skip_trace.cu")
+                    "tlas_skip_trace.cu", "bvh8_trace.cu",
+                    "brdf_light_major.cu")
 
 
 class Smoke:
@@ -206,14 +216,16 @@ def time_ms(fn, reps: int = 7, calls: int = 1) -> float:
 
 def load_baseline():
     """The baseline kernels in BASELINE_DIR (any of K3 skip_trace.cu, K6
-    warp_bilinear.cu, K4 tlas8_trace.cu and K5 tlas_skip_trace.cu, beside
-    the headers they include), built like the package's kernels into
-    chip_scratch/_build/, with the entry points they had at f3a1248
-    (hrt_skip_trace over the (Mp/128, 8, 128) skip-link table,
-    hrt_warp_bilinear over a contiguous image, hrt_tlas8_trace over the
-    (R, 8, 128) BVH8 table, hrt_tlas_skip_trace over the (R, 8, 128)
-    two-level skip-link table) bound for the copies present; None without
-    copies."""
+    warp_bilinear.cu, K4 tlas8_trace.cu, K5 tlas_skip_trace.cu, K1
+    bvh8_trace.cu and K2 brdf_light_major.cu, beside the headers they
+    include), built like the package's kernels into chip_scratch/_build/,
+    with the entry points they had at f3a1248 (hrt_skip_trace over the
+    (Mp/128, 8, 128) skip-link table, hrt_warp_bilinear over a contiguous
+    image, hrt_tlas8_trace over the (R, 8, 128) BVH8 table,
+    hrt_tlas_skip_trace over the (R, 8, 128) two-level skip-link table)
+    or at 6f624a9 (hrt_bvh8_trace over the (R, 8, 128) BVH8 table,
+    hrt_brdf_light_major over 18 stacked per-ray planes and 3 stacked
+    light planes) bound for the copies present; None without copies."""
     import ctypes
     import glob
     import hashlib
@@ -252,7 +264,9 @@ def load_baseline():
         "hrt_tlas8_trace": [p] * 7 + [i, p, p, p, p, i, i, f, i, i]
         + [p] * 6 + [p],
         "hrt_tlas_skip_trace": [p] * 7 + [i, p, p, p, p, p, i, i, f, i]
-        + [p] * 6 + [p]}
+        + [p] * 6 + [p],
+        "hrt_bvh8_trace": [p] * 7 + [i, p, p, i, f, i, i] + [p] * 5 + [p],
+        "hrt_brdf_light_major": [p, p, p, i, i, p, p]}
     for name, args in argtypes.items():
         if hasattr(lib, name):
             getattr(lib, name).restype = i
@@ -322,6 +336,56 @@ def baseline_k3(lib, accel, planes, t_min: float, closest: bool):
     if rc:
         raise RuntimeError(f"baseline skip_trace: CUDA error {rc}")
     return res
+
+
+def baseline_k1(lib, accel, planes, t_min: float, closest: bool):
+    """The baseline K1 as its wrapper ran it: on the (R, 8, 128) table
+    with a per-ray stack of depth + 1 entries."""
+    import torch
+
+    planes = [q.contiguous() for q in planes]
+    n, dev = planes[0].numel(), planes[0].device
+    if closest:
+        res = (torch.empty(n, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev),
+               torch.empty(n, device=dev), torch.empty(n, device=dev))
+        outs = [q.data_ptr() for q in res] + [None]
+    else:
+        res = torch.empty(n, dtype=torch.bool, device=dev)
+        outs = [None] * 4 + [res.data_ptr()]
+    rc = lib.hrt_bvh8_trace(*[q.data_ptr() for q in planes], n,
+                            accel.w8.data_ptr(), accel.tris.data_ptr(),
+                            accel.leaf_size, float(t_min),
+                            accel.w8_depth + 1, int(closest), *outs,
+                            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"baseline bvh8_trace: CUDA error {rc}")
+    return res
+
+
+def baseline_k2(lib, mat, n, view, l_lm, relevant_lm, num_lights: int):
+    """The baseline K2 as its wrapper ran it: the 18 per-ray planes and
+    the 3 light planes stacked into contiguous copies."""
+    import torch
+
+    from hrt_tpu_torch.ops.v3 import V3
+
+    shared = torch.stack((
+        mat.color.x, mat.color.y, mat.color.z, mat.subsurface, mat.metallic,
+        mat.roughness, mat.specular, mat.specular_tint, mat.anisotropic,
+        mat.sheen_tint, mat.clearcoat, mat.clearcoat_gloss, n.x, n.y, n.z,
+        view.x, view.y, view.z)).contiguous()
+    light = torch.stack([l_lm.x, l_lm.y, l_lm.z]).contiguous()
+    rel = relevant_lm.to(torch.bool).contiguous()
+    total = num_lights * n.x.shape[0]
+    out = torch.empty((3, total), dtype=torch.float32, device=n.x.device)
+    rc = lib.hrt_brdf_light_major(shared.data_ptr(), light.data_ptr(),
+                                  rel.data_ptr(), n.x.shape[0], total,
+                                  out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"baseline brdf_light_major: CUDA error {rc}")
+    return V3(out[0], out[1], out[2])
 
 
 def baseline_k6(lib, img, px, py):
@@ -397,29 +461,36 @@ def bound(n_bytes: float, ops: float = 0.0):
                                                            "operations")
 
 
-def two_level_ops(mod, tl, planes, t_min: float, closest: bool,
-                  label: str) -> int:
-    """Visits per live ray of a two-level walk (`mod.visit_counts`) on
-    this batch in the table's order and nearest first, printed; returns
-    the operations of the cheaper order (K3_OPS_PER_NODE per box test,
-    K3_OPS_PER_TEST per triangle test, ENTER_OPS per instance entered),
-    a floor for a walk in either order."""
+def box_tests(c):
+    """Box tests in a walk's counts: K1's child boxes, or a two-level
+    walk's TLAS and BLAS boxes (a binary walk tests one box per node)."""
+    if "boxes" in c:
+        return c["boxes"]
+    return (c.get("tlas_boxes", c["tlas_nodes"])
+            + c.get("blas_boxes", c["blas_nodes"]))
+
+
+def walk_ops(mod, acc, planes, t_min: float, closest: bool,
+             label: str) -> int:
+    """Visits per live ray of a wide or two-level walk (`mod.visit_counts`)
+    on this batch in the table's order and nearest first, printed;
+    returns the operations of the cheaper order (K3_OPS_PER_NODE per box
+    test, K3_OPS_PER_TEST per triangle test, ENTER_OPS per instance
+    entered), a floor for a walk in either order."""
     live = max(int((planes[6] >= 0).sum()), 1)
     n32 = planes[6].numel() // 32 * 32
     warp_live = (planes[6][:n32] >= 0).view(-1, 32).any(1)
     ops = []
     for nearest in (False, True):
-        cnt = mod.visit_counts(tl, *planes, t_min, closest, nearest=nearest)
+        cnt = mod.visit_counts(acc, *planes, t_min, closest, nearest=nearest)
         cnt.pop("hits")
         tot = {k: int(v.sum()) for k, v in cnt.items()}
-        boxes = (tot.get("tlas_boxes", tot["tlas_nodes"])
-                 + tot.get("blas_boxes", tot["blas_nodes"]))
-        ops.append(boxes * K3_OPS_PER_NODE + tot["tests"] * K3_OPS_PER_TEST
-                   + tot["instances"] * ENTER_OPS)
+        ops.append(box_tests(tot) * K3_OPS_PER_NODE
+                   + tot["tests"] * K3_OPS_PER_TEST
+                   + tot.get("instances", 0) * ENTER_OPS)
         # Box and triangle tests per ray: the longest walks, and a warp's
         # busiest ray (what a warp of a thread per ray waits for).
-        work = (cnt.get("tlas_boxes", cnt["tlas_nodes"])
-                + cnt.get("blas_boxes", cnt["blas_nodes"]) + cnt["tests"])
+        work = box_tests(cnt) + cnt["tests"]
         busiest = work[:n32].view(-1, 32).amax(1)[warp_live].float()
         print(f"  {label} visits per live ray ({live} live), "
               f"{'nearest first' if nearest else 'table order'}: "
@@ -449,25 +520,24 @@ def time_walk_vs_baseline(sm: Smoke, baseline, name: str, kernel, tl,
           flush=True)
 
 
-def frame_vs_baseline(baseline, mod, frames, label: str,
-                      pairs: int = 10) -> None:
-    """`frames()` (still frames through `mod`'s walk) against the same
-    frames through the baseline kernel put in the place of
-    `mod.trace_kernel`: `pairs` pairs of one sample each, alternating
-    which runs first; prints both medians and the pairs the current
-    kernel wins (times only; no launch counter is read).  The frames
-    are host-bound, so their spread is the host's."""
-    cur = mod.trace_kernel
-
-    def base_kernel(tl, *args):
-        return baseline_two_level(baseline, tl, args[:7], args[7], args[8])
+def frame_vs_baseline(swaps, frames, label: str, pairs: int = 10) -> None:
+    """`frames()` (still frames through the current kernels) against the
+    same frames with the baseline kernels put in their wrappers' places,
+    `swaps` a list of (module, wrapper name, baseline function): `pairs`
+    pairs of one sample each, alternating which runs first; prints both
+    medians and the pairs the current kernels win (times only; no launch
+    counter is read).  The frames are host-bound, so their spread is the
+    host's."""
+    cur = [getattr(mod, name) for mod, name, _ in swaps]
 
     def with_base():
-        mod.trace_kernel = base_kernel
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
         try:
             frames()
         finally:
-            mod.trace_kernel = cur
+            for (mod, name, _), fn in zip(swaps, cur):
+                setattr(mod, name, fn)
 
     b, c = [], []
     for p in range(pairs):
@@ -482,6 +552,102 @@ def frame_vs_baseline(baseline, mod, frames, label: str,
           f"quartiles "
           f"{' '.join(f'{q:.4f}' for q in statistics.quantiles(b, n=4))}",
           flush=True)
+
+
+def k2_check(sm: Smoke, label: str, args) -> float:
+    """K2 against its plain version on `args` (brdf_light_major's):
+    within rtol 1e-4 / atol 1e-6, exact zeros where irrelevant, finite;
+    returns the max abs error."""
+    import torch
+
+    from hrt_tpu_torch.ops import shade_kernel
+
+    kf = shade_kernel.brdf_light_major_kernel(*args)
+    pf = shade_kernel.brdf_light_major_plain(*args)
+    rel = args[4]
+    err, ok = 0.0, True
+    for a, b in zip(kf, pf):
+        err = max(err, float((a - b).abs().max()))
+        ok &= bool(((a - b).abs() <= 1e-6 + 1e-4 * b.abs()).all())
+        ok &= bool((a[~rel] == 0).all()) and bool(torch.isfinite(a).all())
+    sm.check(ok, f"K2 {label}: within rtol 1e-4 / atol 1e-6 of plain, zero "
+             f"where irrelevant, finite (max abs err {err:.3g}; "
+             f"{float(rel.float().mean()):.3f} of {rel.numel()} relevant)")
+    return err
+
+
+def bench_kernel_times(sm: Smoke, baseline, accel, prim, shadow, k2_args,
+                       t_min: float, size: str) -> dict:
+    """Phase 9's times of K1 (both modes) and K2 on one frame's batches:
+    10 calls per event pair, one call alone, the plain version, and the
+    baseline kernels in turns (baseline, current, current, baseline; 10
+    calls per sample) after checking that they agree.  Keys k1_closest,
+    k1_any_hit and k2 with `size` appended, each with _one_call and
+    _plain beside."""
+    from hrt_tpu_torch.ops import shade_kernel, traversal_wide8 as k1
+
+    jobs = {
+        "k1_closest": (lambda: k1.trace_kernel(accel, *prim, t_min, True),
+                       lambda: k1.trace_plain(accel, *prim, t_min, True),
+                       lambda: baseline_k1(baseline, accel, prim, t_min,
+                                           True), "hrt_bvh8_trace"),
+        "k1_any_hit": (lambda: k1.trace_kernel(accel, *shadow, t_min, False),
+                       lambda: k1.trace_plain(accel, *shadow, t_min, False),
+                       lambda: baseline_k1(baseline, accel, shadow, t_min,
+                                           False), "hrt_bvh8_trace"),
+        "k2": (lambda: shade_kernel.brdf_light_major_kernel(*k2_args),
+               lambda: shade_kernel.brdf_light_major_plain(*k2_args),
+               lambda: baseline_k2(baseline, *k2_args),
+               "hrt_brdf_light_major")}
+    out = {}
+    for key, (cur, plain, base, entry) in jobs.items():
+        k = key + size
+        out[k] = time_ms(cur, calls=10)
+        out[k + "_one_call"] = time_ms(cur)
+        out[k + "_plain"] = time_ms(plain, reps=3 if key != "k2" else 7)
+        line = (f"  {k}: {out[k]:.4f} ms (one call alone, the host's cost "
+                f"included: {out[k + '_one_call']:.4f} ms); plain "
+                f"{out[k + '_plain']:.4f} ms")
+        if has_baseline(baseline, entry):
+            c, b = cur(), base()
+            if key == "k1_closest":
+                check_closest(sm, f"{k} vs the baseline", c, b)
+            elif key == "k1_any_hit":
+                check_occlusion(sm, f"{k} vs the baseline", c, b)
+            else:
+                d = max(float(((x - y).abs() - 1e-4 * y.abs()).max())
+                        for x, y in zip(c, b))
+                sm.check(d <= 1e-6, f"{k} vs the baseline K2 within rtol "
+                         f"1e-4 / atol 1e-6 ({d:.3g} past rtol)")
+            del c, b
+            bt, ct = in_turns(base, cur, calls=10)
+            line += (f"; in turns (baseline, current, current, baseline; 10 "
+                     f"calls per sample): {bt[0]:.4f}, {ct[0]:.4f}, "
+                     f"{ct[1]:.4f}, {bt[1]:.4f} ms; current / baseline "
+                     f"{sum(ct) / sum(bt):.4f}")
+        print(line, flush=True)
+    return out
+
+
+def two_level_swaps(baseline, mod):
+    """frame_vs_baseline's swap of a two-level walk's kernel."""
+    def base_kernel(tl, *args):
+        return baseline_two_level(baseline, tl, args[:7], args[7], args[8])
+
+    return [(mod, "trace_kernel", base_kernel)]
+
+
+def bench_swaps(baseline):
+    """frame_vs_baseline's swaps of K1 and K2, the bench and post
+    frames' kernels."""
+    from hrt_tpu_torch.ops import shade_kernel, traversal_wide8 as k1
+
+    def base_k1(accel, *args):
+        return baseline_k1(baseline, accel, args[:7], args[7], args[8])
+
+    return [(k1, "trace_kernel", base_k1),
+            (shade_kernel, "brdf_light_major_kernel",
+             lambda *args: baseline_k2(baseline, *args))]
 
 
 def post_cam(f: int):
@@ -533,7 +699,10 @@ def check_occlusion(sm: Smoke, label: str, k, p) -> float:
 
 def frame_batches(scene, accel, cams, cfg):
     """A frame's primary batch and its light-major shadow batch, as the
-    seven ray planes each (the shadow batch from the accel's own hits)."""
+    seven ray planes each (the shadow batch from the accel's own hits),
+    and its K2 arguments (the hits' strided material planes, normals and
+    view directions, the light-major light directions and relevance,
+    the light count)."""
     import torch
 
     from hrt_tpu_torch import renderer
@@ -548,7 +717,9 @@ def frame_batches(scene, accel, cams, cfg):
                               ray_mask=sh.hit)
     shadow = (lb.origin.x, lb.origin.y, lb.origin.z, lb.l.x, lb.l.y,
               lb.l.z, lb.t_max)
-    return prim, shadow
+    k2_args = (sh.mat, sh.normal, sh.view, lb.l, lb.relevant,
+               scene.lights.shape[0])
+    return prim, shadow, k2_args
 
 
 def run_post_loop(dev, cfg, steps: int):
@@ -759,12 +930,245 @@ def post_phases(sm: Smoke, dev, baseline=None) -> dict:
 
         ms = time_ms(steps_k, reps=5) / k
         print(f"  post frame {size} -> 2x: {ms:.4f} ms/frame", flush=True)
+        if has_baseline(baseline, "hrt_bvh8_trace") \
+                and has_baseline(baseline, "hrt_brdf_light_major"):
+            frame_vs_baseline(bench_swaps(baseline), steps_k,
+                              f"post frame {size} -> 2x, {k} steps")
     return {"launches": results[22]["totals"]["k6"], "max_abs_err": k6_err,
             "bound_by": "bytes", **t}
 
 
-def main() -> int:
+def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
+    """Phases 3-9, the bench frame; `baseline` is load_baseline()'s
+    library or None.  Returns K1's and K2's times (`times`), launch
+    counts over the 32 frames (`launches`), max abs errors (`errs`) and
+    bounds (`bounds`, by frame size: "" for 512x384, "_1080p")."""
     import numpy as np
+    import torch
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.config import RenderConfig
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.models.scene import bench_scene, reference_demo_scene
+    from hrt_tpu_torch.ops import intersect, lbvh, shade_kernel, v3
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+    from hrt_tpu_torch.ops.v3 import V3
+
+    print("phase 3: scene + accel", flush=True)
+    t0 = time.perf_counter()
+    scene = bench_scene().build(dev)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    torch.cuda.synchronize()
+    facts = {
+        "build_s": time.perf_counter() - t0,
+        "triangles": int(scene.num_triangles),
+        "pool_slots": int(accel.tri_v0.shape[0]),
+        "record_rows": int(accel.w8.shape[0]), "depth": accel.w8_depth}
+    print(f"  {facts}", flush=True)
+
+    cfg = RenderConfig(width=512, height=384, max_depth=1, sky=True,
+                       traversal="auto")
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, dev)
+    prim, shadow, k2_args = frame_batches(scene, accel, cams, cfg)
+    n, ns = prim[0].numel(), shadow[0].numel()
+    nl = scene.lights.shape[0]
+    k1_ops = {}
+
+    print(f"phase 4: K1 on the frame's batches ({n} primary, {ns} shadow "
+          "rays)", flush=True)
+    kc = k1.trace_kernel(accel, *prim, cfg.t_min, True)
+    k1c_err = check_closest(sm, "K1 vs plain", kc,
+                            k1.trace_plain(accel, *prim, cfg.t_min, True))
+    ka = k1.trace_kernel(accel, *shadow, cfg.t_min, False)
+    k1a_err = check_occlusion(sm, "K1 vs plain", ka,
+                              k1.trace_plain(accel, *shadow, cfg.t_min,
+                                             False))
+    sub = torch.arange(0, n, max(1, n // 4096), device=dev)[:4096]
+    bt, bi, _, _ = intersect.closest_hit_bruteforce(
+        torch.stack(prim[0:3], 1)[sub], torch.stack(prim[3:6], 1)[sub],
+        scene.tri_v0, scene.tri_e1, scene.tri_e2, cfg.t_min)
+    ssub = torch.arange(0, ns, max(1, ns // 4096), device=dev)[:4096]
+    bocc = intersect.any_hit_bruteforce(
+        torch.stack(shadow[0:3], 1)[ssub], torch.stack(shadow[3:6], 1)[ssub],
+        scene.tri_v0, scene.tri_e1, scene.tri_e2, cfg.t_min,
+        shadow[6][ssub])
+
+    def vs_bruteforce(who, tt, ids, occ, m):
+        """Closest ids (original triangle ids, up to equal-t ties with
+        brute force) and occlusion of the first m rays of the subsets."""
+        orig = torch.where(ids >= 0, accel.tri_perm[ids.clamp(min=0).long()],
+                           -1)
+        tie = (orig >= 0) & (bi[:m] >= 0) & (
+            (tt - bt[:m]).abs() <= 1e-5 * bt[:m].abs())
+        a = float(((orig == bi[:m]) | tie).float().mean())
+        sm.check(a >= 0.999, f"closest {who} vs brute force on {m} rays: "
+                 f"{a:.6f} (ids differ on {int((orig != bi[:m]).sum())})")
+        a = float((occ == bocc[:m]).float().mean())
+        sm.check(a >= 0.999, f"any-hit {who} vs brute force on {m} rays: "
+                 f"{a:.6f}")
+
+    vs_bruteforce("kernel", kc[0][sub], kc[1][sub], ka[ssub], 4096)
+    pc = k1.trace_plain(accel, *[q[sub] for q in prim], cfg.t_min, True)
+    vs_bruteforce("plain", pc[0], pc[1],
+                  k1.trace_plain(accel, *[q[ssub] for q in shadow],
+                                 cfg.t_min, False), 4096)
+    # 4093 of those rays: a partial last warp.
+    pp = [q[sub[:4093]] for q in prim]
+    ps = [q[ssub[:4093]] for q in shadow]
+    kc93 = k1.trace_kernel(accel, *pp, cfg.t_min, True)
+    check_closest(sm, "K1 vs plain on 4093 primary rays", kc93,
+                  k1.trace_plain(accel, *pp, cfg.t_min, True))
+    ka93 = k1.trace_kernel(accel, *ps, cfg.t_min, False)
+    check_occlusion(sm, "K1 vs plain on 4093 shadow rays", ka93,
+                    k1.trace_plain(accel, *ps, cfg.t_min, False))
+    vs_bruteforce("kernel, 4093 rays,", kc93[0], kc93[1], ka93, 4093)
+    del kc, ka, pc, bt, bi, bocc
+    for key, planes, closest in (("k1_closest", prim, True),
+                                 ("k1_any_hit", shadow, False)):
+        k1_ops[key] = walk_ops(k1, accel, planes, cfg.t_min, closest,
+                               f"K1 {key[3:]} 512x384")
+
+    print(f"phase 5: K2 on the frame's light-major batch ({ns})",
+          flush=True)
+    mat, nrm, view, l_lm, rel, _ = k2_args
+    print(f"  plane element strides: material {mat.color.x.stride(0)}, "
+          f"normal {nrm.x.stride(0)}, view {view.x.stride(0)}, light "
+          f"{l_lm.x.stride(0)}", flush=True)
+    k2_err = k2_check(sm, "frame batch (L = 2)", k2_args)
+    one = lambda a, i: a[i * n:(i + 1) * n]
+    l3 = v3.normalize(l_lm.map(lambda a: one(a, 0))
+                      + l_lm.map(lambda a: one(a, 1)))
+    k2_check(sm, "L = 1", (mat, nrm, view, l_lm.map(lambda a: one(a, 0)),
+                           one(rel, 0), 1))
+    k2_check(sm, "L = 3", (mat, nrm, view,
+                           V3(*(torch.cat([a, b]) for a, b in zip(l_lm, l3))),
+                           torch.cat([rel, one(rel, 0) & one(rel, 1)]), 3))
+
+    print("phase 6: render_frames x32 at 512x384", flush=True)
+    reset(k1.LAUNCHES, shade_kernel.LAUNCHES)
+    imgs = renderer.render_frames(scene, accel, cams, 0, 32, cfg)
+    torch.cuda.synchronize()
+    launches = {"closest": k1.LAUNCHES["closest"],
+                "any_hit": k1.LAUNCHES["any_hit"],
+                "brdf_light_major": shade_kernel.LAUNCHES["brdf_light_major"]}
+    sm.check(launches == {"closest": 32, "any_hit": 32,
+                          "brdf_light_major": 32},
+             f"launch counters {launches}")
+    sm.check(tuple(imgs.shape) == (32, 384, 512, 3)
+             and bool(torch.isfinite(imgs).all()),
+             f"frames {tuple(imgs.shape)} finite")
+    sm.check(bool((imgs == imgs[0]).all()), "32 frames identical")
+    ref = renderer.render_frames(scene, accel, cams, 0, 1, cfg, plain=True)
+    p512 = psnr4(imgs[0], ref[0])
+    sm.check(p512 > 45.0, f"kernel frame vs plain frame PSNR {p512:.2f}")
+    del imgs, ref
+
+    print("phase 7: one 1920x1080 frame", flush=True)
+    cfg_hd = RenderConfig(width=1920, height=1080, max_depth=1, sky=True,
+                          traversal="auto")
+    cams_hd = renderer.camera_arrays(Camera(**BENCH_CAM), cfg_hd, dev)
+    before = (dict(k1.LAUNCHES), dict(shade_kernel.LAUNCHES))
+    img_hd = renderer.render_frames(scene, accel, cams_hd, 0, 1, cfg_hd)
+    torch.cuda.synchronize()
+    sm.check(k1.LAUNCHES["closest"] == before[0]["closest"] + 1
+             and k1.LAUNCHES["any_hit"] == before[0]["any_hit"] + 1
+             and shade_kernel.LAUNCHES["brdf_light_major"]
+             == before[1]["brdf_light_major"] + 1,
+             "1080p frame launched each kernel once")
+    sm.check(tuple(img_hd.shape) == (1, 1080, 1920, 3)
+             and bool(torch.isfinite(img_hd).all()), "1080p frame finite")
+    ref_hd = renderer.render_frames(scene, accel, cams_hd, 0, 1, cfg_hd,
+                                    plain=True)
+    p1080 = psnr4(img_hd[0], ref_hd[0])
+    sm.check(p1080 > 45.0, f"1080p kernel vs plain frame PSNR {p1080:.2f}")
+    del ref_hd, img_hd
+    prim_hd, shadow_hd, k2_hd = frame_batches(scene, accel, cams_hd, cfg_hd)
+    k2_check(sm, "1080p frame batch", k2_hd)
+    for key, planes, closest in (("k1_closest_1080p", prim_hd, True),
+                                 ("k1_any_hit_1080p", shadow_hd, False)):
+        k1_ops[key] = walk_ops(k1, accel, planes, cfg.t_min, closest,
+                               f"K1 {key[3:-6]} 1920x1080")
+
+    print("phase 8: golden frames at 64x48 through the kernels", flush=True)
+    goldens = {
+        "bench_direct": (bench_scene(), Camera(**BENCH_CAM), True),
+        "demo_parity": (reference_demo_scene(), Camera(), False),
+        "demo_sky": (reference_demo_scene(), Camera(), True)}
+    gold_psnr = {}
+    for gname, (sc, cam, sky_on) in goldens.items():
+        g_scene = sc.build(dev)
+        g_accel = lbvh.build_bvh_sah(g_scene, leaf_size=32)
+        g_cfg = RenderConfig(width=64, height=48, max_depth=1, sky=sky_on)
+        before = k1.LAUNCHES["closest"]
+        img = torch.as_tensor(renderer.render(g_scene, cam, g_cfg, g_accel))
+        gold = torch.as_tensor(np.load(os.path.join(
+            ROOT, "tests", "goldens", f"{gname}.npz"))["image"])
+        gold_psnr[gname] = psnr4(img, gold)
+        sm.check(k1.LAUNCHES["closest"] == before + 1
+                 and gold_psnr[gname] > 45.0,
+                 f"{gname}: kernel frame vs golden PSNR "
+                 f"{gold_psnr[gname]:.2f}")
+
+    print("phase 9: K1 and K2 times (CUDA events, median of 7; the kernels "
+          "10 calls per sample, one call alone beside; the plain walks 3 "
+          "samples), against the baseline ones in turns; frames",
+          flush=True)
+    times = {}
+    for size, (pr, sh, ka2) in (("", (prim, shadow, k2_args)),
+                                ("_1080p", (prim_hd, shadow_hd, k2_hd))):
+        times.update(bench_kernel_times(sm, baseline, accel, pr, sh, ka2,
+                                        cfg.t_min, size))
+    rays_512 = cfg.width * cfg.height * cfg.spp * (1 + nl)
+    rays_hd = cfg_hd.width * cfg_hd.height * cfg_hd.spp * (1 + nl)
+    ms_512 = time_ms(lambda: renderer.render_frames(
+        scene, accel, cams, 0, 32, cfg), reps=5) / 32
+    ms_hd = time_ms(lambda: renderer.render_frames(
+        scene, accel, cams_hd, 0, 1, cfg_hd), reps=5)
+    for key, ms, rays in (("512x384", ms_512, rays_512),
+                          ("1920x1080", ms_hd, rays_hd)):
+        print(f"  frame {key}: {ms:.4f} ms/frame, {rays / ms / 1e3:.2f} "
+              "Mray/s", flush=True)
+    if has_baseline(baseline, "hrt_bvh8_trace") \
+            and has_baseline(baseline, "hrt_brdf_light_major"):
+        frame_vs_baseline(bench_swaps(baseline),
+                          lambda: renderer.render_frames(scene, accel, cams,
+                                                         0, 4, cfg),
+                          "bench frame 512x384, 4 frames")
+        frame_vs_baseline(bench_swaps(baseline),
+                          lambda: renderer.render_frames(scene, accel,
+                                                         cams_hd, 0, 1,
+                                                         cfg_hd),
+                          "bench frame 1920x1080, 1 frame")
+    # Rays, shadow rays and relevant BRDF elements of the two sizes.
+    sizes = {"": (n, ns, int(rel.sum())),
+             "_1080p": (prim_hd[0].numel(), shadow_hd[0].numel(),
+                        int(k2_hd[4].sum()))}
+    del prim_hd, shadow_hd, k2_hd
+
+    # K1's and K2's bounds: rays in (7 planes) and hits out (t, tri, u, v;
+    # a byte of occlusion), the tables the walk reads once; the BRDF's 18
+    # per-ray planes and 3 light planes in, a relevance byte and 3 planes
+    # out per element.
+    w8_tab = nbytes(accel.w8_rec, accel.tris)
+    bounds = {}
+    for size, (nr, nsr, n_rel) in sizes.items():
+        work = {"k1_closest": (w8_tab + nr * (28 + 16),
+                               k1_ops["k1_closest" + size]),
+                "k1_any_hit": (w8_tab + nsr * (28 + 1),
+                               k1_ops["k1_any_hit" + size]),
+                "k2": (18 * 4 * nr + nsr * (12 + 1 + 12),
+                       n_rel * K2_OPS_PER_ELEMENT)}
+        for key, (n_bytes, ops) in work.items():
+            bounds[key + size] = bound(n_bytes, ops)
+            print(f"  {key + size} bound: bytes {bound(n_bytes)[0]:.6f} ms "
+                  f"({n_bytes} bytes), operations {bound(0, ops)[0]:.6f} ms "
+                  f"({ops:.4e})", flush=True)
+    return {"times": times, "launches": launches, "bounds": bounds,
+            "errs": {"k1_closest": k1c_err, "k1_any_hit": k1a_err,
+                     "k2": k2_err}}
+
+
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -774,8 +1178,7 @@ def main() -> int:
     from hrt_tpu_torch.config import RenderConfig
     from hrt_tpu_torch.kernels import build
     from hrt_tpu_torch.models.camera import Camera
-    from hrt_tpu_torch.models.scene import bench_scene, reference_demo_scene
-    from hrt_tpu_torch.ops import intersect, lbvh, shade_kernel
+    from hrt_tpu_torch.ops import intersect, lbvh, shade_kernel, wide8
     from hrt_tpu_torch.ops import traversal_wide8 as k1
 
     sm = Smoke()
@@ -811,186 +1214,8 @@ def main() -> int:
     print(f"  baseline kernels: {', '.join(copies) or 'none'} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    print("phase 3: scene + accel", flush=True)
-    t0 = time.perf_counter()
-    scene = bench_scene().build(dev)
-    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
-    torch.cuda.synchronize()
-    facts = {
-        "build_s": time.perf_counter() - t0,
-        "triangles": int(scene.num_triangles),
-        "pool_slots": int(accel.tri_v0.shape[0]),
-        "record_rows": int(accel.w8.shape[0]), "depth": accel.w8_depth}
-    print(f"  {facts}", flush=True)
-
-    cfg = RenderConfig(width=512, height=384, max_depth=1, sky=True,
-                       traversal="auto")
-    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, dev)
-    o, d = renderer.primary_rays(cams, cfg.height, 0, cfg)
-    n = o.x.shape[0]
-    tmax = torch.full((n,), intersect.INF, device=dev)
-    prim = (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
-
-    print(f"phase 4: K1 on the frame's batches ({n} primary rays)",
-          flush=True)
-    kt, ktri, ku, kv = k1.trace_kernel(accel, *prim, cfg.t_min, True)
-    pt, ptri, pu, pv = k1.trace_plain(accel, *prim, cfg.t_min, True)
-    torch.cuda.synchronize()
-    same = ktri == ptri
-    hit = same & (ktri >= 0)
-    rel_t = ((kt - pt).abs() / pt.abs().clamp(min=1e-6))[hit]
-    k1c_err = float((kt - pt)[hit].abs().max())
-    sm.check(float(same.float().mean()) >= 0.999,
-             f"closest ids agree on {float(same.float().mean()):.6f} of rays")
-    sm.check(float(rel_t.max()) <= 1e-4,
-             f"closest t rel err {float(rel_t.max()):.3g} where ids agree "
-             f"(max abs {k1c_err:.3g})")
-    sm.check(float(hit.float().mean()) > 0.3,
-             f"{float(hit.float().mean()):.3f} of primary rays hit")
-
-    sh = renderer.surface_hits(scene, accel, o, d, cfg)
-    lb = renderer.light_batch(scene, sh.normal, sh.world_pos, cfg,
-                              ray_mask=sh.hit)
-    shadow = (lb.origin.x, lb.origin.y, lb.origin.z, lb.l.x, lb.l.y,
-              lb.l.z, lb.t_max)
-    ns = lb.t_max.shape[0]
-    kocc = k1.trace_kernel(accel, *shadow, cfg.t_min, False)
-    pocc = k1.trace_plain(accel, *shadow, cfg.t_min, False)
-    agree = float((kocc == pocc).float().mean())
-    k1a_err = float((kocc.float() - pocc.float()).abs().max())
-    sm.check(agree >= 0.999, f"any-hit occlusion agrees on {agree:.6f} of "
-             f"{ns} shadow rays ({float(pocc.float().mean()):.3f} occluded)")
-
-    sub = torch.arange(0, n, max(1, n // 4096), device=dev)[:4096]
-    bt, bi, _, _ = intersect.closest_hit_bruteforce(
-        torch.stack([o.x, o.y, o.z], 1)[sub],
-        torch.stack([d.x, d.y, d.z], 1)[sub],
-        scene.tri_v0, scene.tri_e1, scene.tri_e2, cfg.t_min)
-    korig = torch.where(ktri[sub] >= 0,
-                        accel.tri_perm[ktri[sub].clamp(min=0).long()], -1)
-    porig = torch.where(ptri[sub] >= 0,
-                        accel.tri_perm[ptri[sub].clamp(min=0).long()], -1)
-    for who, ids, tt in (("kernel", korig, kt[sub]),
-                         ("plain", porig, pt[sub])):
-        # Ids agree up to equal-t ties (edges shared by two triangles).
-        tie = (ids >= 0) & (bi >= 0) & ((tt - bt).abs() <= 1e-5 * bt.abs())
-        a = float(((ids == bi) | tie).float().mean())
-        sm.check(a >= 0.999, f"closest {who} vs brute force on 4096 rays: "
-                 f"{a:.6f} (ids differ on {int((ids != bi).sum())} rays)")
-    ssub = torch.arange(0, ns, max(1, ns // 4096), device=dev)[:4096]
-    bocc = intersect.any_hit_bruteforce(
-        torch.stack(shadow[0:3], 1)[ssub], torch.stack(shadow[3:6], 1)[ssub],
-        scene.tri_v0, scene.tri_e1, scene.tri_e2, cfg.t_min,
-        lb.t_max[ssub])
-    for who, occ in (("kernel", kocc), ("plain", pocc)):
-        a = float((occ[ssub] == bocc).float().mean())
-        sm.check(a >= 0.999, f"any-hit {who} vs brute force on 4096 "
-                 f"rays: {a:.6f}")
-
-    print(f"phase 5: K2 on the frame's light-major batch ({ns})",
-          flush=True)
-    nl = scene.lights.shape[0]
-    k2_args = (sh.mat, sh.normal, sh.view, lb.l, lb.relevant, nl)
-    kf = shade_kernel.brdf_light_major_kernel(*k2_args)
-    pf = shade_kernel.brdf_light_major_plain(*k2_args)
-    k2_err, k2_ok = 0.0, True
-    for a, b in zip(kf, pf):
-        k2_err = max(k2_err, float((a - b).abs().max()))
-        k2_ok &= bool(((a - b).abs() <= 1e-6 + 1e-4 * b.abs()).all())
-    sm.check(k2_ok, f"BRDF within rtol 1e-4 / atol 1e-6 (max abs err "
-             f"{k2_err:.3g}; {float(lb.relevant.float().mean()):.3f} "
-             "relevant)")
-
-    print("phase 6: render_frames x32 at 512x384", flush=True)
-    for c in (k1.LAUNCHES, shade_kernel.LAUNCHES):
-        for key in c:
-            c[key] = 0
-    imgs = renderer.render_frames(scene, accel, cams, 0, 32, cfg)
-    torch.cuda.synchronize()
-    launches = {"closest": k1.LAUNCHES["closest"],
-                "any_hit": k1.LAUNCHES["any_hit"],
-                "brdf_light_major": shade_kernel.LAUNCHES["brdf_light_major"]}
-    sm.check(launches == {"closest": 32, "any_hit": 32,
-                          "brdf_light_major": 32},
-             f"launch counters {launches}")
-    sm.check(tuple(imgs.shape) == (32, 384, 512, 3)
-             and bool(torch.isfinite(imgs).all()),
-             f"frames {tuple(imgs.shape)} finite")
-    sm.check(bool((imgs == imgs[0]).all()), "32 frames identical")
-    ref = renderer.render_frames(scene, accel, cams, 0, 1, cfg, plain=True)
-    p512 = psnr4(imgs[0], ref[0])
-    sm.check(p512 > 45.0, f"kernel frame vs plain frame PSNR {p512:.2f}")
-
-    print("phase 7: one 1920x1080 frame", flush=True)
-    cfg_hd = RenderConfig(width=1920, height=1080, max_depth=1, sky=True,
-                          traversal="auto")
-    cams_hd = renderer.camera_arrays(Camera(**BENCH_CAM), cfg_hd, dev)
-    before = (dict(k1.LAUNCHES), dict(shade_kernel.LAUNCHES))
-    img_hd = renderer.render_frames(scene, accel, cams_hd, 0, 1, cfg_hd)
-    torch.cuda.synchronize()
-    sm.check(k1.LAUNCHES["closest"] == before[0]["closest"] + 1
-             and k1.LAUNCHES["any_hit"] == before[0]["any_hit"] + 1
-             and shade_kernel.LAUNCHES["brdf_light_major"]
-             == before[1]["brdf_light_major"] + 1,
-             "1080p frame launched each kernel once")
-    sm.check(tuple(img_hd.shape) == (1, 1080, 1920, 3)
-             and bool(torch.isfinite(img_hd).all()), "1080p frame finite")
-    ref_hd = renderer.render_frames(scene, accel, cams_hd, 0, 1, cfg_hd,
-                                    plain=True)
-    p1080 = psnr4(img_hd[0], ref_hd[0])
-    sm.check(p1080 > 45.0, f"1080p kernel vs plain frame PSNR {p1080:.2f}")
-    del ref_hd
-
-    print("phase 8: golden frames at 64x48 through the kernels", flush=True)
-    goldens = {
-        "bench_direct": (bench_scene(), Camera(**BENCH_CAM), True),
-        "demo_parity": (reference_demo_scene(), Camera(), False),
-        "demo_sky": (reference_demo_scene(), Camera(), True)}
-    gold_psnr = {}
-    for gname, (sc, cam, sky_on) in goldens.items():
-        g_scene = sc.build(dev)
-        g_accel = lbvh.build_bvh_sah(g_scene, leaf_size=32)
-        g_cfg = RenderConfig(width=64, height=48, max_depth=1, sky=sky_on)
-        before = k1.LAUNCHES["closest"]
-        img = torch.as_tensor(renderer.render(g_scene, cam, g_cfg, g_accel))
-        gold = torch.as_tensor(np.load(os.path.join(
-            ROOT, "tests", "goldens", f"{gname}.npz"))["image"])
-        gold_psnr[gname] = psnr4(img, gold)
-        sm.check(k1.LAUNCHES["closest"] == before + 1
-                 and gold_psnr[gname] > 45.0,
-                 f"{gname}: kernel frame vs golden PSNR "
-                 f"{gold_psnr[gname]:.2f}")
-
-    print("phase 9: times (CUDA events, median of 7)", flush=True)
-    times = {
-        "k1_closest": time_ms(lambda: k1.trace_kernel(
-            accel, *prim, cfg.t_min, True)),
-        "k1_closest_plain": time_ms(lambda: k1.trace_plain(
-            accel, *prim, cfg.t_min, True)),
-        "k1_any_hit": time_ms(lambda: k1.trace_kernel(
-            accel, *shadow, cfg.t_min, False)),
-        "k1_any_hit_plain": time_ms(lambda: k1.trace_plain(
-            accel, *shadow, cfg.t_min, False)),
-        "k2": time_ms(lambda: shade_kernel.brdf_light_major_kernel(
-            *k2_args)),
-        "k2_plain": time_ms(lambda: shade_kernel.brdf_light_major_plain(
-            *k2_args)),
-    }
-    rays_512 = cfg.width * cfg.height * cfg.spp * (1 + nl)
-    rays_hd = cfg_hd.width * cfg_hd.height * cfg_hd.spp * (1 + nl)
-    ms_512 = time_ms(lambda: renderer.render_frames(
-        scene, accel, cams, 0, 32, cfg), reps=5) / 32
-    ms_hd = time_ms(lambda: renderer.render_frames(
-        scene, accel, cams_hd, 0, 1, cfg_hd), reps=5)
-    frame = {"512x384": {"ms_per_frame": ms_512,
-                         "mrays_per_s": rays_512 / ms_512 / 1e3},
-             "1920x1080": {"ms_per_frame": ms_hd,
-                           "mrays_per_s": rays_hd / ms_hd / 1e3}}
-    for k, v in times.items():
-        print(f"  {k}: {v:.4f} ms", flush=True)
-    for k, v in frame.items():
-        print(f"  frame {k}: {v['ms_per_frame']:.4f} ms/frame, "
-              f"{v['mrays_per_s']:.2f} Mray/s", flush=True)
+    bench = bench_phases(sm, dev, baseline)
+    times, launches, errs = bench["times"], bench["launches"], bench["errs"]
 
     print("phase 10: instanced scene + two-level build", flush=True)
     from hrt_tpu_torch.frameloop import FrameLoop
@@ -1220,15 +1445,15 @@ def main() -> int:
     print(f"  refit (set_instance_transform, host clock): {refit_ms:.4f} ms",
           flush=True)
     rows = tl.w8_tlas_nw // 16
-    rec_full = time_ms(lambda: k4.node_records(tl.w8_nodes))
-    rec_tlas = time_ms(lambda: k4.node_records(tl.w8_nodes[:rows]))
-    print(f"  K4 node records (traversal_tlas8.node_records): whole table "
+    rec_full = time_ms(lambda: wide8.node_records(tl.w8_nodes))
+    rec_tlas = time_ms(lambda: wide8.node_records(tl.w8_nodes[:rows]))
+    print(f"  K4 node records (wide8.node_records): whole table "
           f"{rec_full:.4f} ms at the build, TLAS region {rec_tlas:.4f} ms at "
           f"each refit", flush=True)
     k4_ops = {
-        "k4_closest": two_level_ops(k4, tl, g_prim, g_cfg.t_min, True,
+        "k4_closest": walk_ops(k4, tl, g_prim, g_cfg.t_min, True,
                                     "K4 closest"),
-        "k4_any_hit": two_level_ops(k4, tl, g_shadow, g_cfg.t_min, False,
+        "k4_any_hit": walk_ops(k4, tl, g_shadow, g_cfg.t_min, False,
                                     "K4 any-hit")}
     if has_baseline(baseline, "hrt_tlas8_trace"):
         for key, planes, closest in (("closest", g_prim, True),
@@ -1236,7 +1461,7 @@ def main() -> int:
             time_walk_vs_baseline(sm, baseline, f"K4 {key}", k4.trace_kernel,
                                   tl, planes, g_cfg.t_min, closest)
         loop.set_resolution(512, 384)
-        frame_vs_baseline(baseline, k4,
+        frame_vs_baseline(two_level_swaps(baseline, k4),
                           lambda: [loop.step(cam) for _ in range(4)],
                           "instanced still frame 512x384, 4 frames")
     else:
@@ -1311,7 +1536,7 @@ def main() -> int:
              "(codes, tri_perm, children, boxes, skip-link nodes)")
 
     c_cams = renderer.camera_arrays(orbit_cam(steps - 1), g_cfg, dev)
-    c_prim, c_shadow = frame_batches(cscene, cloop.accel, c_cams, g_cfg)
+    c_prim, c_shadow, _ = frame_batches(cscene, cloop.accel, c_cams, g_cfg)
     caccel = cloop.accel
     kc3 = k3.trace_kernel(caccel, *c_prim, g_cfg.t_min, True)
     pc3 = k3.trace_plain(caccel, *c_prim, g_cfg.t_min, True)
@@ -1416,7 +1641,7 @@ def main() -> int:
     print(f"  FrameLoop init (soup, two-level build, instance matrices) "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     fscene = floop.scene
-    f_prim, f_shadow = frame_batches(fscene, ftl, g_cams, g_cfg)
+    f_prim, f_shadow, _ = frame_batches(fscene, ftl, g_cams, g_cfg)
     kc5 = k5.trace_kernel(ftl, *f_prim, g_cfg.t_min, True)
     pc5 = k5.trace_plain(ftl, *f_prim, g_cfg.t_min, True)
     k5c_err = check_closest(sm, "K5 vs plain (whole batch)", kc5, pc5)
@@ -1532,9 +1757,9 @@ def main() -> int:
           f"{rec_full:.4f} ms at the build, TLAS rows {rec_tlas:.4f} ms at "
           f"each refit", flush=True)
     k5_ops = {
-        "k5_closest": two_level_ops(k5, ftl, f_prim, g_cfg.t_min, True,
+        "k5_closest": walk_ops(k5, ftl, f_prim, g_cfg.t_min, True,
                                     "K5 closest"),
-        "k5_any_hit": two_level_ops(k5, ftl, f_shadow, g_cfg.t_min, False,
+        "k5_any_hit": walk_ops(k5, ftl, f_shadow, g_cfg.t_min, False,
                                     "K5 any-hit")}
     if has_baseline(baseline, "hrt_tlas_skip_trace"):
         for key, planes, closest in (("closest", f_prim, True),
@@ -1643,7 +1868,8 @@ def main() -> int:
               f"over {6 * k} orbit steps", flush=True)
     if has_baseline(baseline, "hrt_tlas_skip_trace"):
         floop.set_resolution(512, 384)
-        frame_vs_baseline(baseline, k5, lambda: forest_steps(4, False),
+        frame_vs_baseline(two_level_swaps(baseline, k5),
+                          lambda: forest_steps(4, False),
                           "forest still frame 512x384, 4 frames")
 
     post = post_phases(sm, dev, baseline)
@@ -1651,17 +1877,12 @@ def main() -> int:
     # Bounds of the walks: rays in (7 planes) and hits out (t, tri, u, v
     # and the instance where there is one; a byte of occlusion), the
     # tables the kernel reads once.
-    w8_tab = nbytes(accel.w8, accel.tris)
     k4_tab = nbytes(tl.w8_rec, tl.tris, tl.obj_from_world, tl.w8_root)
     k3_tab = nbytes(caccel.skip_rec, caccel.tris)
     k5_tab = nbytes(ftl.skip_rec, ftl.tris, ftl.obj_from_world,
                     ftl.blas_base, ftl.blas_end)
-    n_rel = int(lb.relevant.sum())
-    bounds = {
-        "k1_closest": bound(w8_tab + n * (28 + 16)),
-        "k1_any_hit": bound(w8_tab + ns * (28 + 1)),
-        "k2": bound(18 * 4 * n + ns * (12 + 1 + 12),
-                    n_rel * K2_OPS_PER_ELEMENT),
+    bounds = dict(bench["bounds"])
+    bounds.update({
         "k4_closest": bound(k4_tab + gn * (28 + 20), k4_ops["k4_closest"]),
         "k4_any_hit": bound(k4_tab + gns * (28 + 1), k4_ops["k4_any_hit"]),
         "k3_closest": bound(k3_tab + c_prim[0].numel() * (28 + 16),
@@ -1672,7 +1893,7 @@ def main() -> int:
                             k5_ops["k5_closest"]),
         "k5_any_hit": bound(k5_tab + f_shadow[0].numel() * (28 + 1),
                             k5_ops["k5_any_hit"]),
-    }
+    })
     for key, (ms, by) in bounds.items():
         print(f"  bound {key}: {ms:.6f} ms ({by})", flush=True)
 
@@ -1683,15 +1904,15 @@ def main() -> int:
     kernels = [
         {"name": "bvh8_trace_closest", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["closest"],
-         "max_abs_err": k1c_err, "ms": times["k1_closest"],
+         "max_abs_err": errs["k1_closest"], "ms": times["k1_closest"],
          "plain_ms": times["k1_closest_plain"], **extra("k1_closest")},
         {"name": "bvh8_trace_any_hit", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["any_hit"],
-         "max_abs_err": k1a_err, "ms": times["k1_any_hit"],
+         "max_abs_err": errs["k1_any_hit"], "ms": times["k1_any_hit"],
          "plain_ms": times["k1_any_hit_plain"], **extra("k1_any_hit")},
         {"name": "brdf_light_major", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["brdf_light_major"],
-         "max_abs_err": k2_err, "ms": times["k2"],
+         "max_abs_err": errs["k2"], "ms": times["k2"],
          "plain_ms": times["k2_plain"], **extra("k2")},
         {"name": "tlas8_trace_closest", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4_REPLACES, "launches": launches4["k4_closest"],

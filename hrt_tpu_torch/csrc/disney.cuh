@@ -3,7 +3,9 @@
 // with its quirks kept: GTR1 uses log2; the sheen term ignores the
 // material's sheen scale (only sheen_tint is read); the specular Fresnel
 // uses schlick_weight(L.H); the anisotropic Smith term squares only
-// (v.y * ay) before the n.v^2 factor.
+// (v.y * ay) before the n.v^2 factor.  The terms that depend on the view
+// alone are split out (`view_terms`), so that a ray's lights share them;
+// each is the same expression as before the split.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,8 +24,13 @@ struct Mat {
       anisotropic, sheen_tint, clearcoat, clearcoat_gloss;
 };
 
+// Dot products and GTR1's denominator round every product and sum as
+// the plain version's separate tensor ops do (no FMA contraction): at a
+// clearcoat highlight 1 + (a^2 - 1) n.h^2 cancels to ~a^2, so one
+// rounding of n.h there moves f by more than 1e-4.
 __device__ __forceinline__ float dot(Vec a, Vec b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
+  return __fadd_rn(__fadd_rn(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y)),
+                   __fmul_rn(a.z, b.z));
 }
 
 __device__ __forceinline__ Vec normalize(Vec a) {
@@ -46,9 +53,11 @@ __device__ __forceinline__ float schlick_weight(float f) {
 }
 
 __device__ __forceinline__ float gtr1(float ndoth, float a) {
-  const float a2 = a * a;
-  const float val = (a2 - 1.0f) /
-      (kPi * log2f(fmaxf(a2, 1e-8f)) * (1.0f + (a2 - 1.0f) * ndoth * ndoth));
+  const float a2 = __fmul_rn(a, a);
+  const float t = __fadd_rn(
+      1.0f, __fmul_rn(__fmul_rn(__fadd_rn(a2, -1.0f), ndoth), ndoth));
+  const float val =
+      (a2 - 1.0f) / (__fmul_rn(kPi * log2f(fmaxf(a2, 1e-8f)), t));
   return a >= 1.0f ? kOneOverPi : val;
 }
 
@@ -83,87 +92,112 @@ __device__ __forceinline__ Vec calculate_tint(Vec c) {
 }
 
 // Tangent frame of n (Frisvad, with the z < -1 guard of
-// hrt_tpu/ops/v3.py `orthonormal_basis`); returns v in that frame.
-__device__ __forceinline__ Vec to_local(Vec v, Vec n) {
-  Vec t, bt;
-  if (n.z < -0.99998796f) {
-    t = {0.0f, -1.0f, 0.0f};
-    bt = {-1.0f, 0.0f, 0.0f};
-  } else {
-    const float a = 1.0f / (1.0f + n.z);
-    const float b = -n.x * n.y * a;
-    t = {1.0f - n.x * n.x * a, b, -n.x};
-    bt = {b, 1.0f - n.y * n.y * a, -n.y};
-  }
-  return {dot(v, t), dot(v, bt), dot(v, n)};
+// hrt_tpu/ops/v3.py `orthonormal_basis`).
+struct Frame { Vec t, bt, n; };
+
+__device__ __forceinline__ Frame tangent_frame(Vec n) {
+  if (n.z < -0.99998796f) return {{0.0f, -1.0f, 0.0f}, {-1.0f, 0.0f, 0.0f}, n};
+  const float a = 1.0f / (1.0f + n.z);
+  const float b = -n.x * n.y * a;
+  return {{1.0f - n.x * n.x * a, b, -n.x}, {b, 1.0f - n.y * n.y * a, -n.y}, n};
 }
 
-__device__ __forceinline__ float eval_diffuse(const Mat& m, Vec ll, Vec lv,
+// v in the frame.
+__device__ __forceinline__ Vec to_local(Vec v, const Frame& f) {
+  return {dot(v, f.t), dot(v, f.bt), dot(v, f.n)};
+}
+
+// The terms of f(mat, n, v, l) that do not depend on l, computed once per
+// ray for all of its lights: the tangent frame, v in it, n.v, the
+// diffuse Fresnel weight of v, the tint, the specular colour and
+// roughnesses, and the Smith terms of v (specular and clearcoat).
+struct ViewTerms {
+  Frame f;
+  Vec v, lv, tint, spec_color;
+  float ndotv, fv, ax, ay, spec_gv, coat_gv, coat_a;
+};
+
+__device__ __forceinline__ ViewTerms view_terms(const Mat& m, Vec n, Vec v) {
+  ViewTerms w;
+  w.f = tangent_frame(n);
+  w.v = v;
+  w.ndotv = dot(n, v);
+  w.lv = to_local(v, w.f);
+  w.fv = schlick_weight(w.lv.z);
+  w.tint = calculate_tint(m.color);
+  const float aspect = sqrtf(1.0f - m.anisotropic * 0.9f);
+  const float r2 = m.roughness * m.roughness;
+  w.ax = fmaxf(1e-3f, r2 / aspect);
+  w.ay = fmaxf(1e-3f, r2 * aspect);
+  const float sc = m.specular * 0.08f;
+  const Vec base = {(1.0f + (w.tint.x - 1.0f) * m.specular_tint) * sc,
+                    (1.0f + (w.tint.y - 1.0f) * m.specular_tint) * sc,
+                    (1.0f + (w.tint.z - 1.0f) * m.specular_tint) * sc};
+  w.spec_color = {base.x + (m.color.x - base.x) * m.metallic,
+                  base.y + (m.color.y - base.y) * m.metallic,
+                  base.z + (m.color.z - base.z) * m.metallic};
+  w.spec_gv = smith_ggx_anisotropic(w.lv.z, w.lv.x, w.lv.y, w.ax, w.ay);
+  w.coat_gv = smith_ggx(w.ndotv, 0.25f);
+  w.coat_a = __fadd_rn(0.1f, __fmul_rn(-0.099f, m.clearcoat_gloss));
+  return w;
+}
+
+__device__ __forceinline__ float eval_diffuse(const Mat& m,
+                                              const ViewTerms& w, Vec ll,
                                               Vec lh) {
   const float rough = m.roughness;
   const float fl = schlick_weight(ll.z);
-  const float fv = schlick_weight(lv.z);
+  const float fv = w.fv;
   const float hdotl = dot(lh, ll);
   const float fd90 = 0.5f + 2.0f * rough * hdotl * hdotl;
   const float fd = (1.0f + (fd90 - 1.0f) * fl) * (1.0f + (fd90 - 1.0f) * fv);
   const float fss90 = hdotl * hdotl * rough;
   const float fss =
       (1.0f + (fss90 - 1.0f) * fl) * (1.0f + (fss90 - 1.0f) * fv);
-  const float lz_vz = ll.z + lv.z;
+  const float lz_vz = ll.z + w.lv.z;
   const float ss = 1.25f * (fss * (1.0f / fmaxf(lz_vz, 1e-6f) - 0.5f) + 0.5f);
   return fd + (ss - fd) * m.subsurface;
 }
 
-__device__ __forceinline__ Vec eval_specular(const Mat& m, Vec lh, Vec lv,
+__device__ __forceinline__ Vec eval_specular(const ViewTerms& w, Vec lh,
                                              Vec ll) {
-  const float aspect = sqrtf(1.0f - m.anisotropic * 0.9f);
-  const float r2 = m.roughness * m.roughness;
-  const float ax = fmaxf(1e-3f, r2 / aspect);
-  const float ay = fmaxf(1e-3f, r2 * aspect);
-  const Vec tint = calculate_tint(m.color);
-  const float sc = m.specular * 0.08f;
-  const Vec base = {(1.0f + (tint.x - 1.0f) * m.specular_tint) * sc,
-                    (1.0f + (tint.y - 1.0f) * m.specular_tint) * sc,
-                    (1.0f + (tint.z - 1.0f) * m.specular_tint) * sc};
-  const Vec color = {base.x + (m.color.x - base.x) * m.metallic,
-                     base.y + (m.color.y - base.y) * m.metallic,
-                     base.z + (m.color.z - base.z) * m.metallic};
-  const float d = gtr2_anisotropic(lh.z, lh.x, lh.y, ax, ay);
+  const float d = gtr2_anisotropic(lh.z, lh.x, lh.y, w.ax, w.ay);
   const float fresnel = schlick_weight(dot(ll, lh));
-  const float g = smith_ggx_anisotropic(ll.z, ll.x, ll.y, ax, ay) *
-                  smith_ggx_anisotropic(lv.z, lv.x, lv.y, ax, ay);
+  const float g =
+      smith_ggx_anisotropic(ll.z, ll.x, ll.y, w.ax, w.ay) * w.spec_gv;
   const float dg = d * g;
-  return {(color.x + (1.0f - color.x) * fresnel) * dg,
-          (color.y + (1.0f - color.y) * fresnel) * dg,
-          (color.z + (1.0f - color.z) * fresnel) * dg};
+  const Vec c = w.spec_color;
+  return {(c.x + (1.0f - c.x) * fresnel) * dg,
+          (c.y + (1.0f - c.y) * fresnel) * dg,
+          (c.z + (1.0f - c.z) * fresnel) * dg};
 }
 
-// f(mat, n, v, l); zero unless n.l > 0 and n.v > 0 (the reference's
-// early-out).  v points toward the viewer, l toward the light.
-__device__ __forceinline__ Vec brdf(const Mat& m, Vec n, Vec v, Vec l) {
+// f(mat, n, v, l) from the ray's view terms; zero unless n.l > 0 and
+// n.v > 0 (the reference's early-out).  v points toward the viewer, l
+// toward the light.
+__device__ __forceinline__ Vec brdf(const Mat& m, const ViewTerms& w,
+                                    Vec l) {
+  const Vec n = w.f.n, v = w.v;
   const float ndotl = dot(n, l);
-  const float ndotv = dot(n, v);
-  if (!(ndotl > 0.0f && ndotv > 0.0f)) return {0.0f, 0.0f, 0.0f};
+  if (!(ndotl > 0.0f && w.ndotv > 0.0f)) return {0.0f, 0.0f, 0.0f};
   const Vec h = normalize({v.x + l.x, v.y + l.y, v.z + l.z});
   const float ndoth = dot(n, h);
   const float hdotl = dot(h, l);
-  const Vec lh = to_local(h, n);
-  const Vec lv = to_local(v, n);
-  const Vec ll = to_local(l, n);
+  const Vec lh = to_local(h, w.f);
+  const Vec ll = to_local(l, w.f);
 
-  const Vec tint = calculate_tint(m.color);
   const float sw = schlick_weight(hdotl);
-  const Vec sheen = {(1.0f + (tint.x - 1.0f) * m.sheen_tint) * sw,
-                     (1.0f + (tint.y - 1.0f) * m.sheen_tint) * sw,
-                     (1.0f + (tint.z - 1.0f) * m.sheen_tint) * sw};
+  const Vec sheen = {(1.0f + (w.tint.x - 1.0f) * m.sheen_tint) * sw,
+                     (1.0f + (w.tint.y - 1.0f) * m.sheen_tint) * sw,
+                     (1.0f + (w.tint.z - 1.0f) * m.sheen_tint) * sw};
 
-  const float cd = gtr1(ndoth, 0.1f + (-0.099f) * m.clearcoat_gloss);
+  const float cd = gtr1(ndoth, w.coat_a);
   const float cf = schlick_fresnel(0.04f, hdotl);
-  const float cg = smith_ggx(ndotl, 0.25f) * smith_ggx(ndotv, 0.25f);
+  const float cg = smith_ggx(ndotl, 0.25f) * w.coat_gv;
   const float clearcoat = 0.25f * m.clearcoat * cd * cf * cg;
 
-  const Vec spec = eval_specular(m, lh, lv, ll);
-  const float diffuse = eval_diffuse(m, ll, lv, lh);
+  const Vec spec = eval_specular(w, lh, ll);
+  const float diffuse = eval_diffuse(m, w, ll, lh);
   const float kd = kOneOverPi * diffuse;
   const float one_minus_metal = 1.0f - m.metallic;
   return {(m.color.x * kd + sheen.x) * one_minus_metal + spec.x + clearcoat,

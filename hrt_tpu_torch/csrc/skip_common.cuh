@@ -1,6 +1,5 @@
-// The redesigned walks' node reads, staging and triangle test: K3
-// (skip_trace.cu), K5 (tlas_skip_trace.cu) and K4 (tlas8_trace.cu).  K1
-// keeps walk_common.cuh's `child_test`, `moller` and `leaf_hits`.
+// The walks' node reads, staging and triangle test: K3 (skip_trace.cu),
+// K5 (tlas_skip_trace.cu), K4 (tlas8_trace.cu) and K1 (bvh8_trace.cu).
 //
 // Node record (hrt_tpu_torch/ops/traversal_skip.py `skip_records`): node
 // i of the skip-link table (hrt_tpu_torch/ops/lbvh.py `flatten_bvh`, the
@@ -12,14 +11,16 @@
 // loads 512 bytes apart.
 //
 // Triangle test: Möller-Trumbore without a division on the way to a miss.
-// It computes det, T.P, D.Q and E2.Q term for term as `moller` and
-// compares them scaled by |det| and sign(det) (u.det, v.det, (u+v).det
-// against |det|, t.det against t_min.|det| and t_live.|det|), the u range
-// first, so a warp whose rays all pass beside the triangle skips Q, v and
-// t.  Only a triangle that passes every comparison takes the reciprocal;
-// its t, u and v are then `moller`'s own products, held to `moller`'s own
-// conditions, so the accepted set is a subset of `moller`'s and differs
-// from it only for hits within rounding of an edge, of t_min or of t_live.
+// It computes det, T.P, D.Q and E2.Q term for term as the JAX package's
+// `_moller` (hrt_tpu/ops/traversal_pallas.py :236: |det| > 1e-12, u, v
+// >= 0, u + v <= 1, t_min < t < t_live) and compares them scaled by |det|
+// and sign(det) (u.det, v.det, (u+v).det against |det|, t.det against
+// t_min.|det| and t_live.|det|), the u range first, so a warp whose rays
+// all pass beside the triangle skips Q, v and t.  Only a triangle that
+// passes every comparison takes the reciprocal; its t, u and v are then
+// `_moller`'s own products, held to `_moller`'s own conditions, so the
+// accepted set is a subset of `_moller`'s and differs from it only for
+// hits within rounding of an edge, of t_min or of t_live.
 // traversal_skip.moller_scaled is its plain mirror.
 #pragma once
 

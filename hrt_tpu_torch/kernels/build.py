@@ -25,6 +25,8 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
@@ -122,6 +124,8 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
+    from ..ops import shade_kernel
+
     cdll = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
     cdll.hrt_bvh8_trace.restype = i
@@ -139,7 +143,7 @@ def load() -> ctypes.CDLL:
                                                    ctypes.c_float, i, i] \
         + [p] * 6 + [p]
     cdll.hrt_brdf_light_major.restype = i
-    cdll.hrt_brdf_light_major.argtypes = [p, p, p, i, i, p, p]
+    cdll.hrt_brdf_light_major.argtypes = [shade_kernel.BrdfArgs, p]
     cdll.hrt_warp_bilinear.restype = i
     cdll.hrt_warp_bilinear.argtypes = [p, i, i, i, i, i, i, p, p, i, p, p,
                                          p]
@@ -147,6 +151,12 @@ def load() -> ctypes.CDLL:
     cdll.hrt_cuda_error_string.argtypes = [i]
     _lib = cdll
     return _lib
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of `device`'s current stream, as PyTorch's own
+    generated kernels read it (cheaper than current_stream())."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(rc: int, what: str) -> None:

@@ -57,8 +57,10 @@ class Accel:
     over `m_real` nodes, and `skip_rec` (m_real, 8) int32 the same nodes
     as 32-byte records, the layout K3 reads (traversal_skip.skip_records).
     `w8` is the (R, 8, 128) int32 BVH8 record table
-    (None for an LBVH or a tree past MAX_WIDE_NODES) and `w8_depth` its
-    depth (root = 0), which sizes the BVH8 walk's per-ray stack."""
+    (None for an LBVH or a tree past MAX_WIDE_NODES), `w8_rec` (R * 16,
+    64) int32 the same nodes as 256-byte records, the layout K1 reads
+    (wide8.node_records), and `w8_depth` the tree's depth (root = 0),
+    which sizes the BVH8 walk's stacks."""
 
     tri_v0: torch.Tensor
     tri_e1: torch.Tensor
@@ -71,6 +73,7 @@ class Accel:
     skip_rec: torch.Tensor
     leaf_size: int
     w8: torch.Tensor | None = None
+    w8_rec: torch.Tensor | None = None
     w8_depth: int = 0
 
 
@@ -95,24 +98,26 @@ def tri_table(tri_v0, tri_e1, tri_e2) -> torch.Tensor:
 def make_accel(tri_v0, tri_e1, tri_e2, tri_perm, attr, nodes, m_real: int,
                leaf_size: int, w8=None) -> Accel:
     """Assemble an Accel from the pool tensors and the tables (all on
-    one device), deriving the walks' triangle table, K3's node records
-    and the BVH8 stack depth.  Raises ValueError if the wide tree is too
-    deep for the BVH8 walk's per-ray stack."""
-    depth = 0
+    one device), deriving the walks' triangle table, K3's and K1's node
+    records and the BVH8 stack depth.  Raises ValueError if the wide
+    tree is too deep for the BVH8 walk's stack."""
+    depth, w8_rec = 0, None
     if w8 is not None:
         depth = wide8.record_depth(w8.cpu().numpy())
-        if depth + 1 > traversal_wide8.MAX_STACK:
-            raise ValueError(f"wide tree depth {depth} exceeds the BVH8 "
-                             f"walk's stack ({traversal_wide8.MAX_STACK} "
-                             "levels)")
+        need = traversal_wide8.stack_entries(depth)
+        if need > traversal_wide8.MAX_STACK:
+            raise ValueError(f"wide tree depth {depth} needs {need} stack "
+                             f"entries, past the BVH8 walk's stack "
+                             f"({traversal_wide8.MAX_STACK})")
         w8 = w8.contiguous()
+        w8_rec = wide8.node_records(w8)
     nodes = nodes.contiguous()
     return Accel(tri_v0=tri_v0, tri_e1=tri_e1, tri_e2=tri_e2,
                  tri_perm=tri_perm, attr=attr,
                  tris=tri_table(tri_v0, tri_e1, tri_e2),
                  nodes=nodes, m_real=int(m_real),
                  skip_rec=traversal_skip.skip_records(nodes, int(m_real)),
-                 leaf_size=leaf_size, w8=w8, w8_depth=depth)
+                 leaf_size=leaf_size, w8=w8, w8_rec=w8_rec, w8_depth=depth)
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,7 @@ class TwoLevelFlat:
       (I, 3) object-space BLAS root boxes.
     The BVH8 route (K4): w8_nodes (R, 8, 128) int32, the TLAS region then
       the BLAS regions; w8_rec (R * 16, 64) int32, the same nodes as
-      256-byte records, the layout K4 reads (traversal_tlas8.node_records);
+      256-byte records, the layout K4 reads (wide8.node_records);
       w8_root (I, 1) int32, each instance's BLAS root wide id; tlas_depth /
       blas_depth, the deepest wide node of the TLAS region and of any BLAS
       region (root = 0), which size the walks' stacks (`stack`).  None / 0
@@ -344,7 +344,7 @@ def build_two_level_flat(scene: Scene, leaf_size: int = 16,
         w8_nodes = dev(w8_nodes)
         return TwoLevelFlat(
             **common, w8_nodes=w8_nodes,
-            w8_rec=traversal_tlas8.node_records(w8_nodes),
+            w8_rec=wide8.node_records(w8_nodes),
             w8_root=dev(mesh_w8_base[:-1].astype(np.int32)[inst_mesh]
                         [:, None]),
             w8_tlas_nw=int(tlas_pad), tlas_depth=tlas_depth,
@@ -399,7 +399,7 @@ def refit_two_level(tl: TwoLevelFlat, world_from_obj, obj_from_world,
         tlas = torch.as_tensor(tlas, device=tl.device)
         tables = dict(
             w8_nodes=torch.cat([tlas, tl.w8_nodes[rows:]]),
-            w8_rec=torch.cat([traversal_tlas8.node_records(tlas),
+            w8_rec=torch.cat([wide8.node_records(tlas),
                               tl.w8_rec[tl.w8_tlas_nw:]]),
             tlas_depth=tlas_depth)
     return dataclasses.replace(

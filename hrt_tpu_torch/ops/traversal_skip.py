@@ -70,7 +70,7 @@ def trace_kernel(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
         occ = torch.empty(n, dtype=torch.bool, device=dev)
         outs = [None, None, None, None, occ.data_ptr()]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = build.stream(dev)
         rc = lib.hrt_skip_trace(
             *[p.data_ptr() for p in planes], n, accel.skip_rec.data_ptr(),
             accel.tris.data_ptr(), accel.m_real, accel.leaf_size,

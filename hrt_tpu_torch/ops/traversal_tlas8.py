@@ -23,12 +23,13 @@ returns (t, tri, inst, u, v) with global pool ids (-1 on a miss, t =
 t_max); any-hit mode returns a bool occlusion mask.  A ray with
 t_max < 0 is dead.
 
-The kernel reads the table as 256-byte node records (`node_records`,
-cached as `TwoLevelFlat.w8_rec`) and tests triangles without a division
-until one passes (traversal_skip.moller_scaled mirrors that test for the
-tests).  `visit_counts` counts a batch's visits per ray in the plain
-walk's order and nearest first (the closest kernel's order); nothing on
-the frame path calls it.
+The kernel reads the table as 256-byte node records
+(`wide8.node_records`, cached as `TwoLevelFlat.w8_rec`) and tests
+triangles without a division until one passes
+(traversal_skip.moller_scaled mirrors that test for the tests).
+`visit_counts` counts a batch's visits per ray in the plain walk's
+order and nearest first (the closest kernel's order); nothing on the
+frame path calls it.
 
 `trace` takes the plain version only for CPU tensors; CUDA tensors
 always launch the kernel (and raise if it fails).
@@ -81,7 +82,7 @@ def trace_kernel(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
         occ = torch.empty(n, dtype=torch.bool, device=dev)
         outs = [None, None, None, None, None, occ.data_ptr()]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = build.stream(dev)
         rc = lib.hrt_tlas8_trace(
             *[p.data_ptr() for p in planes], n, tl.w8_rec.data_ptr(),
             tl.tris.data_ptr(), tf.data_ptr(), roots.data_ptr(),
@@ -90,18 +91,6 @@ def trace_kernel(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
     build.check(rc, "tlas8_trace")
     LAUNCHES["closest" if find_closest else "any_hit"] += 1
     return (t, tri, inst, u, v) if find_closest else occ
-
-
-def node_records(w8_nodes: torch.Tensor) -> torch.Tensor:
-    """The kernel's node records: the (R, 8, 128) BVH8 table repacked on
-    its device as an (R * 16, 64) int32 array, row q holding wide node
-    q's 8 child records of 8 words in slot order, so that a node is 256
-    contiguous bytes (in the table, child j of node q lies at
-    (q // 16) * 1024 + j * 128 + (q % 16) * 8, 512 bytes from child
-    j + 1)."""
-    r = w8_nodes.shape[0]
-    return (w8_nodes.reshape(r, 8, 16, 8).permute(0, 2, 1, 3)
-            .reshape(r * 16, 64).contiguous())
 
 
 def _rank(low):

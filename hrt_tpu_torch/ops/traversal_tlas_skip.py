@@ -77,7 +77,7 @@ def trace_kernel(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
         occ = torch.empty(n, dtype=torch.bool, device=dev)
         outs = [None, None, None, None, None, occ.data_ptr()]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = build.stream(dev)
         rc = lib.hrt_tlas_skip_trace(
             *[p.data_ptr() for p in planes], n, tl.skip_rec.data_ptr(),
             tl.tris.data_ptr(), tf.data_ptr(), tl.blas_base.data_ptr(),

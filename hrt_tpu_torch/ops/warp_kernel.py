@@ -55,7 +55,7 @@ def warp_bilinear_kernel(img, px, py):
     val = torch.empty((ho, wo, c), dtype=torch.float32, device=dev)
     valid = torch.empty((ho, wo), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = build.stream(dev)
         rc = build.load().hrt_warp_bilinear(
             img.data_ptr(), hs, ws, c, sy, sx, sc, px.data_ptr(),
             py.data_ptr(), ho * wo, val.data_ptr(), valid.data_ptr(),

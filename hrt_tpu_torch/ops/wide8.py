@@ -18,10 +18,14 @@ Wide ids are BFS with the children of a node contiguous, ordered by
 (depth, parent id, slot); slots are leaf-first, then internal, then
 empty.  The leaf pool is reordered so a node's leaf children are
 contiguous in slot order (`old_of_new`).
+
+The walks on the card (K1, K4) read the same words node by node
+(`node_records`).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 ARITY = 8
 NODES_PER_ROW = 16
@@ -143,6 +147,18 @@ def build_wide8(child_l, child_r, bmin_l, bmax_l, bmin_r, bmax_r,
     records = v.reshape(r, NODES_PER_ROW, ARITY, ARITY) \
         .transpose(0, 2, 1, 3).reshape(r, ARITY, 128)
     return np.ascontiguousarray(records), old_of_new
+
+
+def node_records(records: torch.Tensor) -> torch.Tensor:
+    """The kernels' node records: an (R, 8, 128) record table repacked
+    on its device as an (R * 16, 64) int32 array, row q holding wide node
+    q's 8 child records of 8 words in slot order, so that a node is 256
+    contiguous bytes (in the table, child j of node q lies at
+    (q // 16) * 1024 + j * 128 + (q % 16) * 8, 512 bytes from child
+    j + 1)."""
+    r = records.shape[0]
+    return (records.reshape(r, ARITY, NODES_PER_ROW, ARITY)
+            .permute(0, 2, 1, 3).reshape(r * NODES_PER_ROW, 64).contiguous())
 
 
 def node_depths(records: np.ndarray) -> np.ndarray:

@@ -15,7 +15,7 @@ import torch
 
 from ..models.scene import SceneData
 from ..models.upscaler import TemporalUpscalerNet, UpscalerNet
-from ..ops import tlas, traversal_skip, traversal_tlas8, wide8
+from ..ops import tlas, traversal_skip, wide8
 from ..ops.lbvh import Accel, make_accel, tri_table
 
 
@@ -74,7 +74,7 @@ def two_level_from_numpy(d: dict, device) -> tlas.TwoLevelFlat:
         blas_depth = int(depth[tlas_nw:].max())
         tlas.check_depths(tlas_depth, blas_depth)
         route = dict(w8_nodes=dev(rec),
-                     w8_rec=traversal_tlas8.node_records(dev(rec)),
+                     w8_rec=wide8.node_records(dev(rec)),
                      w8_root=dev(np.asarray(d["w8_root"], np.int32)),
                      w8_tlas_nw=tlas_nw, tlas_depth=tlas_depth,
                      blas_depth=blas_depth)

@@ -15,7 +15,7 @@ from hrt_tpu_torch.models.camera import Camera
 from hrt_tpu_torch.models.materials import MatP
 from hrt_tpu_torch.models.scene import bench_scene, instance_grid_scene
 from hrt_tpu_torch.ops import (lbvh, shade_kernel, tlas, traversal_tlas8,
-                               traversal_wide8)
+                               traversal_wide8, wide8)
 from hrt_tpu_torch.ops.intersect import (any_hit_bruteforce,
                                          closest_hit_bruteforce)
 from hrt_tpu_torch.ops.v3 import V3
@@ -43,12 +43,14 @@ def _rays(seed, n, device):
     return t(o), t(d)
 
 
-@pytest.mark.parametrize("closest", [True, False])
-def test_bvh8_kernel_matches_plain_and_bruteforce(cuda, closest):
+def _check_bvh8(cuda, leaf: int, n: int, closest: bool):
+    """K1 on n rays over the bench scene's SAH tree with `leaf`-triangle
+    leaves against its plain walk and brute force; every 17th ray is
+    dead and stays so."""
     scene = bench_scene().build(cuda)
-    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
-    o, d = _rays(3, 4096, cuda)
-    tmax = torch.full((4096,), 1e32 if closest else 5.0, device=cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=leaf)
+    o, d = _rays(3, n, cuda)
+    tmax = torch.full((n,), 1e32 if closest else 5.0, device=cuda)
     tmax[::17] = -1.0                                   # dead rays
     planes = (*o.T.contiguous(), *d.T.contiguous(), tmax)
     before = traversal_wide8.LAUNCHES["closest" if closest else "any_hit"]
@@ -77,6 +79,78 @@ def test_bvh8_kernel_matches_plain_and_bruteforce(cuda, closest):
         bocc = any_hit_bruteforce(o, d, scene.tri_v0, scene.tri_e1,
                                   scene.tri_e2, 1e-3, tmax)
         assert (k == bocc).float().mean().item() >= 0.999
+    return accel
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_bvh8_kernel_matches_plain_and_bruteforce(cuda, closest):
+    _check_bvh8(cuda, 32, 4096, closest)
+
+
+@pytest.mark.parametrize("closest", [True, False])
+@pytest.mark.parametrize("leaf", [32, 8])
+def test_bvh8_kernel_partial_warp_and_both_stacks(cuda, leaf, closest):
+    """4093 rays (a partial last warp) over the frame's tree (depth 3:
+    the closest walk's 32-entry stack) and over 8-triangle leaves (depth
+    4: its 256-entry stack)."""
+    accel = _check_bvh8(cuda, leaf, 4093, closest)
+    entries = traversal_wide8.stack_entries(accel.w8_depth)
+    assert (entries <= 32) == (leaf == 32)
+
+
+def _brdf_args(device, n: int, num_lights: int, rel_share: float,
+               seed: int):
+    """brdf_light_major's arguments over n rays and num_lights lights,
+    every plane strided as a frame's are: the material planes rows of a
+    transposed (n, 20) table, normals, views and light directions
+    columns of (m, 3) arrays, the relevance bytes every other byte of a
+    mask twice as long."""
+    rs = np.random.RandomState(seed)
+    tab = torch.as_tensor(rs.rand(n, 20).astype(np.float32), device=device)
+    rt = tab.T
+
+    def unit(m):
+        v = rs.normal(size=(m, 3)).astype(np.float32)
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        v = torch.as_tensor(v, device=device)
+        return V3(v[:, 0], v[:, 1], v[:, 2])
+
+    zero = torch.zeros(n, device=device)
+    mat = MatP(color=V3(rt[0], rt[1], rt[2]), subsurface=rt[3],
+               metallic=rt[4], roughness=rt[5], specular=rt[6],
+               specular_tint=rt[7], anisotropic=rt[8], sheen_tint=rt[9],
+               clearcoat=rt[10], clearcoat_gloss=rt[11],
+               emissive=V3(zero, zero, zero), emission_strength=zero,
+               ior=zero, transmission=zero)
+    rel = torch.as_tensor(rs.rand(2 * n * num_lights) < rel_share,
+                          device=device)[::2]
+    return mat, unit(n), unit(n), unit(n * num_lights), rel, num_lights
+
+
+@pytest.mark.parametrize("num_lights", [1, 2, 3])
+def test_brdf_kernel_reads_strided_planes(cuda, num_lights):
+    """K2 reads every plane in place through its element stride: within
+    rtol 1e-4 / atol 1e-6 of the plain version, zero where irrelevant,
+    finite everywhere."""
+    args = _brdf_args(cuda, 4093, num_lights, 0.7, 10 + num_lights)
+    assert args[0].metallic.stride(0) == 20 and args[1].x.stride(0) == 3 \
+        and args[4].stride(0) == 2
+    before = shade_kernel.LAUNCHES["brdf_light_major"]
+    k = shade_kernel.brdf_light_major_kernel(*args)
+    p = shade_kernel.brdf_light_major_plain(*args)
+    assert shade_kernel.LAUNCHES["brdf_light_major"] == before + 1
+    for a, b in zip(k, p):
+        assert a.shape == (4093 * num_lights,)
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+        assert (a[~args[4]] == 0).all() and torch.isfinite(a).all()
+
+
+def test_brdf_kernel_all_irrelevant_writes_zeros(cuda):
+    """A batch with no relevant element comes out exact zeros."""
+    args = _brdf_args(cuda, 4093, 3, 0.0, 9)
+    assert not args[4].any()
+    for a in shade_kernel.brdf_light_major_kernel(*args):
+        assert torch.equal(a, torch.zeros_like(a))
 
 
 def test_brdf_kernel_matches_plain(cuda):
@@ -427,7 +501,7 @@ def test_two_level_kernels_match_plain_after_refit(cuda, route, leaf,
                 tl.nodes, tl.nodes.shape[0] * 128))
         else:
             assert torch.equal(tl.w8_rec,
-                               traversal_tlas8.node_records(tl.w8_nodes))
+                               wide8.node_records(tl.w8_nodes))
         before = walk.LAUNCHES[mode]
         k = walk.trace_kernel(tl, *planes, 1e-3, closest)
         p = walk.trace_plain(tl, *planes, 1e-3, closest)
