@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from hrt_tpu_torch/csrc/, then drives the
-port's five paths.  The bench frame: the bench scene (three icospheres +
+port's paths: the five direct-lighting ones, then the path tracer.  The bench frame: the bench scene (three icospheres +
 ground plane, two point lights), SAH build with 32-triangle leaves and
 its BVH8 records, and `render_frames` of 32 frames at 512x384
 (max_depth=1, sky on), plus one 1920x1080 frame.  The instanced frame:
@@ -107,6 +107,46 @@ over the bench frame, whose history fetches run K6.  Phases:
      svgf, the upscaler forward and reproject_history alone at 1080p;
      ms/frame of the post loop at both sizes, and through the baseline
      K1 and K2 in turns
+ 24. the RNG (ops/rng.py) on the card bit-equal to the CPU on 1M words
+     (0 and 0xFFFFFFFF among them), and tests/test_rng.py's fixed
+     vectors (hash3 of six pixels, 8 PCG steps) from the card
+ 25. the bounce batches of the path_tracing frame (bench scene, depth 5,
+     jitter, Russian roulette, sorted) at 512x384, captured through
+     trace_paths' `_batches`: at depth 1 and depth 3 (most lanes retired
+     with t_max = -1) K1 closest and any hit vs their plain walks on
+     every ray, both vs brute force on 4093 rays spread over the batch
+     (retired lanes among them), K1's visits per live ray in both orders,
+     K2 vs its plain version
+ 26. path_tracing through FrameLoop at 1920x1080, depth 5, sorted: 8
+     steps; the launch counters must show 5 K1 closest, 5 K1 any-hit and
+     5 K2 launches a step and no K3; 2 steps replayed with the plain
+     versions (PSNR > 45); frame 1 sorted vs unsorted within rtol 1e-4 /
+     atol 1e-5; frames 0 and 1 finite and different
+ 27. BASELINE's whitted (depth 4, no Russian roulette) and mesh_bvh
+     frames on the Cornell box at 800x600 through K1 and K2 (launches:
+     4 and 1 of each), vs the plain frames
+ 28. the instanced (K4), culled (K3) and forest (K5) loops path-traced
+     (indirect, depth 2) at 512x384, 2 steps each: 2 closest and 2
+     any-hit launches of the route's walk a step and none of another
+     walk; each walk vs its plain version on 4093 rays of its depth-1
+     batch and of that batch's shadow rays
+ 29. animated_4k: the path_tracing frame at depth 3, 1920x1080, sorted,
+     then SVGF and the temporal 2x upscaler (3840x2160), 4 steps along
+     the moving camera; per step 3 K1 closest, 3 K1 any-hit, 3 K2 and 2
+     K6 launches; step 1 vs its plain replay (PSNR > 45); peak memory
+ 30. times (CUDA events, median of 7): ms/frame and Mray/s (bench.py's
+     count: pixels x spp x (1 + lights) x depth) of path_tracing at both
+     sizes, sorted and unsorted, and of animated_4k; K1 closest, any hit
+     and K2 on every depth's batch of the 1080p frame (10 calls per
+     sample, one call alone beside), their plain versions and bounds,
+     K1's visits; K1 on the depth-1 and depth-3 batches unsorted; the
+     sort's own time (key, torch.sort, the gathers);
+     the card's busy share of one 1080p path_tracing step
+     (torch.profiler, once)
+
+Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
+through K1 and K2, held off the image diagonals where the box's wall
+edges tie.  Each phase prints the seconds it took.
 
 Every kernel line carries its bound: the larger of the bytes it must
 move (each input read once, each output written once) over 3.35 TB/s
@@ -132,7 +172,9 @@ built into their own library at phase 2.  A plain checkout has none,
 and the comparisons are skipped.
 
 Exits non-zero, printing no result, without a CUDA device or when any
-check fails.  The line before the last is the kernels JSON; the last is
+check fails.  The line before the last is the kernels JSON (the six
+kernels on the direct-lighting paths, then K1's two modes and K2 on the
+path_tracing frame, one frame's five launches each); the last is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -146,6 +188,14 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_CAM = dict(position=(0.0, -1.0, -6.0), rotation=(-0.15, 0.0, 0.0))
+# scripts/bench_full.py's camera of the Cornell box frames.
+CORNELL_CAM = dict(position=(0.0, 0.0, -3.2), fov_y=0.7)
+# The path-traced phases' frame sizes (width, height): the small one, the
+# full one (BASELINE's path_tracing and animated_4k render size), and the
+# Cornell box frames' (whitted, mesh_bvh).
+PT_SMALL = (512, 384)
+PT_FULL = (1920, 1080)
+PT_CORNELL = (800, 600)
 K1_SOURCE = "hrt_tpu_torch/csrc/bvh8_trace.cu"
 K1_REPLACES = "hrt_tpu/ops/traversal_wide8.py:679"
 K2_SOURCE = "hrt_tpu_torch/csrc/brdf_light_major.cu"
@@ -190,6 +240,24 @@ class Smoke:
         print(f"  [{'ok' if ok else 'FAIL'}] {what}", flush=True)
         if not ok:
             self.failures.append(what)
+
+
+_PHASE = {"name": "", "t0": 0.0}
+
+
+def phase(title: str) -> None:
+    """Print a phase's heading, after the seconds the previous phase
+    took."""
+    end_phase()
+    print(title, flush=True)
+    _PHASE.update(name=title.split(":")[0], t0=time.perf_counter())
+
+
+def end_phase() -> None:
+    if _PHASE["name"]:
+        print(f"  ({_PHASE['name']} took "
+              f"{time.perf_counter() - _PHASE['t0']:.1f} s)", flush=True)
+        _PHASE["name"] = ""
 
 
 def time_ms(fn, reps: int = 7, calls: int = 1) -> float:
@@ -452,6 +520,27 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def walk_bytes(planes, out_bytes: int) -> int:
+    """The bytes a walk must move for a batch (its seven ray planes): a
+    live ray's 28 bytes, a retired ray's t_max alone (t_max < 0 drops
+    it), and `out_bytes` of result for every ray.  The tables are
+    counted apart."""
+    n = planes[6].numel()
+    live = int((planes[6] >= 0).sum())
+    return live * 28 + (n - live) * 4 + n * out_bytes
+
+
+def k2_bytes(args) -> int:
+    """The bytes K2 must move for its arguments (brdf_light_major's):
+    every element's relevance byte and its three output floats, the 18
+    per-ray planes of a ray with any relevant light, and a relevant
+    element's light direction."""
+    rel = args[4]
+    nl = args[5]
+    rays = int(rel.view(nl, -1).any(0).sum())
+    return rel.numel() * (1 + 12) + rays * 18 * 4 + int(rel.sum()) * 12
+
+
 def bound(n_bytes: float, ops: float = 0.0):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the float32 operations over the peak rate."""
@@ -665,17 +754,19 @@ def reset(*counters) -> None:
             c[key] = 0
 
 
-def check_closest(sm: Smoke, label: str, k, p) -> float:
+def check_closest(sm: Smoke, label: str, k, p,
+                  min_hits: float = 0.3) -> float:
     """Closest hits of a kernel `k` against another walk `p`, as tuples
     (t, tri, u, v) or (t, tri, inst, u, v): ids (and instance ids) agree
-    on >= 0.999 of rays and t within rel err 1e-4 where they do.
-    Returns the max abs t error there."""
+    on >= 0.999 of rays, more than `min_hits` of the rays hit, and t
+    within rel err 1e-4 where they agree.  Returns the max abs t error
+    there."""
     same = k[1] == p[1]
     if len(k) == 5:
         same &= k[2] == p[2]
     hit = same & (k[1] >= 0)
     share, hits = float(same.float().mean()), float(hit.float().mean())
-    sm.check(share >= 0.999 and hits > 0.3,
+    sm.check(share >= 0.999 and hits > min_hits,
              f"{label}: closest ids agree on {share:.6f} of "
              f"{k[1].numel()} rays ({hits:.3f} hit)")
     if not bool(hit.any()):
@@ -722,12 +813,13 @@ def frame_batches(scene, accel, cams, cfg):
     return prim, shadow, k2_args
 
 
-def run_post_loop(dev, cfg, steps: int):
+def run_post_loop(dev, cfg, steps: int, replay: int | None = None):
     """A post FrameLoop on the bench scene along post_cam, through the
-    kernels, then the same loop replayed with the plain versions.  The
-    counters are set to 0 just before the kernel loop and read just
-    after it.  Returns (per-step launch deltas, totals, peak bytes, last
-    kernel frame, last plain frame, the kernel loop)."""
+    kernels, then its first `replay` steps (all by default) replayed
+    with the plain versions.  The counters are set to 0 just before the
+    kernel loop and read just after it.  Returns (per-step launch
+    deltas, totals, peak bytes, the kernel frame and the plain frame of
+    the last replayed step, the kernel loop)."""
     import torch
 
     from hrt_tpu_torch.frameloop import FrameLoop
@@ -747,15 +839,18 @@ def run_post_loop(dev, cfg, steps: int):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset(k6.LAUNCHES, k1.LAUNCHES, k3.LAUNCHES, shade_kernel.LAUNCHES)
+    replay = steps if replay is None else replay
     deltas = []
     for f in range(steps):
         before = counts()
-        img = loop.step(post_cam(f))
+        out = loop.step(post_cam(f))
+        if f == replay - 1:
+            img = out
         deltas.append({k: v - before[k] for k, v in counts().items()})
     torch.cuda.synchronize()
     totals = counts()
     peak = torch.cuda.max_memory_allocated()
-    for f in range(steps):
+    for f in range(replay):
         ref = ref_loop.step(post_cam(f), plain=True)
     torch.cuda.synchronize()
     return deltas, totals, peak, img, ref, loop
@@ -780,8 +875,8 @@ def post_phases(sm: Smoke, dev, baseline=None) -> dict:
                 upscale_mode="temporal")
     full_cfg = RenderConfig(width=1920, height=1080, **post)
 
-    print("phase 20: K6 vs its plain version and grid_sample on a "
-          "moving-camera post frame's inputs", flush=True)
+    phase("phase 20: K6 vs its plain version and grid_sample on a "
+          "moving-camera post frame's inputs")
     wloop = FrameLoop(bench_scene(), full_cfg, device=dev)
     for f in range(2):
         wloop.step(post_cam(f))
@@ -834,9 +929,9 @@ def post_phases(sm: Smoke, dev, baseline=None) -> dict:
         del kv, pv, scale, gs
 
     results = {}
-    for phase, (w, h, steps) in ((21, (512, 384, 8)), (22, (1920, 1080, 4))):
-        print(f"phase {phase}: post FrameLoop, {steps} steps at {w}x{h} -> "
-              f"{2 * w}x{2 * h} along the moving camera", flush=True)
+    for ph, (w, h, steps) in ((21, (512, 384, 8)), (22, (1920, 1080, 4))):
+        phase(f"phase {ph}: post FrameLoop, {steps} steps at {w}x{h} -> "
+              f"{2 * w}x{2 * h} along the moving camera")
         cfg = RenderConfig(width=w, height=h, **post)
         deltas, totals, peak, img, ref, loop = run_post_loop(dev, cfg, steps)
         want = {"k6": 2, "k1_closest": 1, "k1_any_hit": 1, "k2": 1, "k3": 0}
@@ -850,8 +945,8 @@ def post_phases(sm: Smoke, dev, baseline=None) -> dict:
         sm.check(p > 45.0, f"last frame vs the plain replay PSNR {p:.2f}")
         print(f"  peak memory of the kernel loop: {peak / 2**30:.3f} GiB",
               flush=True)
-        results[phase] = dict(totals=totals, loop=loop, steps=steps)
-        if phase == 21:
+        results[ph] = dict(totals=totals, loop=loop, steps=steps)
+        if ph == 21:
             for mode, kw in (("spatial", dict(upscale_mode="spatial")),
                              ("denoise-only", dict(upscale=1))):
                 c = RenderConfig(width=w, height=h, **{**post, **kw})
@@ -867,9 +962,8 @@ def post_phases(sm: Smoke, dev, baseline=None) -> dict:
                          "K6 launch (SVGF)")
         del ref
 
-    print("phase 23: post times (CUDA events, median of 7; K6, its plain "
-          "version, grid_sample and the baseline K6 10 calls per sample)",
-          flush=True)
+    phase("phase 23: post times (CUDA events, median of 7; K6, its plain "
+          "version, grid_sample and the baseline K6 10 calls per sample)")
     t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for label, (img, px, py) in shapes.items():
         src, grid = grids[label]
@@ -918,9 +1012,9 @@ def post_phases(sm: Smoke, dev, baseline=None) -> dict:
             wloop.net, w_img, hist)}
     for key, fn in stages.items():
         print(f"  {key} at 1920x1080: {time_ms(fn):.4f} ms", flush=True)
-    for phase, size in ((21, "512x384"), (22, "1920x1080")):
-        r = results[phase]
-        k = 4 if phase == 21 else 1
+    for ph, size in ((21, "512x384"), (22, "1920x1080")):
+        r = results[ph]
+        k = 4 if ph == 21 else 1
         nxt = [r["steps"]]
 
         def steps_k(loop=r["loop"], k=k, nxt=nxt):
@@ -954,7 +1048,7 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
     from hrt_tpu_torch.ops import traversal_wide8 as k1
     from hrt_tpu_torch.ops.v3 import V3
 
-    print("phase 3: scene + accel", flush=True)
+    phase("phase 3: scene + accel")
     t0 = time.perf_counter()
     scene = bench_scene().build(dev)
     accel = lbvh.build_bvh_sah(scene, leaf_size=32)
@@ -974,8 +1068,8 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
     nl = scene.lights.shape[0]
     k1_ops = {}
 
-    print(f"phase 4: K1 on the frame's batches ({n} primary, {ns} shadow "
-          "rays)", flush=True)
+    phase(f"phase 4: K1 on the frame's batches ({n} primary, {ns} shadow "
+          "rays)")
     kc = k1.trace_kernel(accel, *prim, cfg.t_min, True)
     k1c_err = check_closest(sm, "K1 vs plain", kc,
                             k1.trace_plain(accel, *prim, cfg.t_min, True))
@@ -1028,8 +1122,7 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
         k1_ops[key] = walk_ops(k1, accel, planes, cfg.t_min, closest,
                                f"K1 {key[3:]} 512x384")
 
-    print(f"phase 5: K2 on the frame's light-major batch ({ns})",
-          flush=True)
+    phase(f"phase 5: K2 on the frame's light-major batch ({ns})")
     mat, nrm, view, l_lm, rel, _ = k2_args
     print(f"  plane element strides: material {mat.color.x.stride(0)}, "
           f"normal {nrm.x.stride(0)}, view {view.x.stride(0)}, light "
@@ -1044,7 +1137,7 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
                            V3(*(torch.cat([a, b]) for a, b in zip(l_lm, l3))),
                            torch.cat([rel, one(rel, 0) & one(rel, 1)]), 3))
 
-    print("phase 6: render_frames x32 at 512x384", flush=True)
+    phase("phase 6: render_frames x32 at 512x384")
     reset(k1.LAUNCHES, shade_kernel.LAUNCHES)
     imgs = renderer.render_frames(scene, accel, cams, 0, 32, cfg)
     torch.cuda.synchronize()
@@ -1063,7 +1156,7 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
     sm.check(p512 > 45.0, f"kernel frame vs plain frame PSNR {p512:.2f}")
     del imgs, ref
 
-    print("phase 7: one 1920x1080 frame", flush=True)
+    phase("phase 7: one 1920x1080 frame")
     cfg_hd = RenderConfig(width=1920, height=1080, max_depth=1, sky=True,
                           traversal="auto")
     cams_hd = renderer.camera_arrays(Camera(**BENCH_CAM), cfg_hd, dev)
@@ -1089,7 +1182,7 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
         k1_ops[key] = walk_ops(k1, accel, planes, cfg.t_min, closest,
                                f"K1 {key[3:-6]} 1920x1080")
 
-    print("phase 8: golden frames at 64x48 through the kernels", flush=True)
+    phase("phase 8: golden frames at 64x48 through the kernels")
     goldens = {
         "bench_direct": (bench_scene(), Camera(**BENCH_CAM), True),
         "demo_parity": (reference_demo_scene(), Camera(), False),
@@ -1108,11 +1201,37 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
                  and gold_psnr[gname] > 45.0,
                  f"{gname}: kernel frame vs golden PSNR "
                  f"{gold_psnr[gname]:.2f}")
+    # cornell_gi: the Cornell box at depth 3 with bounces and Russian
+    # roulette, through the kernels at every depth.  Its walls meet on
+    # edges that the golden camera's unjittered rays hit exactly along
+    # the image diagonals |px - 32| = |py - 24|, where two walls tie in t
+    # and rounding picks one (JAX's own frame on another walk differs
+    # from the golden there): held off those diagonals.
+    from hrt_tpu_torch.models.scenefile import cornell_box
 
-    print("phase 9: K1 and K2 times (CUDA events, median of 7; the kernels "
+    c_scene = cornell_box().build(dev)
+    c_accel = lbvh.build_bvh_sah(c_scene, leaf_size=32)
+    c_cfg = RenderConfig(width=64, height=48, max_depth=3, indirect=True)
+    before = k1.LAUNCHES["closest"]
+    img = torch.as_tensor(renderer.render(c_scene, Camera(**CORNELL_CAM),
+                                          c_cfg, c_accel))
+    gold = torch.as_tensor(np.load(os.path.join(
+        ROOT, "tests", "goldens", "cornell_gi.npz"))["image"])
+    py, px = np.mgrid[0:48, 0:64]
+    tie = torch.as_tensor(np.abs(px - 32) == np.abs(py - 24))
+    off = (img - gold).abs().amax(-1) > 1e-3
+    gold_psnr["cornell_gi"] = psnr4(img[~tie], gold[~tie])
+    sm.check(k1.LAUNCHES["closest"] == before + 3
+             and gold_psnr["cornell_gi"] > 45.0 and not bool((off & ~tie)
+                                                             .any()),
+             f"cornell_gi: kernel frame vs golden PSNR "
+             f"{gold_psnr['cornell_gi']:.2f} off the {int(tie.sum())} "
+             f"edge-tie pixels, none off them beyond 1e-3 (whole frame "
+             f"{psnr4(img, gold):.2f}, {int(off.sum())} pixels beyond 1e-3)")
+
+    phase("phase 9: K1 and K2 times (CUDA events, median of 7; the kernels "
           "10 calls per sample, one call alone beside; the plain walks 3 "
-          "samples), against the baseline ones in turns; frames",
-          flush=True)
+          "samples), against the baseline ones in turns; frames")
     times = {}
     for size, (pr, sh, ka2) in (("", (prim, shadow, k2_args)),
                                 ("_1080p", (prim_hd, shadow_hd, k2_hd))):
@@ -1140,24 +1259,23 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
                                                          cfg_hd),
                           "bench frame 1920x1080, 1 frame")
     # Rays, shadow rays and relevant BRDF elements of the two sizes.
-    sizes = {"": (n, ns, int(rel.sum())),
-             "_1080p": (prim_hd[0].numel(), shadow_hd[0].numel(),
-                        int(k2_hd[4].sum()))}
+    sizes = {"": (walk_bytes(prim, 16), walk_bytes(shadow, 1),
+                  k2_bytes(k2_args), int(rel.sum())),
+             "_1080p": (walk_bytes(prim_hd, 16), walk_bytes(shadow_hd, 1),
+                        k2_bytes(k2_hd), int(k2_hd[4].sum()))}
     del prim_hd, shadow_hd, k2_hd
 
-    # K1's and K2's bounds: rays in (7 planes) and hits out (t, tri, u, v;
-    # a byte of occlusion), the tables the walk reads once; the BRDF's 18
-    # per-ray planes and 3 light planes in, a relevance byte and 3 planes
-    # out per element.
+    # K1's and K2's bounds: the bytes walk_bytes (hits out: t, tri, u, v;
+    # a byte of occlusion) and k2_bytes count, the tables the walk reads
+    # once.
     w8_tab = nbytes(accel.w8_rec, accel.tris)
     bounds = {}
-    for size, (nr, nsr, n_rel) in sizes.items():
-        work = {"k1_closest": (w8_tab + nr * (28 + 16),
+    for size, (c_bytes, a_bytes, b_bytes, n_rel) in sizes.items():
+        work = {"k1_closest": (w8_tab + c_bytes,
                                k1_ops["k1_closest" + size]),
-                "k1_any_hit": (w8_tab + nsr * (28 + 1),
+                "k1_any_hit": (w8_tab + a_bytes,
                                k1_ops["k1_any_hit" + size]),
-                "k2": (18 * 4 * nr + nsr * (12 + 1 + 12),
-                       n_rel * K2_OPS_PER_ELEMENT)}
+                "k2": (b_bytes, n_rel * K2_OPS_PER_ELEMENT)}
         for key, (n_bytes, ops) in work.items():
             bounds[key + size] = bound(n_bytes, ops)
             print(f"  {key + size} bound: bytes {bound(n_bytes)[0]:.6f} ms "
@@ -1166,6 +1284,555 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
     return {"times": times, "launches": launches, "bounds": bounds,
             "errs": {"k1_closest": k1c_err, "k1_any_hit": k1a_err,
                      "k2": k2_err}}
+
+
+def py_hash3(x: int, y: int, z: int) -> int:
+    """shaders/random.slang's hash, in Python integers (as
+    tests/test_rng.py reimplements it)."""
+    m = 0xFFFFFFFF
+    p1, p2, p3, p4 = 2246822519, 3266489917, 668265263, 374761393
+    h = (z + p4 + x * p2) & m
+    h = (p3 * (((h << 17) | (h >> 15)) & m)) & m
+    h = (h + y * p2) & m
+    h = (p3 * (((h << 17) | (h >> 15)) & m)) & m
+    h = (p1 * (h ^ (h >> 15))) & m
+    h = (p2 * (h ^ (h >> 13))) & m
+    return h ^ (h >> 16)
+
+
+def py_pcg(state: int):
+    """shaders/random.slang's PCG step -> (word, new state)."""
+    m = 0xFFFFFFFF
+    prev = (state * 747796405 + 2891336453) & m
+    word = ((((prev >> ((prev >> 28) + 4)) & m) ^ prev) * 277803737) & m
+    return ((word >> 22) ^ word) & m, prev
+
+
+def rng_phase(sm: Smoke, dev) -> None:
+    """Phase 24: the RNG on the card against the CPU, bit for bit, and
+    the fixed vectors of tests/test_rng.py."""
+    import torch
+
+    from hrt_tpu_torch.ops import rng
+
+    phase("phase 24: the RNG on the card (1M words with 0 and 0xFFFFFFFF) "
+          "against the CPU, and tests/test_rng.py's fixed vectors")
+    g = torch.Generator().manual_seed(24)
+    w = torch.randint(0, 2**32, (1 << 20,), dtype=torch.int64, generator=g)
+    w[:4] = torch.tensor([0, 0xFFFFFFFF, 1, 0xFFFFFFFE])
+    bits = lambda u: u.view(torch.int32).to(torch.int64)
+    fns = {
+        "hash3": lambda a: rng.hash3(a, a.roll(1), a.flip(0)),
+        "pcg": lambda a: torch.stack(rng.pcg(a)),
+        "rand": lambda a: torch.stack([bits(rng.rand(a)[0]), rng.rand(a)[1]]),
+        "rand2": lambda a: torch.stack([bits(x) for x in rng.rand2(a)[:2]]
+                                       + [rng.rand2(a)[2]]),
+        "pixel_seed": lambda a: torch.stack([rng.pixel_seed(a, a.roll(3), f)
+                                             for f in (0, 1, 0xFFFFFFFF)])}
+    for name, fn in fns.items():
+        card = fn(w.to(dev)).cpu()
+        sm.check(torch.equal(card, fn(w)), f"{name} on the card bit-equal to "
+                 f"the CPU on {w.numel()} words")
+    xs = [0, 1, 2, 123, 799, 2**31]
+    ys = [0, 5, 599, 7, 12, 99]
+    zs = [0, 0, 1, 2, 3, 1000]
+    t = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
+    got = rng.hash3(t(xs), t(ys), t(zs)).cpu().tolist()
+    want = [py_hash3(x, y, z) for x, y, z in zip(xs, ys, zs)]
+    ok = got == want
+    state, card_state = 12345, t([12345])
+    for _ in range(8):
+        want_word, state = py_pcg(state)
+        word, card_state = rng.pcg(card_state)
+        ok &= int(word) == want_word and int(card_state) == state
+    sm.check(ok, "fixed vectors on the card: hash3 of six pixels and 8 PCG "
+             "steps from 12345 as shaders/random.slang")
+
+
+def batch_planes(b: dict, scene, cfg):
+    """One depth's captured batch (trace_paths' _batches): its closest-hit
+    planes (seven), its light-major shadow planes (seven) and K2's
+    arguments, as the frame built them."""
+    import torch
+
+    from hrt_tpu_torch import renderer
+
+    o, d, sh = b["o"], b["d"], b["hits"]
+    n = o.x.numel()
+    tmax = torch.broadcast_to(torch.as_tensor(
+        b["t_max"], dtype=torch.float32, device=o.x.device), (n,)).contiguous()
+    lb = renderer.light_batch(scene, sh.normal, sh.world_pos, cfg,
+                              ray_mask=sh.hit)
+    shadow = (*lb.origin, *lb.l, lb.t_max)
+    k2 = (sh.mat, sh.normal, sh.view, lb.l, lb.relevant,
+          scene.lights.shape[0])
+    return (*o, *d, tmax), shadow, k2
+
+
+def capture_batches(scene, accel, cams, cfg, frame: int) -> list:
+    """Every depth's batch of one frame through the kernels."""
+    from hrt_tpu_torch import renderer
+
+    batches = []
+    renderer.render_rows(scene, accel, cams, 0, cfg.height, cfg, frame=frame,
+                         _batches=batches)
+    return batches
+
+
+def strided(n: int, m: int, dev):
+    """m ray indices spread over a batch of n (a sorted batch's retired
+    rays, at its end, among them)."""
+    import torch
+
+    return torch.linspace(0, n - 1, m, device=dev).long()
+
+
+def bounce_phase(sm: Smoke, dev, scene, accel) -> None:
+    """Phase 25: K1 and K2 on the bounce batches of the path_tracing frame
+    at 512x384."""
+    import dataclasses
+
+    import torch
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.config import CONFIGS
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.ops import intersect
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    w, h = PT_SMALL
+    cfg = dataclasses.replace(CONFIGS["path_tracing"], width=w, height=h,
+                              sort_bounces=True)
+    phase(f"phase 25: K1 and K2 on the bounce batches of the path_tracing "
+          f"frame at {w}x{h} (sorted, frame 1): kernel vs plain on all rays, "
+          "both vs brute force on 4093 rays with retired lanes among them")
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, dev)
+    batches = capture_batches(scene, accel, cams, cfg, frame=1)
+    for depth in (1, 3):
+        prim, shadow, k2 = batch_planes(batches[depth], scene, cfg)
+        n, ns = prim[0].numel(), shadow[0].numel()
+        live = float((prim[6] >= 0).float().mean())
+        print(f"  depth {depth}: {n} rays, {live:.4f} live; {ns} shadow rays, "
+              f"{float((shadow[6] >= 0).float().mean()):.4f} live",
+              flush=True)
+        label = f"K1 vs plain, depth-{depth} bounce batch"
+        kc = k1.trace_kernel(accel, *prim, cfg.t_min, True)
+        pc = k1.trace_plain(accel, *prim, cfg.t_min, True)
+        check_closest(sm, label, kc, pc, min_hits=0.01 * live)
+        ka = k1.trace_kernel(accel, *shadow, cfg.t_min, False)
+        pa = k1.trace_plain(accel, *shadow, cfg.t_min, False)
+        check_occlusion(sm, label, ka, pa)
+        sub = strided(n, 4093, dev)
+        bt, bi, _, _ = intersect.closest_hit_bruteforce(
+            torch.stack(prim[0:3], 1)[sub], torch.stack(prim[3:6], 1)[sub],
+            scene.tri_v0, scene.tri_e1, scene.tri_e2, cfg.t_min)
+        dead = prim[6][sub] < 0
+        bi = torch.where(dead, -1, bi)
+        ssub = strided(ns, 4093, dev)
+        bocc = intersect.any_hit_bruteforce(
+            torch.stack(shadow[0:3], 1)[ssub],
+            torch.stack(shadow[3:6], 1)[ssub], scene.tri_v0, scene.tri_e1,
+            scene.tri_e2, cfg.t_min, shadow[6][ssub])
+        for who, (tt, ids), occ in (("kernel", kc[:2], ka), ("plain", pc[:2],
+                                                           pa)):
+            ids = ids[sub]
+            orig = torch.where(ids >= 0,
+                               accel.tri_perm[ids.clamp(min=0).long()], -1)
+            tie = (orig >= 0) & (bi >= 0) & (
+                (tt[sub] - bt).abs() <= 1e-5 * bt.abs())
+            a = float(((orig == bi) | tie).float().mean())
+            sm.check(a >= 0.999 and bool((ids[dead] < 0).all()),
+                     f"depth {depth}: closest {who} vs brute force on 4093 "
+                     f"rays ({int(dead.sum())} retired, all missing): {a:.6f}")
+            a = float((occ[ssub] == bocc).float().mean())
+            sm.check(a >= 0.999, f"depth {depth}: any-hit {who} vs brute "
+                     f"force on 4093 shadow rays: {a:.6f}")
+        for key, planes, closest in (("closest", prim, True),
+                                     ("any-hit", shadow, False)):
+            ops = walk_ops(k1, accel, planes, cfg.t_min, closest,
+                           f"K1 {key} depth-{depth} bounce batch {w}x{h}")
+            print(f"    operation bound {bound(0, ops)[0]:.6f} ms",
+                  flush=True)
+        k2_check(sm, f"depth-{depth} bounce batch", k2)
+        del kc, pc, ka, pa
+
+
+def path_loop_phase(sm: Smoke, dev) -> dict:
+    """Phase 26: the path_tracing config through FrameLoop at 1920x1080,
+    depth 5, sorted: 8 steps through the kernels, 2 replayed with the
+    plain versions, the same frame unsorted.  Returns the launch totals
+    and the loop."""
+    import dataclasses
+
+    import torch
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.config import CONFIGS
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.models.scene import bench_scene
+    from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    cfg = dataclasses.replace(CONFIGS["path_tracing"], width=PT_FULL[0],
+                              height=PT_FULL[1], sort_bounces=True)
+    phase(f"phase 26: path_tracing through FrameLoop at {cfg.width}x"
+          f"{cfg.height}, depth {cfg.max_depth}, sorted, 8 steps; 2 replayed "
+          "with the plain versions; the frame unsorted")
+    cam = Camera(**BENCH_CAM)
+
+    def counts():
+        return {"k1_closest": k1.LAUNCHES["closest"],
+                "k1_any_hit": k1.LAUNCHES["any_hit"],
+                "k2": shade_kernel.LAUNCHES["brdf_light_major"],
+                "k3": k3.LAUNCHES["closest"] + k3.LAUNCHES["any_hit"]}
+
+    loop = FrameLoop(bench_scene(), cfg, device=dev)
+    ref_loop = FrameLoop(bench_scene(), cfg, device=dev)
+    torch.cuda.synchronize()
+    reset(k1.LAUNCHES, k3.LAUNCHES, shade_kernel.LAUNCHES)
+    deltas, imgs = [], []
+    for f in range(8):
+        before = counts()
+        imgs.append(loop.step(cam))
+        deltas.append({k: v - before[k] for k, v in counts().items()})
+    torch.cuda.synchronize()
+    totals = counts()
+    d = cfg.max_depth
+    want = {"k1_closest": d, "k1_any_hit": d, "k2": d, "k3": 0}
+    sm.check(all(x == want for x in deltas) and loop.frame == 8,
+             f"launches per step {deltas[-1]} on all 8 steps, totals {totals}")
+    sm.check(all(bool(torch.isfinite(x).all()) for x in imgs)
+             and tuple(imgs[-1].shape) == (cfg.height, cfg.width, 3),
+             f"8 accumulated frames {tuple(imgs[-1].shape)} finite")
+    for f in range(2):
+        ref = ref_loop.step(cam, plain=True)
+    p = psnr4(imgs[1], ref)
+    sm.check(p > 45.0, f"step 2 (the mean of frames 0 and 1) vs the plain "
+             f"replay PSNR {p:.2f}")
+    del ref, ref_loop
+    cams = renderer.camera_arrays(cam, cfg, dev)
+    two = renderer.render_frames(loop.scene, loop.accel, cams, 0, 2, cfg)
+    uns = renderer.render_frames(loop.scene, loop.accel, cams, 1, 1,
+                                 dataclasses.replace(cfg, sort_bounces=False))
+    close = torch.isclose(two[1], uns[0], rtol=1e-4, atol=1e-5)
+    sm.check(bool(close.all()), f"frame 1 sorted vs unsorted within rtol "
+             f"1e-4 / atol 1e-5 on {float(close.float().mean()):.6f} of "
+             f"values (max abs diff {float((two[1] - uns[0]).abs().max()):.3g})")
+    diff = float((two[0] - two[1]).abs().mean())
+    sm.check(bool(torch.isfinite(two).all()) and diff > 0,
+             f"frames 0 and 1 finite and different (mean abs diff "
+             f"{diff:.4g})")
+    return {"totals": totals, "loop": loop}
+
+
+def cornell_phase(sm: Smoke, dev) -> None:
+    """Phase 27: whitted and mesh_bvh on the Cornell box at 800x600
+    through K1 and K2, against the plain frame."""
+    import dataclasses
+
+    import torch
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.config import CONFIGS
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.models.scenefile import cornell_box
+    from hrt_tpu_torch.ops import lbvh, shade_kernel
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    phase(f"phase 27: whitted and mesh_bvh on the Cornell box at "
+          f"{PT_CORNELL[0]}x{PT_CORNELL[1]} through K1 and K2")
+    scene = cornell_box().build(dev)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    for name in ("whitted", "mesh_bvh"):
+        cfg = dataclasses.replace(CONFIGS[name], width=PT_CORNELL[0],
+                                  height=PT_CORNELL[1])
+        cams = renderer.camera_arrays(Camera(**CORNELL_CAM), cfg, dev)
+        reset(k1.LAUNCHES, shade_kernel.LAUNCHES)
+        img = renderer.render_frames(scene, accel, cams, 0, 1, cfg)[0]
+        torch.cuda.synchronize()
+        d = cfg.max_depth if cfg.indirect else 1
+        got = (k1.LAUNCHES["closest"], k1.LAUNCHES["any_hit"],
+               shade_kernel.LAUNCHES["brdf_light_major"])
+        sm.check(got == (d, d, d), f"{name}: K1 closest, any-hit and K2 "
+                 f"launches {got}, {d} each")
+        ref = renderer.render_frames(scene, accel, cams, 0, 1, cfg,
+                                     plain=True)[0]
+        p = psnr4(img, ref)
+        sm.check(bool(torch.isfinite(img).all()) and p > 45.0,
+                 f"{name}: frame {tuple(img.shape)} finite, vs the plain "
+                 f"frame PSNR {p:.2f}")
+
+
+def route_phase(sm: Smoke, dev, routes: dict) -> None:
+    """Phase 28: the instanced (K4), culled (K3) and forest (K5) loops
+    path-traced (indirect, depth 2) at 512x384, 2 steps each; each walk
+    against its plain version on 4093 rays of its depth-1 batch.
+    `routes`: walk name -> (loop, walk module, step(f))."""
+    import dataclasses
+
+    import torch
+
+    from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
+    from hrt_tpu_torch.ops import traversal_tlas8 as k4
+    from hrt_tpu_torch.ops import traversal_tlas_skip as k5
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    w, h = PT_SMALL
+    phase(f"phase 28: the instanced (K4), culled (K3) and forest (K5) loops "
+          f"with indirect=True, max_depth=2 at {w}x{h}, 2 steps each")
+    walks = {"K1": k1, "K3": k3, "K4": k4, "K5": k5}
+    for name, (loop, walk, step) in routes.items():
+        loop.set_resolution(w, h)
+        loop.config = dataclasses.replace(loop.config, indirect=True,
+                                          max_depth=2)
+        loop.reset_history()
+        ok = True
+        for f in range(2):
+            reset(shade_kernel.LAUNCHES,
+                  *(m.LAUNCHES for m in walks.values()))
+            img = step(f)
+            torch.cuda.synchronize()
+            got = {k: dict(m.LAUNCHES) for k, m in walks.items()}
+            want = {k: ({"closest": 2, "any_hit": 2} if k == name
+                        else {"closest": 0, "any_hit": 0}) for k in walks}
+            ok &= (got == want
+                   and shade_kernel.LAUNCHES["brdf_light_major"] == 2)
+        sm.check(ok, f"{name} loop: launches per step {got[name]} on both "
+                 f"steps, K2 {shade_kernel.LAUNCHES['brdf_light_major']}, no "
+                 "other walk")
+        sm.check(tuple(img.shape) == (h, w, 3)
+                 and bool(torch.isfinite(img).all()),
+                 f"{name} loop: frame {tuple(img.shape)} finite")
+        b = capture_batches(loop.scene, loop.accel, loop.prev_cams,
+                            loop.config, frame=loop.frame)
+        prim, shadow, _ = batch_planes(b[1], loop.scene, loop.config)
+        sub = strided(prim[0].numel(), 4093, dev)
+        ssub = strided(shadow[0].numel(), 4093, dev)
+        pp = [q[sub] for q in prim]
+        ps = [q[ssub] for q in shadow]
+        live = float((pp[6] >= 0).float().mean())
+        t_min = loop.config.t_min
+        check_closest(sm, f"{name} vs plain on 4093 rays of the depth-1 "
+                      f"bounce batch ({live:.3f} live)",
+                      walk.trace_kernel(loop.accel, *pp, t_min, True),
+                      walk.trace_plain(loop.accel, *pp, t_min, True),
+                      min_hits=0.01 * live)
+        check_occlusion(sm, f"{name} vs plain on 4093 shadow rays of the "
+                        "depth-1 bounce batch",
+                        walk.trace_kernel(loop.accel, *ps, t_min, False),
+                        walk.trace_plain(loop.accel, *ps, t_min, False))
+
+
+def animated_phase(sm: Smoke, dev) -> dict:
+    """Phase 29: animated_4k (the path_tracing frame at depth 3, SVGF and
+    the temporal 2x upscaler, 1080p -> 4K), 4 steps along post_cam; the
+    first replayed with the plain versions.  Returns the kernel loop and
+    its launch totals."""
+    import dataclasses
+
+    import torch
+
+    from hrt_tpu_torch.config import CONFIGS
+
+    w, h = PT_FULL
+    cfg = dataclasses.replace(CONFIGS["animated_4k"], width=w, height=h,
+                              sort_bounces=True, upscale_mode="temporal")
+    phase(f"phase 29: animated_4k, {w}x{h} depth 3 -> SVGF -> the temporal "
+          f"2x upscaler -> {2 * w}x{2 * h}, 4 steps along the moving camera")
+    deltas, totals, peak, img, ref, loop = run_post_loop(dev, cfg, 4,
+                                                         replay=1)
+    want = {"k6": 2, "k1_closest": 3, "k1_any_hit": 3, "k2": 3, "k3": 0}
+    sm.check(all(d == want for d in deltas), f"launches per step "
+             f"{deltas[-1]} on all 4 steps, totals {totals}")
+    sm.check(tuple(img.shape) == (2 * h, 2 * w, 3)
+             and bool(torch.isfinite(img).all()),
+             f"frame {tuple(img.shape)} finite")
+    p = psnr4(img, ref)
+    sm.check(p > 45.0, f"step 1 vs the plain replay PSNR {p:.2f}")
+    print(f"  peak memory of the kernel loop: {peak / 2**30:.3f} GiB",
+          flush=True)
+    return {"loop": loop, "totals": totals, "steps": 4}
+
+
+def busy_share(fn) -> None:
+    """The card's busy share of one fn() call (torch.profiler, once): the
+    device kernels' summed time over the call's host-clock time, with
+    the ten kernels that took most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ms, n_kern, rows = 0.0, 0, []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_ms += t
+            n_kern += e.count
+            rows.append((t, e.count, e.key))
+    if not rows:
+        print("  busy share: not measured (the profile shows no device "
+              "time)", flush=True)
+        return
+    print(f"  busy share of one call: {dev_ms:.4f} ms of device kernels "
+          f"({n_kern} launches) in {wall:.4f} ms under the profiler = "
+          f"{dev_ms / wall:.4f}", flush=True)
+    for t, c, k in sorted(rows, reverse=True)[:10]:
+        print(f"    {t:.4f} ms, {c} calls: {k[:90]}", flush=True)
+
+
+def path_times(sm: Smoke, dev, scene, accel, pt: dict, anim: dict) -> dict:
+    """Phase 30: the path-traced frames' times, K1 and K2 on every depth's
+    batch of the 1080p frame beside their bounds and held against their
+    plain versions, the sort's own time and the card's busy share.
+    Returns the kernels line's entries for the path_tracing frame's K1
+    (both modes) and K2 launches, their max abs errors from these
+    batches."""
+    import dataclasses
+
+    import torch
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.config import CONFIGS
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.models.scene import bench_scene
+    from hrt_tpu_torch.ops import shade_kernel, wavefront
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    phase("phase 30: path-traced times (CUDA events, median of 7; the "
+          "kernels 10 calls per sample, the plain versions 3 samples)")
+    cam = Camera(**BENCH_CAM)
+    nl = scene.lights.shape[0]
+    for srt in (True, False):
+        for (w, h), k in ((PT_SMALL, 4), (PT_FULL, 2)):
+            cfg = dataclasses.replace(CONFIGS["path_tracing"], width=w,
+                                      height=h, sort_bounces=srt)
+            loop = FrameLoop(bench_scene(), cfg, device=dev)
+            ms = time_ms(lambda: [loop.step(cam) for _ in range(k)],
+                         reps=5) / k
+            rays = w * h * cfg.spp * (1 + nl) * cfg.max_depth
+            print(f"  path_tracing {w}x{h} {'sorted' if srt else 'unsorted'}"
+                  f": {ms:.4f} ms/frame, {rays / ms / 1e3:.2f} Mray/s "
+                  f"({rays} rays a frame)", flush=True)
+    aloop, nxt = anim["loop"], [anim["steps"]]
+
+    def anim_steps():
+        for _ in range(2):
+            aloop.step(post_cam(nxt[0]))
+            nxt[0] += 1
+
+    print(f"  animated_4k {PT_FULL[0]}x{PT_FULL[1]} -> 2x: "
+          f"{time_ms(anim_steps, reps=3) / 2:.4f} ms/frame", flush=True)
+
+    w, h = PT_FULL
+    cfg = dataclasses.replace(CONFIGS["path_tracing"], width=w, height=h,
+                              sort_bounces=True)
+    cams = renderer.camera_arrays(cam, cfg, dev)
+    batches = capture_batches(scene, accel, cams, cfg, frame=1)
+    w8_tab = nbytes(accel.w8_rec, accel.tris)
+    tot = {key: dict(ms=0.0, plain_ms=0.0, ops=0.0, bytes=0.0, err=0.0)
+           for key in ("closest", "any_hit", "k2")}
+    for b in batches:
+        depth = b["depth"]
+        prim, shadow, k2 = batch_planes(b, scene, cfg)
+        jobs = {
+            "closest": (lambda: k1.trace_kernel(accel, *prim, cfg.t_min, True),
+                        lambda: k1.trace_plain(accel, *prim, cfg.t_min, True),
+                        w8_tab + walk_bytes(prim, 16),
+                        walk_ops(k1, accel, prim, cfg.t_min, True,
+                                 f"K1 closest depth {depth} full size")),
+            "any_hit": (lambda: k1.trace_kernel(accel, *shadow, cfg.t_min,
+                                                False),
+                        lambda: k1.trace_plain(accel, *shadow, cfg.t_min,
+                                               False),
+                        w8_tab + walk_bytes(shadow, 1),
+                        walk_ops(k1, accel, shadow, cfg.t_min, False,
+                                 f"K1 any-hit depth {depth} full size")),
+            "k2": (lambda: shade_kernel.brdf_light_major_kernel(*k2),
+                   lambda: shade_kernel.brdf_light_major_plain(*k2),
+                   k2_bytes(k2), int(k2[4].sum()) * K2_OPS_PER_ELEMENT)}
+        for key, (kern, plain, n_bytes, ops) in jobs.items():
+            ms = time_ms(kern, calls=10)
+            plain_ms = time_ms(plain, reps=3)
+            bms, by = bound(n_bytes, ops)
+            live = float(((shadow if key == "any_hit" else prim)[6] >= 0)
+                         .float().mean())
+            print(f"  {key} depth {depth} ({live:.4f} live): {ms:.4f} ms "
+                  f"(one call alone {time_ms(kern):.4f}), plain "
+                  f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}; "
+                  f"{n_bytes} bytes, {ops:.4e} operations)", flush=True)
+            label = f"{key} depth-{depth} batch {w}x{h}"
+            if key == "closest":
+                err = check_closest(sm, f"K1 vs plain, {label}", kern(),
+                                    plain(), min_hits=0.01 * live)
+            elif key == "any_hit":
+                err = check_occlusion(sm, f"K1 vs plain, {label}", kern(),
+                                      plain())
+            else:
+                err = k2_check(sm, label, k2)
+            t = tot[key]
+            t["ms"] += ms
+            t["plain_ms"] += plain_ms
+            t["ops"] += ops
+            t["bytes"] += n_bytes
+            t["err"] = max(t["err"], err)
+    # K1 on the same frame's depth-1 and depth-3 batches unsorted: what
+    # the sort buys the walks.
+    uns_cfg = dataclasses.replace(cfg, sort_bounces=False)
+    uns = capture_batches(scene, accel, cams, uns_cfg, frame=1)
+    for depth in (1, 3):
+        ordered = {"sorted": batch_planes(batches[depth], scene, cfg),
+                   "unsorted": batch_planes(uns[depth], scene, uns_cfg)}
+        line = []
+        for key, i, closest in (("closest", 0, True), ("any_hit", 1, False)):
+            for order, planes in ordered.items():
+                ms = time_ms(lambda: k1.trace_kernel(
+                    accel, *planes[i], cfg.t_min, closest), calls=10)
+                line.append(f"{key} {order} {ms:.4f}")
+        print(f"  K1 on depth {depth}, sorted and unsorted (ms): "
+              + ", ".join(line), flush=True)
+    # The sort of depth 1 alone: its key, torch.sort and the gathers of
+    # the wavefront's planes (o, d, seed, throughput, radiance, pixel
+    # index).
+    o, d = batches[1]["o"], batches[1]["d"]
+    n = o.x.numel()
+    active = batches[1]["t_max"] >= 0
+    planes = [*o, *d, *(torch.rand(n, device=dev) for _ in range(6))]
+    seed = torch.randint(0, 2**32, (n,), device=dev)
+    orig = torch.randperm(n, device=dev)
+    keyf = lambda: torch.where(active, wavefront.bounce_sort_key_p(o, d) >> 1,
+                               0xFFFFFFFF)
+    key = keyf()
+    perm = torch.sort(key, stable=True)[1]
+    parts = {"key": keyf,
+             "torch.sort": lambda: torch.sort(key, stable=True),
+             "gathers (13 planes)": lambda: [a[perm] for a in
+                                             (*planes, seed, orig)]}
+    for label, fn in parts.items():
+        print(f"  sort at full size, {label}: {time_ms(fn):.4f} ms", flush=True)
+    loop = FrameLoop(bench_scene(), cfg, device=dev)
+    print("  one full-size path_tracing step (FrameLoop.step), profiled:",
+          flush=True)
+    busy_share(lambda: loop.step(cam))
+    entries = {}
+    for key, t in tot.items():
+        bms, by = bound(t["bytes"], t["ops"])
+        entries[key] = {"max_abs_err": t["err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": bms,
+                        "bound_by": by, "library_ms": None}
+        print(f"  {key}, the frame's {cfg.max_depth} launches: {t['ms']:.4f} "
+              f"ms, plain {t['plain_ms']:.4f} ms, bound {bms:.6f} ms ({by})",
+              flush=True)
+    return entries
 
 
 def main() -> int:
@@ -1184,7 +1851,7 @@ def main() -> int:
     sm = Smoke()
     dev = torch.device("cuda", 0)
 
-    print("phase 1: device", flush=True)
+    phase("phase 1: device")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1194,7 +1861,7 @@ def main() -> int:
     print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {name} count {torch.cuda.device_count()}", flush=True)
 
-    print("phase 2: kernel build", flush=True)
+    phase("phase 2: kernel build")
     t0 = time.perf_counter()
     path = build.build()
     build.load()
@@ -1217,7 +1884,7 @@ def main() -> int:
     bench = bench_phases(sm, dev, baseline)
     times, launches, errs = bench["times"], bench["launches"], bench["errs"]
 
-    print("phase 10: instanced scene + two-level build", flush=True)
+    phase("phase 10: instanced scene + two-level build")
     from hrt_tpu_torch.frameloop import FrameLoop
     from hrt_tpu_torch.models.scene import instance_grid_scene
     from hrt_tpu_torch.ops import tlas
@@ -1247,8 +1914,8 @@ def main() -> int:
     g_prim = (go.x, go.y, go.z, gd.x, gd.y, gd.z,
               torch.full((gn,), intersect.INF, device=dev))
 
-    print(f"phase 11: K4 on the instanced frame's batches ({gn} primary "
-          "rays)", flush=True)
+    phase(f"phase 11: K4 on the instanced frame's batches ({gn} primary "
+          "rays)")
     kt4, ktri4, kinst4, _, _ = k4.trace_kernel(tl, *g_prim, g_cfg.t_min,
                                                True)
     pt4, ptri4, pinst4, _, _ = k4.trace_plain(tl, *g_prim, g_cfg.t_min,
@@ -1326,8 +1993,8 @@ def main() -> int:
                  f"rays: {a:.6f}")
     del bt4, bi4, bocc4, tl5g
 
-    print("phase 12: animated FrameLoop(two_level=True), 32 steps at "
-          "512x384", flush=True)
+    phase("phase 12: animated FrameLoop(two_level=True), 32 steps at "
+          "512x384")
     loop = FrameLoop(instance_grid_scene(), g_cfg, two_level=True,
                      device=dev)
     cam = Camera(**BENCH_CAM)
@@ -1373,7 +2040,7 @@ def main() -> int:
     p4s = psnr4(img, soup_img)
     sm.check(p4s > 45.0, f"last frame vs soup frame (K1) PSNR {p4s:.2f}")
 
-    print("phase 13: one 1920x1080 two-level frame", flush=True)
+    phase("phase 13: one 1920x1080 two-level frame")
     loop.set_resolution(1920, 1080)
     hd_cfg = loop.config
     before = (dict(k4.LAUNCHES), dict(shade_kernel.LAUNCHES))
@@ -1398,8 +2065,7 @@ def main() -> int:
              f"{p4hds:.2f}")
     del soup_hd
 
-    print("phase 14: instanced times (CUDA events, median of 7)",
-          flush=True)
+    phase("phase 14: instanced times (CUDA events, median of 7)")
     times.update({
         "k4_closest": time_ms(lambda: k4.trace_kernel(
             tl, *g_prim, g_cfg.t_min, True), calls=10),
@@ -1472,8 +2138,8 @@ def main() -> int:
               f"{v['animated_ms_per_frame']:.4f} ms/frame, "
               f"{v['animated_mrays_per_s']:.2f} Mray/s", flush=True)
 
-    print("phase 15: culled FrameLoop over the grid soup, 32 steps at "
-          "512x384 along the orbit", flush=True)
+    phase("phase 15: culled FrameLoop over the grid soup, 32 steps at "
+          "512x384 along the orbit")
     from hrt_tpu_torch.models.camera import orbit_camera
     from hrt_tpu_torch.ops import culling
     from hrt_tpu_torch.ops import traversal_skip as k3
@@ -1582,7 +2248,7 @@ def main() -> int:
              f"PSNR {pk1:.2f}")
     del ref_c, k1_c, bt3, bi3, bocc3
 
-    print("phase 16: one culled 1920x1080 frame", flush=True)
+    phase("phase 16: one culled 1920x1080 frame")
     cloop.set_resolution(1920, 1080)
     chd_cfg = cloop.config
     before = (dict(k3.LAUNCHES), dict(shade_kernel.LAUNCHES))
@@ -1613,8 +2279,8 @@ def main() -> int:
              f"the same mask PSNR {pchd1:.2f}")
     del k1_chd
 
-    print("phase 17: the instance forest (instance_grid_scene(182)), "
-          "two-level at 512x384", flush=True)
+    phase("phase 17: the instance forest (instance_grid_scene(182)), "
+          "two-level at 512x384")
     forest = instance_grid_scene(182)
     t0 = time.perf_counter()
     ftl = tlas.build_two_level_flat(forest, 32, device=dev)
@@ -1695,7 +2361,7 @@ def main() -> int:
              f"{pfp:.2f}")
     del k4_f, ref_f
 
-    print("phase 18: one 1920x1080 forest frame", flush=True)
+    phase("phase 18: one 1920x1080 forest frame")
     floop.set_resolution(1920, 1080)
     before = (dict(k5.LAUNCHES), dict(shade_kernel.LAUNCHES))
     img_fhd = floop.step(cam)
@@ -1712,9 +2378,8 @@ def main() -> int:
     sm.check(pfhd > 45.0, f"1080p frame vs K4 frame PSNR {pfhd:.2f}")
     del k4_fhd
 
-    print("phase 19: K3 / K5 times (CUDA events, median of 7; 3 for the "
-          "plain walks), LBVH rebuild, culled and forest frames",
-          flush=True)
+    phase("phase 19: K3 / K5 times (CUDA events, median of 7; 3 for the "
+          "plain walks), LBVH rebuild, culled and forest frames")
     times.update({
         "k3_closest": time_ms(lambda: k3.trace_kernel(
             caccel, *c_prim, g_cfg.t_min, True)),
@@ -1874,8 +2539,33 @@ def main() -> int:
 
     post = post_phases(sm, dev, baseline)
 
-    # Bounds of the walks: rays in (7 planes) and hits out (t, tri, u, v
-    # and the instance where there is one; a byte of occlusion), the
+    rng_phase(sm, dev)
+    from hrt_tpu_torch.models.scene import bench_scene
+
+    p_scene = bench_scene().build(dev)
+    p_accel = lbvh.build_bvh_sah(p_scene, leaf_size=32)
+    bounce_phase(sm, dev, p_scene, p_accel)
+    pt = path_loop_phase(sm, dev)
+    cornell_phase(sm, dev)
+
+    def instanced_step(f: int):
+        move(f)
+        return loop.step(cam)
+
+    def forest_step(f: int):
+        fmove(f)
+        return floop.step(cam)
+
+    route_phase(sm, dev, {
+        "K4": (loop, k4, instanced_step),
+        "K3": (cloop, k3, lambda f: cloop.step(orbit_cam(steps + f))),
+        "K5": (floop, k5, forest_step)})
+    anim = animated_phase(sm, dev)
+    p_times = path_times(sm, dev, p_scene, p_accel, pt, anim)
+    end_phase()
+
+    # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,
+    # u, v and the instance where there is one; a byte of occlusion), the
     # tables the kernel reads once.
     k4_tab = nbytes(tl.w8_rec, tl.tris, tl.obj_from_world, tl.w8_root)
     k3_tab = nbytes(caccel.skip_rec, caccel.tris)
@@ -1883,15 +2573,17 @@ def main() -> int:
                     ftl.blas_base, ftl.blas_end)
     bounds = dict(bench["bounds"])
     bounds.update({
-        "k4_closest": bound(k4_tab + gn * (28 + 20), k4_ops["k4_closest"]),
-        "k4_any_hit": bound(k4_tab + gns * (28 + 1), k4_ops["k4_any_hit"]),
-        "k3_closest": bound(k3_tab + c_prim[0].numel() * (28 + 16),
+        "k4_closest": bound(k4_tab + walk_bytes(g_prim, 20),
+                            k4_ops["k4_closest"]),
+        "k4_any_hit": bound(k4_tab + walk_bytes(g_shadow, 1),
+                            k4_ops["k4_any_hit"]),
+        "k3_closest": bound(k3_tab + walk_bytes(c_prim, 16),
                             k3_ops["k3_closest"]),
-        "k3_any_hit": bound(k3_tab + c_shadow[0].numel() * (28 + 1),
+        "k3_any_hit": bound(k3_tab + walk_bytes(c_shadow, 1),
                             k3_ops["k3_any_hit"]),
-        "k5_closest": bound(k5_tab + f_prim[0].numel() * (28 + 20),
+        "k5_closest": bound(k5_tab + walk_bytes(f_prim, 20),
                             k5_ops["k5_closest"]),
-        "k5_any_hit": bound(k5_tab + f_shadow[0].numel() * (28 + 1),
+        "k5_any_hit": bound(k5_tab + walk_bytes(f_shadow, 1),
                             k5_ops["k5_any_hit"]),
     })
     for key, (ms, by) in bounds.items():
@@ -1942,6 +2634,18 @@ def main() -> int:
          **extra("k5_any_hit")},
         {"name": "warp_bilinear", "route": "cuda", "source": K6_SOURCE,
          "replaces": K6_REPLACES, **post},
+        # The path_tracing frame (1080p, depth 5, sorted): one frame's five
+        # launches of each, every depth's batch; launches over phase 26's
+        # 8 steps.
+        {"name": "bvh8_trace_closest (path_tracing frame)", "route": "cuda",
+         "source": K1_SOURCE, "replaces": K1_REPLACES,
+         "launches": pt["totals"]["k1_closest"], **p_times["closest"]},
+        {"name": "bvh8_trace_any_hit (path_tracing frame)", "route": "cuda",
+         "source": K1_SOURCE, "replaces": K1_REPLACES,
+         "launches": pt["totals"]["k1_any_hit"], **p_times["any_hit"]},
+        {"name": "brdf_light_major (path_tracing frame)", "route": "cuda",
+         "source": K2_SOURCE, "replaces": K2_REPLACES,
+         "launches": pt["totals"]["k2"], **p_times["k2"]},
     ]
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} check(s) failed: "

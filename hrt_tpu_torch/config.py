@@ -5,7 +5,8 @@ the same frame to both packages.  Knobs that only steer TPU speed
 (`shade_pallas`, `block_reorder`, `shadow_interleave`,
 `shadow_from_light`, `tri_chunk`, `leaf_size`) are accepted and do not
 change this package's output.  Features outside the ported slice are
-refused by `require_slice`.
+refused by `require_slice`.  `CONFIGS` holds the JAX package's named
+benchmark configurations.
 """
 from __future__ import annotations
 
@@ -50,22 +51,39 @@ class RenderConfig:
         return self.width * self.height
 
 
+# The JAX package's named benchmark configurations
+# (hrt_tpu/config.py CONFIGS), field for field.
+CONFIGS = {
+    "primary": RenderConfig(width=800, height=600, max_depth=1, sky=True),
+    "whitted": RenderConfig(width=800, height=600, max_depth=4, sky=True,
+                            indirect=True, russian_roulette=False),
+    "mesh_bvh": RenderConfig(width=800, height=600, max_depth=2, sky=True,
+                             traversal="pallas"),
+    "path_tracing": RenderConfig(width=1920, height=1080, max_depth=5,
+                                 sky=True, indirect=True, jitter=True,
+                                 accumulate=True, traversal="pallas"),
+    "animated_4k": RenderConfig(width=3840, height=2160, max_depth=3,
+                                sky=True, indirect=True, jitter=True,
+                                denoise=True, upscale=2,
+                                traversal="pallas"),
+    "reference_parity": RenderConfig(),
+}
+
+
 def require_slice(config: RenderConfig) -> None:
     """Raise NotImplementedError for any feature this package does not
-    render yet: the port covers the direct-lighting frame (primary
-    closest hit, Disney BRDF, one shadow ray per light, sky on miss) and
-    its post stages (accumulate, SVGF, the spatial or temporal 2x
-    upscaler).  An upscale_mode the JAX package does not know raises
-    ValueError."""
+    render yet: the port covers the path tracer (Disney BRDF, one shadow
+    ray per light, sky on miss, bounces with Russian roulette, jitter,
+    the sorted wavefront) and its post stages (accumulate, SVGF, the
+    spatial or temporal 2x upscaler); sampled many-light NEE, the pbr
+    BSDF and the brute-force walk are not ported.  An upscale_mode the
+    JAX package does not know raises ValueError."""
     if config.upscale_mode not in ("spatial", "temporal"):
         raise ValueError(f"upscale_mode must be 'spatial' or 'temporal', "
                          f"not {config.upscale_mode!r}")
     unsupported = {
-        "indirect": config.indirect,
-        "jitter": config.jitter,
         "light_samples>0": config.light_samples > 0,
         "brdf='pbr'": config.brdf == "pbr",
-        "sort_bounces": config.sort_bounces,
         "traversal='bruteforce'": config.traversal == "bruteforce",
     }
     names = [k for k, v in unsupported.items() if v]

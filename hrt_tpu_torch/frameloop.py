@@ -1,7 +1,8 @@
 """Frame loop: the host-side driver that holds cross-frame state
 (hrt_tpu/frameloop.py `FrameLoop` and `_post_stages`).
 
-One `step` renders a frame through renderer.render_rows, then runs the
+One `step` renders frame `frame` (the index seeds the frame's samples
+and jitter) through renderer.render_rows, then runs the
 post stages (`post_stages`): with `config.accumulate` it folds the frame
 into the running mean; with `config.denoise` it runs SVGF
 (ops/denoise.py, its history fetch through K6); with `config.upscale
@@ -221,7 +222,8 @@ class FrameLoop:
         self._maybe_cull(cams)
         want_gb = cfg.denoise or _temporal_up(cfg, self.up_history)
         out = render_rows(self.scene, self.accel, cams, 0, cfg.height, cfg,
-                          plain=plain, want_gbuffer=want_gb)
+                          plain=plain, want_gbuffer=want_gb,
+                          frame=self.frame)
         img, gbuffer = out if want_gb else (out, None)
         img, self.dn_state, self.accum, self.up_history = post_stages(
             img, gbuffer, self.prev_cams, self.dn_state, self.accum,

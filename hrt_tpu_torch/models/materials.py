@@ -32,6 +32,9 @@ EMISSION_STRENGTH = 16
 IOR = 17
 TRANSMISSION = 18
 BASE_COLOR_TEX = 19
+# Floor of the roughness the bounce samplers use (the JAX package's
+# materials.ROUGHNESS_MIN).
+ROUGHNESS_MIN = 1e-4
 
 
 class MatP(NamedTuple):

@@ -1,5 +1,6 @@
-"""Host-side triangle meshes and the procedural meshes of the bench and
-demo scenes (numpy, carried over from hrt_tpu/models/mesh.py).
+"""Host-side triangle meshes and the procedural meshes of the bench,
+demo and Cornell box scenes (numpy, carried over from
+hrt_tpu/models/mesh.py).
 
 Vertex layout: pos[3] + normal[3] + uv[2] = 8 float32.  OBJ loading
 comes with a later slice.
@@ -63,6 +64,43 @@ def plane(size: float = 1.0) -> Mesh:
     idx = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
     verts = np.concatenate([pos, nrm, uv], axis=1)
     return Mesh(vertices=verts, indices=idx)
+
+
+def cube(size: float = 1.0) -> Mesh:
+    """Axis-aligned cube with per-face normals, edge length 2 * size."""
+    s = size
+    faces = []
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            n = np.zeros(3, np.float32)
+            n[axis] = sign
+            a = (axis + 1) % 3
+            b = (axis + 2) % 3
+            corners = []
+            for da, db in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                p = np.zeros(3, np.float32)
+                p[axis] = sign * s
+                p[a] = da * s
+                p[b] = db * s
+                corners.append(p)
+            faces.append((np.stack(corners), n))
+    pos_list, nrm_list, idx_list = [], [], []
+    base = 0
+    for c, n in faces:
+        pos_list.append(c)
+        nrm_list.append(np.tile(n[None], (4, 1)))
+        # Wind so that cross(e1, e2) points along n.
+        if np.dot(np.cross(c[1] - c[0], c[2] - c[0]), n) > 0:
+            tris = [[0, 1, 2], [0, 2, 3]]
+        else:
+            tris = [[0, 2, 1], [0, 3, 2]]
+        idx_list.append(np.array(tris, np.int32) + base)
+        base += 4
+    pos = np.concatenate(pos_list)
+    nrm = np.concatenate(nrm_list)
+    uv = np.zeros((pos.shape[0], 2), np.float32)
+    verts = np.concatenate([pos, nrm, uv], axis=1).astype(np.float32)
+    return Mesh(vertices=verts, indices=np.concatenate(idx_list))
 
 
 def icosphere(subdivisions: int = 2, radius: float = 1.0) -> Mesh:

@@ -92,6 +92,28 @@ class Scene:
                          tuple(rotation), tuple(scale)))
         return len(self.instances) - 1
 
+    def set_sky(self, **kwargs) -> None:
+        """Set sky parameters by name (sky_color, horizon_color,
+        ground_color, sun_direction, up_direction, brightness,
+        horizon_size, angular_size, glow_intensity, glow_sharpness,
+        glow_size, light_radiance)."""
+        name_to_idx = {
+            "sky_color": sky_mod.SKY_COLOR,
+            "horizon_color": sky_mod.HORIZON_COLOR,
+            "ground_color": sky_mod.GROUND_COLOR,
+            "sun_direction": sky_mod.SUN_DIRECTION,
+            "up_direction": sky_mod.UP_DIRECTION,
+            "brightness": sky_mod.BRIGHTNESS,
+            "horizon_size": sky_mod.HORIZON_SIZE,
+            "angular_size": sky_mod.ANGULAR_SIZE,
+            "glow_intensity": sky_mod.GLOW_INTENSITY,
+            "glow_sharpness": sky_mod.GLOW_SHARPNESS,
+            "glow_size": sky_mod.GLOW_SIZE,
+            "light_radiance": sky_mod.LIGHT_RADIANCE,
+        }
+        for k, v in kwargs.items():
+            self.sky[name_to_idx[k]] = v
+
     def build_host(self):
         """Flatten to world-space numpy SoA (the host half of build())."""
         if not self.instances:

@@ -64,6 +64,12 @@ def dot(a: V3, b: V3) -> torch.Tensor:
     return a.x * b.x + a.y * b.y + a.z * b.z
 
 
+def cross(a: V3, b: V3) -> V3:
+    return V3(a.y * b.z - a.z * b.y,
+              a.z * b.x - a.x * b.z,
+              a.x * b.y - a.y * b.x)
+
+
 def length(a: V3) -> torch.Tensor:
     return torch.sqrt(torch.clamp(dot(a, a), min=0.0))
 
@@ -78,6 +84,15 @@ def where(mask, a: V3, b) -> V3:
     bx, by, bz = (b.x, b.y, b.z) if isinstance(b, V3) else (b, b, b)
     return V3(torch.where(mask, a.x, bx), torch.where(mask, a.y, by),
               torch.where(mask, a.z, bz))
+
+
+def reflect(v: V3, n: V3) -> V3:
+    """HLSL/Slang reflect: v - 2 dot(v, n) n (v toward the surface)."""
+    return v - n * (2.0 * dot(v, n))
+
+
+def max_component(a: V3) -> torch.Tensor:
+    return torch.maximum(a.x, torch.maximum(a.y, a.z))
 
 
 def orthonormal_basis(n: V3):
@@ -103,3 +118,10 @@ def to_local(vec: V3, normal: V3, frame=None) -> V3:
     tangent, bitangent = frame if frame is not None \
         else orthonormal_basis(normal)
     return V3(dot(vec, tangent), dot(vec, bitangent), dot(vec, normal))
+
+
+def to_world(vec: V3, normal: V3, frame=None) -> V3:
+    """Tangent frame -> world."""
+    tangent, bitangent = frame if frame is not None \
+        else orthonormal_basis(normal)
+    return tangent * vec.x + bitangent * vec.y + normal * vec.z

@@ -1,19 +1,25 @@
-"""The direct-lighting frame: raygen -> closest hit -> attribute
-gather + sky -> Disney BRDF (K2) + shadow any-hit -> accumulate.
+"""The path-traced frame: raygen (jittered per frame) -> closest hit ->
+attribute gather + sky -> Disney BRDF (K2) + shadow any-hit -> bounce
+sampling and Russian roulette -> the next depth's closest hit, and so
+on to `max_depth`, with the wavefront optionally sorted by a 6-D Morton
+key between depths (`sort_bounces`).
 
 The accel is either a single-level Accel (ops/lbvh.py), traced by K1
 when it has a BVH8 table and by K3 when it has not (an LBVH, or a SAH
 tree past MAX_WIDE_NODES), or a two-level TwoLevelFlat (ops/tlas.py),
 traced by K4 (BVH8 route) or K5 (binary route) and shaded through the
-hit instance's normal matrix and material.
+hit instance's normal matrix and material.  Every depth's closest and
+shadow traces go to the accel's walk, every depth's BRDF to K2.
 
-The subset of hrt_tpu/renderer.py that the benchmark frame runs
-(`max_depth=1`, no jitter, one shadow ray per light), in plain PyTorch
-around the kernels.  Per-pixel output is the JAX package's; only the
-ray order differs: rays stay in pixel order (the TPU's pixel-block
-reorder and shadow interleave are layouts for its packet tiles), the
-shadow batch is light-major concatenated, and the k frames of
-`render_frames` are a Python loop over primary rays computed once.
+hrt_tpu/renderer.py's `trace_paths` and `render_rows` in plain PyTorch
+around the kernels.  Per-pixel output is the JAX package's: the same
+RNG words (ops/rng.py) drawn in the same order, the same samplers
+(ops/sampling.py).  Only the ray order differs: rays stay in pixel order
+(the TPU's pixel-block reorder and shadow interleave are layouts for its
+packet tiles), the shadow batch is light-major concatenated, the sorted
+wavefront is one stable torch.sort and index gathers instead of a
+multi-operand sort, and the k frames of `render_frames` are a Python
+loop (raygen computed once when there is no jitter).
 
 Every entry point takes `plain=False`; `plain=True` routes the walks
 and the BRDF to their plain PyTorch versions on whatever device the
@@ -31,14 +37,23 @@ import torch
 from .config import RenderConfig, require_slice
 from .models.camera import Camera, CameraArrays, primary_rays_from_px_p
 from .models.lights import process_light_one
-from .models.materials import MatP
+from .models.materials import ROUGHNESS_MIN, MatP
 from .models.scene import Scene, SceneData
 from .models.sky import eval_sky_p
-from .ops import shade_kernel, tlas, traversal, v3
+from .ops import rng, sampling, shade_kernel, tlas, traversal, v3, wavefront
+from .ops.disney import schlick_weight
 from .ops.intersect import INF
 from .ops.lbvh import ATTR_MAT, Accel
 from .ops.tlas import TwoLevelFlat
 from .ops.v3 import V3
+
+# Sorted depths of a `sort_bounces` frame: depths 1..SORT_CAP are sorted
+# (the JAX package's default cap; Russian roulette has retired most rays
+# by depth 3).
+SORT_CAP = 2
+# The key of a retired ray: after every live key (live keys are shifted
+# right one bit).
+_DEAD_KEY = 0xFFFFFFFF
 
 
 def camera_arrays(cam: Camera, config: RenderConfig, device) -> CameraArrays:
@@ -138,7 +153,7 @@ def direct_lighting_p(scene: SceneData, accel, mat: MatP, n: V3,
 
 
 class SurfaceHits(NamedTuple):
-    """Closest hits of a camera ray batch and their shading inputs."""
+    """Closest hits of a ray batch and their shading inputs."""
 
     t: torch.Tensor
     hit: torch.Tensor
@@ -146,27 +161,29 @@ class SurfaceHits(NamedTuple):
     mat: MatP
     world_pos: V3
     view: V3
+    entering: torch.Tensor  # the front face was hit (before the flip)
 
 
 def surface_hits(scene: SceneData, accel, o: V3, d: V3,
-                 config: RenderConfig, plain: bool = False) -> SurfaceHits:
-    """Closest hit and the attribute gather: by leaf-pool id from the
-    Accel's table (K1 or K3), or by global pool id and instance from the
-    TwoLevelFlat (K4 or K5)."""
+                 config: RenderConfig, t_max=INF,
+                 plain: bool = False) -> SurfaceHits:
+    """Closest hit within (t_min, t_max) and the attribute gather: by
+    leaf-pool id from the Accel's table (K1 or K3), or by global pool id
+    and instance from the TwoLevelFlat (K4 or K5)."""
     if isinstance(accel, TwoLevelFlat):
         t, tri, inst, u, v = tlas.closest_hit_tlas(
-            accel, o, d, config.t_min, INF, plain=plain)
+            accel, o, d, config.t_min, t_max, plain=plain)
         nrm, mat = tlas.shade_attrs_tlas(accel, scene.materials, tri,
                                          inst, u, v)
     else:
         t, tri, u, v = traversal.closest_hit_bvh_p(
-            scene, accel, o, d, config.t_min, INF, sorted_ids=True,
+            scene, accel, o, d, config.t_min, t_max, sorted_ids=True,
             plain=plain)
         nrm, mat = _shade_attrs_p(accel.attr, tri, u, v)
     view = -d
     entering = v3.dot(nrm, view) >= 0.0
     nrm = v3.where(entering, nrm, -nrm)
-    return SurfaceHits(t, tri >= 0, nrm, mat, o + d * t, view)
+    return SurfaceHits(t, tri >= 0, nrm, mat, o + d * t, view, entering)
 
 
 def _gbuffer(sh: SurfaceHits) -> dict:
@@ -186,12 +203,100 @@ def _gbuffer(sh: SurfaceHits) -> dict:
     }
 
 
-def trace_paths(scene: SceneData, accel, o: V3, d: V3,
+def _refract_p(view: V3, n: V3, eta):
+    """Snell refraction of the viewing direction about n (both unit, n
+    facing the viewer) -> (direction, total internal reflection mask)."""
+    cos_i = v3.dot(view, n)
+    sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    tir = sin2_t > 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    d = view * (-eta) + n * (eta * cos_i - cos_t)
+    return v3.normalize(d), tir
+
+
+def _sample_bounce_p(mat: MatP, n: V3, view: V3, seed, entering, frame):
+    """One-sample lobe selection, as the JAX package's: transmission
+    (Snell + TIR, Fresnel-chosen mirror), specular (GGX-VNDF) or diffuse
+    (cosine).  Draws, in order: u0 and u1 (rand2), the lobe, the
+    Fresnel choice, the transmission choice.  `entering` (the front face
+    was hit) sets eta; `frame` is the normal's orthonormal basis.
+    Returns (direction, weight, seed, transmitted mask)."""
+    u0, u1, seed = rng.rand2(seed)
+    usel, seed = rng.rand(seed)
+    metallic = mat.metallic
+    rough = torch.clamp(mat.roughness, min=ROUGHNESS_MIN)
+    transmission = mat.transmission
+    ior = torch.clamp(mat.ior, min=1.0001)
+    p_spec = torch.clamp(metallic + 0.25 * (1.0 - rough), 0.0, 0.95)
+
+    d_spec, w_spec = sampling.ggx_vndf_spherical_cap_p(mat, view, n, u0, u1,
+                                                       frame)
+    local_diff, _ = sampling.cosine_hemisphere_p(u0, u1)
+    d_diff = v3.to_world(local_diff, n, frame)
+
+    color = mat.color
+    # Metals reflect their color; dielectric specular is achromatic,
+    # scaled by a Schlick weight.
+    h = v3.normalize(view + d_spec)
+    fres = schlick_weight(v3.dot(d_spec, h))
+    spec_col = ((color + (1.0 - color) * fres) * metallic
+                + (0.04 + 0.96 * fres) * (1.0 - metallic))
+    diff_col = color * (1.0 - metallic)
+
+    take_spec = usel < p_spec
+    direction = v3.where(take_spec, d_spec, d_diff)
+    p = torch.where(take_spec, torch.clamp(p_spec, min=1e-3),
+                    torch.clamp(1.0 - p_spec, min=1e-3))
+    weight = v3.where(take_spec, spec_col * w_spec, diff_col) * (1.0 / p)
+    # Kill specular samples below the horizon.
+    weight = v3.where(take_spec & (w_spec <= 0.0), _zero3(usel), weight)
+
+    # Transmission lobe: a Fresnel-weighted choice between refraction
+    # and mirror reflection; total internal reflection always reflects.
+    eta = torch.where(entering, 1.0 / ior, ior)
+    d_refr, tir = _refract_p(view, n, eta)
+    cos_i = torch.abs(v3.dot(view, n))
+    f0 = ((1.0 - ior) / (1.0 + ior)) ** 2
+    fr = f0 + (1.0 - f0) * schlick_weight(cos_i)
+    u_t, seed = rng.rand(seed)
+    reflect_inst = tir | (u_t < fr)
+    d_mirr = v3.normalize(n * (2.0 * v3.dot(view, n)) - view)
+    d_trans = v3.where(reflect_inst, d_mirr, d_refr)
+    u_tsel, seed = rng.rand(seed)
+    take_trans = (transmission > 0.0) & (u_tsel < transmission)
+    transmitted = take_trans & ~reflect_inst
+
+    direction = v3.where(take_trans, d_trans, direction)
+    weight = v3.where(take_trans, color, weight)
+    return direction, weight, seed, transmitted
+
+
+def _empty_gbuffer(n: int, device) -> dict:
+    zeros = lambda *s: torch.zeros((n, *s), device=device)
+    return {"normal": zeros(3), "depth": zeros(), "albedo": zeros(3) + 1.0,
+            "world_pos": zeros(3), "hit": zeros()}
+
+
+def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
                 config: RenderConfig, plain: bool = False,
-                want_gbuffer: bool = False):
-    """Radiance of one camera ray batch at depth 0: sky on a miss,
-    direct light plus emission on a hit.  With `want_gbuffer`, returns
-    (radiance, _gbuffer(first hits))."""
+                want_gbuffer: bool = False, _batches=None):
+    """Radiance of a ray batch over up to `config.max_depth` depths, as
+    the JAX package's trace_paths: sky on a miss, direct light plus
+    emission on a hit, weighted by the path's throughput; with
+    `config.indirect` each hit samples a bounce and the path goes on
+    (Russian roulette from `rr_start_depth`), a retired ray tracing
+    with t_max = -1 so the walks drop it at once.  `seeds` are the
+    rays' RNG words (ops/rng.py).  With `want_gbuffer`, returns
+    (radiance, _gbuffer(depth 0's hits)).
+
+    With `config.sort_bounces`, depths 1..SORT_CAP sort the wavefront
+    (origins, directions, seeds, throughput, radiance) by
+    wavefront.bounce_sort_key_p, retired rays last, and the radiance is
+    put back in pixel order by the carried pixel index at the end;
+    depth 0's radiance stays in pixel order.
+
+    `_batches`, a list, receives each depth's closest-hit batch and its
+    shading inputs (a dict per depth; for measurements and tests)."""
     require_slice(config)
     if not isinstance(accel, (Accel, TwoLevelFlat)):
         raise NotImplementedError(
@@ -199,58 +304,151 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3,
             "are ported (no brute-force frame path)")
     if scene.textures is not None and scene.textures.shape[0] > 0:
         raise NotImplementedError("textured scenes are not ported yet")
+    n = o.x.shape[0]
+    dev = o.x.device
     radiance = _zero3(o.x)
-    if config.max_depth < 1:
-        if not want_gbuffer:
-            return radiance
-        n = o.x.shape[0]
-        zeros = lambda *s: torch.zeros((n, *s), device=o.x.device)
-        return radiance, {"normal": zeros(3), "depth": zeros(),
-                          "albedo": zeros(3) + 1.0, "world_pos": zeros(3),
-                          "hit": zeros()}
-    sh = surface_hits(scene, accel, o, d, config, plain=plain)
-    sky_rad = eval_sky_p(scene.sky, d, enabled=config.sky)
-    radiance = radiance + v3.where(~sh.hit, sky_rad, 0.0)
-    direct = direct_lighting_p(scene, accel, sh.mat, sh.normal, sh.view,
-                               sh.world_pos, config, ray_mask=sh.hit,
-                               plain=plain)
-    emissive = sh.mat.emissive * sh.mat.emission_strength
-    radiance = radiance + v3.where(sh.hit, direct + emissive, 0.0)
-    return (radiance, _gbuffer(sh)) if want_gbuffer else radiance
+    one = torch.ones_like(o.x)
+    throughput = V3(one, one, one)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    seed = seeds
+    gbuffer = None
+    orig = None         # pixel index of each ray once sorted
+    rad_px = None       # depth 0's radiance, in pixel order
+    for depth in range(config.max_depth):
+        if config.sort_bounces and 0 < depth <= SORT_CAP:
+            key = torch.where(active, wavefront.bounce_sort_key_p(o, d) >> 1,
+                              _DEAD_KEY)
+            key, perm = torch.sort(key, stable=True)
+            take = lambda a: a[perm]
+            orig = perm if orig is None else orig[perm]
+            if rad_px is None:
+                rad_px, radiance = radiance, _zero3(o.x)
+            else:
+                radiance = radiance.map(take)
+            o, d, throughput = o.map(take), d.map(take), throughput.map(take)
+            seed = seed[perm]
+            active = key != _DEAD_KEY
+        t_max = INF if depth == 0 else torch.where(active, INF, -1.0)
+        sh = surface_hits(scene, accel, o, d, config, t_max=t_max,
+                          plain=plain)
+        hit = sh.hit & active
+        if _batches is not None:
+            _batches.append({"depth": depth, "o": o, "d": d, "t_max": t_max,
+                             "hits": sh._replace(hit=hit)})
+
+        sky_rad = eval_sky_p(scene.sky, d, enabled=config.sky)
+        radiance = radiance + v3.where(active & ~sh.hit,
+                                       throughput * sky_rad, 0.0)
+        direct = direct_lighting_p(scene, accel, sh.mat, sh.normal, sh.view,
+                                   sh.world_pos, config, ray_mask=hit,
+                                   plain=plain)
+        emissive = sh.mat.emissive * sh.mat.emission_strength
+        radiance = radiance + v3.where(hit, throughput * (direct + emissive),
+                                       0.0)
+        if want_gbuffer and depth == 0:
+            gbuffer = _gbuffer(sh)
+
+        if not config.indirect or depth + 1 == config.max_depth:
+            break
+
+        basis = v3.orthonormal_basis(sh.normal)
+        new_d, weight, seed, transmitted = _sample_bounce_p(
+            sh.mat, sh.normal, sh.view, seed, sh.entering, basis)
+        throughput = throughput * weight
+        side = torch.where(transmitted, -1.0, 1.0)
+        o = sh.world_pos + sh.normal * (side * config.bounce_offset)
+        d = new_d
+        alive = v3.max_component(throughput) > 1e-5
+        active = active & hit & alive
+        if config.russian_roulette and depth + 1 >= config.rr_start_depth:
+            p_cont = torch.clamp(v3.max_component(throughput), 0.05, 0.95)
+            u_rr, seed = rng.rand(seed)
+            throughput = throughput * (1.0 / p_cont)
+            active = active & (u_rr < p_cont)
+        # Retired rays keep their lanes with throughput 0.
+        throughput = v3.where(active, throughput, 0.0)
+
+    if orig is not None:
+        # Back to pixel order: ray i of the sorted wavefront is pixel
+        # orig[i].
+        radiance = radiance.map(
+            lambda a: torch.empty_like(a).index_copy_(0, orig, a)) + rad_px
+    if want_gbuffer:
+        return radiance, (gbuffer if gbuffer is not None
+                          else _empty_gbuffer(n, dev))
+    return radiance
+
+
+def pixel_planes(rows: int, y0: int, config: RenderConfig, device):
+    """int64 pixel coordinates (px, py) of rows [y0, y0 + rows), in
+    pixel order."""
+    w = config.width
+    px = torch.arange(w, device=device)[None, :].expand(rows, w).reshape(-1)
+    py = (torch.arange(rows, device=device) + y0)[:, None] \
+        .expand(rows, w).reshape(-1)
+    return px, py
+
+
+def _rays_at(cam: CameraArrays, config: RenderConfig, pxf, pyf):
+    return primary_rays_from_px_p(cam.origin, cam.basis, cam.tan_half_fovy,
+                                  cam.aspect, config.width, config.height,
+                                  pxf, pyf)
 
 
 def primary_rays(cam: CameraArrays, rows: int, y0: int,
                  config: RenderConfig):
-    """Camera rays of rows [y0, y0 + rows) in pixel order."""
-    dev = cam.origin.device
-    w = config.width
-    px = torch.arange(w, dtype=torch.float32, device=dev)[None, :] \
-        .expand(rows, w).reshape(-1)
-    py = (torch.arange(rows, dtype=torch.float32, device=dev) + y0)[:, None] \
-        .expand(rows, w).reshape(-1)
-    return primary_rays_from_px_p(cam.origin, cam.basis, cam.tan_half_fovy,
-                                  cam.aspect, w, config.height, px, py)
+    """Unjittered camera rays of rows [y0, y0 + rows) in pixel order,
+    through the pixels' integer corners (as the JAX package's unjittered
+    raygen)."""
+    px, py = pixel_planes(rows, y0, config, cam.origin.device)
+    return _rays_at(cam, config, px.to(torch.float32), py.to(torch.float32))
+
+
+def _primary_setup(cam: CameraArrays, rows: int, y0: int,
+                   config: RenderConfig):
+    """What of a band's primary rays does not depend on the frame: the
+    pixel planes, and the rays themselves when there is no jitter."""
+    px, py = pixel_planes(rows, y0, config, cam.origin.device)
+    rays = None if config.jitter else _rays_at(
+        cam, config, px.to(torch.float32), py.to(torch.float32))
+    return px, py, rays
 
 
 def render_rows(scene: SceneData, accel, cam: CameraArrays,
                 y0: int, rows: int, config: RenderConfig,
                 plain: bool = False, want_gbuffer: bool = False,
-                _rays=None):
-    """Render rows [y0, y0 + rows) -> (rows, W, 3) linear radiance, and
-    with `want_gbuffer` also the first sample's G-buffer, each field
-    (rows, W, ·) in pixel order.  _rays: primary rays computed once by
-    render_frames."""
-    o, d = _rays if _rays is not None else primary_rays(cam, rows, y0,
-                                                         config)
-    acc = _zero3(o.x)
+                frame: int = 0, _pre=None, _batches=None):
+    """Render rows [y0, y0 + rows) of frame `frame` -> (rows, W, 3)
+    linear radiance, and with `want_gbuffer` also the first sample's
+    G-buffer, each field (rows, W, ·) in pixel order.  Sample s of a
+    pixel starts from pixel_seed(px, py, frame) + s * 0x9E3779B9; with
+    `config.jitter` its first two draws offset the ray within the pixel,
+    except on frame 0, which shoots through the pixel centre (the
+    unjittered path shoots through the integer corner, as the JAX
+    package does).  _pre: render_frames' _primary_setup; _batches: see
+    trace_paths."""
+    px, py, rays = _pre if _pre is not None else _primary_setup(
+        cam, rows, y0, config)
+    seeds = rng.pixel_seed(px, py, frame)
+    acc = None
     gbuffer = None
     for s in range(config.spp):
+        seeds_s = (seeds + ((s * 0x9E3779B9) & rng.M32)) & rng.M32
+        if config.jitter:
+            jx, seeds_s = rng.rand(seeds_s)
+            jy, seeds_s = rng.rand(seeds_s)
+            if frame == 0:
+                jx = jy = 0.5
+            o, d = _rays_at(cam, config, px.to(torch.float32) + jx,
+                            py.to(torch.float32) + jy)
+        else:
+            o, d = rays
         take_gb = want_gbuffer and s == 0
-        out = trace_paths(scene, accel, o, d, config, plain=plain,
-                          want_gbuffer=take_gb)
+        out = trace_paths(scene, accel, o, d, seeds_s, config, plain=plain,
+                          want_gbuffer=take_gb, _batches=_batches)
         if take_gb:
             out, gbuffer = out
-        acc = acc + out
+        acc = out if acc is None else acc + out
     img = (acc * (1.0 / config.spp)).to_array()
     img = img.reshape(rows, config.width, 3)
     if not want_gbuffer:
@@ -262,21 +460,21 @@ def render_rows(scene: SceneData, accel, cam: CameraArrays,
 def render_frames(scene: SceneData, accel, cam: CameraArrays,
                   frame0: int, k: int, config: RenderConfig,
                   plain: bool = False) -> torch.Tensor:
-    """Render k consecutive frames -> (k, H, W, 3).  The frame index only
-    seeds sampling, which this slice does not do, so frame0 does not
-    change the output."""
-    rays = primary_rays(cam, config.height, 0, config)
+    """Render frames frame0, ..., frame0 + k - 1 -> (k, H, W, 3).  The
+    pixel planes, and the camera rays when there is no jitter, are
+    computed once for the k frames."""
+    pre = _primary_setup(cam, config.height, 0, config)
     return torch.stack([
         render_rows(scene, accel, cam, 0, config.height, config,
-                    plain=plain, _rays=rays)
-        for _ in range(k)])
+                    plain=plain, frame=frame0 + i, _pre=pre)
+        for i in range(k)])
 
 
 def render(scene_obj, cam: Camera, config: RenderConfig, accel,
            frame: int = 0, plain: bool = False):
     """Host entry: build the scene on the accel's device if needed and
-    render one frame -> (H, W, 3) numpy array.  `accel` is an Accel or
-    a TwoLevelFlat."""
+    render frame `frame` -> (H, W, 3) numpy array.  `accel` is an Accel
+    or a TwoLevelFlat."""
     device = accel.tris.device
     scene = (scene_obj.build(device) if isinstance(scene_obj, Scene)
              else scene_obj)

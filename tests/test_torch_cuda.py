@@ -622,3 +622,87 @@ def test_post_loop_steps_on_the_card(cuda):
 def test_two_level_build_defaults_to_the_card(cuda):
     tl = tlas.build_two_level_flat(_instanced_scene(), 32)
     assert tl.tris.device.type == "cuda" and tl.w8_nodes.is_cuda
+
+
+def _path_cfg(w: int, h: int):
+    import dataclasses
+
+    from hrt_tpu_torch.config import CONFIGS
+
+    return dataclasses.replace(CONFIGS["path_tracing"], width=w, height=h,
+                               sort_bounces=True)
+
+
+@pytest.mark.parametrize("closest", [True, False])
+def test_k1_on_bounce_batches_with_dead_lanes(cuda, closest):
+    """K1 on the depth-1 and depth-3 batches of a path-traced frame
+    (sorted, Russian roulette: most depth-3 lanes retired with t_max =
+    -1), closest rays or their light-major shadow rays, against the
+    plain walk on every ray."""
+    cfg = _path_cfg(128, 96)
+    scene = bench_scene().build(cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, cuda)
+    batches = []
+    renderer.render_rows(scene, accel, cams, 0, 96, cfg, frame=1,
+                         _batches=batches)
+    for depth in (1, 3):
+        b = batches[depth]
+        n = b["o"].x.numel()
+        tmax = torch.broadcast_to(torch.as_tensor(b["t_max"], device=cuda),
+                                  (n,)).contiguous()
+        planes = (*b["o"], *b["d"], tmax)
+        if not closest:
+            sh = b["hits"]
+            lb = renderer.light_batch(scene, sh.normal, sh.world_pos, cfg,
+                                      ray_mask=sh.hit)
+            planes = (*lb.origin, *lb.l, lb.t_max)
+        dead = planes[6] < 0
+        assert dead.any() and not dead.all()
+        k = traversal_wide8.trace_kernel(accel, *planes, 1e-3, closest)
+        p = traversal_wide8.trace_plain(accel, *planes, 1e-3, closest)
+        torch.cuda.synchronize()
+        if closest:
+            assert (k[1] == p[1]).float().mean() >= 0.999
+            assert (k[1][dead] < 0).all()
+            same = (k[1] == p[1]) & (k[1] >= 0)
+            torch.testing.assert_close(k[0][same], p[0][same], rtol=1e-4,
+                                       atol=1e-5)
+        else:
+            assert (k == p).float().mean() >= 0.999
+            assert not k[dead].any()
+
+
+def test_path_traced_frame_matches_plain(cuda):
+    """A 64x48 path_tracing frame (depth 5, jitter, sorted) through the
+    kernels: five launches of each per frame, and the plain frame's
+    image (PSNR > 45)."""
+    cfg = _path_cfg(64, 48)
+    scene = bench_scene().build(cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, cuda)
+    before = (dict(traversal_wide8.LAUNCHES), dict(shade_kernel.LAUNCHES))
+    img = renderer.render_frames(scene, accel, cams, 3, 1, cfg)
+    assert traversal_wide8.LAUNCHES == {
+        m: c + 5 for m, c in before[0].items()}
+    assert shade_kernel.LAUNCHES == {m: c + 5 for m, c in before[1].items()}
+    ref = renderer.render_frames(scene, accel, cams, 3, 1, cfg, plain=True)
+    assert torch.isfinite(img).all()
+    assert psnr(img[0].clamp(0, 4).cpu().numpy(),
+                ref[0].clamp(0, 4).cpu().numpy(), peak=4.0) > 45.0
+
+
+def test_rng_bit_equal_on_card(cuda):
+    """hash3, pcg, rand and pixel_seed on the card equal the CPU's, bit
+    for bit, on words with 0 and 0xFFFFFFFF among them."""
+    from hrt_tpu_torch.ops import rng
+
+    w = torch.as_tensor(np.random.RandomState(8).randint(
+        0, 2**32, size=1 << 16, dtype=np.uint64).astype(np.int64))
+    w[:2] = torch.tensor([0, 0xFFFFFFFF])
+    fns = (lambda a: rng.hash3(a, a.roll(1), a.flip(0)),
+           lambda a: torch.stack(rng.pcg(a)),
+           lambda a: rng.rand(a)[0].view(torch.int32),
+           lambda a: rng.pixel_seed(a, a.roll(5), 0xFFFFFFFF))
+    for fn in fns:
+        assert torch.equal(fn(w.to(cuda)).cpu(), fn(w))

@@ -111,19 +111,36 @@ def test_package_imports_neither_jax_nor_hrt_tpu():
     assert proc.returncode == 0, proc.stderr
 
 
-# The post stages (denoise, upscale) are in the slice: a config with
-# them raises for its other features only (BASELINE config 5, with its
-# bounces, is refused for `indirect`).
+# The post stages (denoise, upscale) and the path tracer (indirect,
+# jitter, sort_bounces) are in the slice: a config with them raises for
+# its other features only.
 @pytest.mark.parametrize("change", [
-    dict(indirect=True), dict(jitter=True), dict(light_samples=2),
-    dict(light_samples=1, denoise=True),
+    dict(indirect=True, light_samples=2), dict(jitter=True, brdf="pbr"),
+    dict(light_samples=2), dict(light_samples=1, denoise=True),
     dict(indirect=True, max_depth=4, denoise=True, upscale=2,
-         upscale_mode="temporal"), dict(brdf="pbr"),
-    dict(sort_bounces=True), dict(traversal="bruteforce")])
+         upscale_mode="temporal", light_samples=4), dict(brdf="pbr"),
+    dict(sort_bounces=True, traversal="bruteforce"),
+    dict(traversal="bruteforce")])
 def test_features_outside_the_slice_raise(change):
     require_slice(RenderConfig(max_depth=1, sky=True, denoise=True,
                                upscale=2, upscale_mode="temporal"))
     with pytest.raises(NotImplementedError) as err:
         require_slice(RenderConfig(**{"max_depth": 1, **change}))
-    assert "denoise" not in str(err.value)
-    assert "upscale" not in str(err.value)
+    for name in ("denoise", "upscale", "indirect", "jitter", "sort_bounces"):
+        assert name not in str(err.value)
+
+
+def test_path_tracing_configs_accepted():
+    """The JAX package's named configs that the port renders pass
+    require_slice, and CONFIGS is the JAX package's, field for field."""
+    import dataclasses
+
+    from hrt_tpu.config import CONFIGS as JCONFIGS
+    from hrt_tpu_torch.config import CONFIGS
+
+    assert CONFIGS.keys() == JCONFIGS.keys()
+    for name, cfg in CONFIGS.items():
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(JCONFIGS[name])
+        require_slice(cfg)
+    require_slice(dataclasses.replace(CONFIGS["path_tracing"],
+                                      sort_bounces=True))

@@ -422,11 +422,14 @@ def test_single_instance_scene_walks_binary():
     assert tl.w8_nodes is None and tl.tlas_m == 3
 
 
+# Bounces are ported; a two-level path-traced loop still refuses
+# sampled many-light NEE.
 @pytest.mark.parametrize("what,call,exc,match", [
-    ("indirect", lambda: FrameLoop(
+    pytest.param("light_samples", lambda: FrameLoop(
         port_scene(_instanced_scene()),
-        RenderConfig(indirect=True, **FRAME), two_level=True,
-        device="cpu"), NotImplementedError, "indirect"),
+        RenderConfig(indirect=True, light_samples=2, **FRAME),
+        two_level=True, device="cpu"), NotImplementedError,
+        "light_samples", id="light_samples"),
 ])
 def test_refusals(what, call, exc, match):
     with pytest.raises(exc, match=match):
@@ -595,3 +598,24 @@ def test_instance_grid_scene_matches_bench_full():
     np.testing.assert_array_equal(np.stack(ps.materials),
                                   np.stack(js.materials))
     np.testing.assert_array_equal(np.stack(ps.lights), np.stack(js.lights))
+
+
+@pytest.mark.parametrize("table", ["jax_table", "jax_binary"])
+def test_path_traced_two_level_frame_matches_jax(jax_loop, tables, table):
+    """A path-traced two-level frame (bounces, depth 2) on JAX's tables
+    of both routes, carried over (K4's and K5's plain walks and
+    shade_attrs_tlas at every depth), against JAX's render on its
+    accel."""
+    from hrt_tpu.renderer import render as jrender
+
+    kw = dict(FRAME, max_depth=2, indirect=True)
+    jimg = np.asarray(jrender(jax_loop.scene, JCamera(**CAM), JRenderConfig(
+        shade_pallas=False, **kw), accel=jax_loop.accel))
+    img = renderer.render(port_scene(_instanced_scene()), Camera(**CAM),
+                          RenderConfig(**kw), tables[table])
+    assert np.isfinite(img).all()
+    assert psnr(np.clip(img, 0, 4), np.clip(jimg, 0, 4), peak=4.0) > 45.0
+    assert (np.abs(img - jimg).max(-1) <= 1e-3).mean() >= 0.99
+    direct = renderer.render(port_scene(_instanced_scene()), Camera(**CAM),
+                             RenderConfig(**FRAME), tables[table])
+    assert img.sum() > direct.sum()
