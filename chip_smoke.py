@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from hrt_tpu_torch/csrc/, then drives the
-port's paths: the five direct-lighting ones, then the path tracer.  The bench frame: the bench scene (three icospheres +
+port's paths: the five direct-lighting ones, the path tracer, then
+many-light sampled NEE, textures and the pbr BSDF on the shipped scene
+files.  The bench frame: the bench scene (three icospheres +
 ground plane, two point lights), SAH build with 32-triangle leaves and
 its BVH8 records, and `render_frames` of 32 frames at 512x384
 (max_depth=1, sky on), plus one 1920x1080 frame.  The instanced frame:
@@ -143,6 +145,37 @@ over the bench frame, whose history fetches run K6.  Phases:
      sort's own time (key, torch.sort, the gathers);
      the card's busy share of one 1080p path_tracing step
      (torch.profiler, once)
+ 31. many lights through FrameLoop, 32 steps each at 512x384 with 2
+     light samples a ray: bench_full's many_lights_256_512x384 (256
+     point lights over a sphere field, light_sampler="bvh": the light
+     tree's descent), the same with "auto" (at 256 lights the flat CDF
+     scan) and many_lights_scene(1024) with "auto" (the tree); per step
+     one K1 closest, one K1 any hit (2N rays) and one K2 (L = 2), and no
+     other walk; the last frame vs its plain replay; K1 both modes and K2
+     on its batches vs their plain versions; the light picks of the
+     kernel path vs the plain path's; peak memory
+ 32. one 1920x1080 many_lights_256 frame by the tree, same checks, and
+     its time
+ 33. scenes/studio.yaml (held here as STUDIO_SPEC: a checkerboard
+     texture, a spot light, glass and chrome) at 800x600 through
+     FrameLoop, 4 steps each: direct (max_depth=2), path traced
+     (max_depth=4, bounces, jitter: 4 K1 closest, 4 any hit, 4 K2 a
+     step) and brdf='pbr' (the pbr BSDF in PyTorch, no K2); each vs its
+     plain replay, K1 and K2 on its batches vs their plain versions
+ 34. scenes/colonnade.yaml (COLONNADE_SPEC: a directional sun and a
+     point light) through FrameLoop(two_level=True) at 512x384, 4 steps,
+     once per light and with light_samples=1 (sampled through K4): K4
+     closest, K4 any hit and K2 once a step, no K1; vs the plain replay
+     and vs the scene flattened through K1
+ 35. times (CUDA events, median of 7): ms/frame of phases 31-34's
+     configurations with two Mray/s figures apiece, traced rays (pixels
+     x (1 + S) per depth, S the shadow rays a ray traces) and bench.py's
+     equivalent queries (pixels x (1 + L) per depth); the device ms of
+     light sampling (tree against scan) and of texture sampling under
+     torch.profiler; the tree's and the scan's 256-light frames in 10
+     alternating pairs; the busy share of the many-light frames; K1 and
+     K2 on the many_lights_256 frame's batches vs their plain versions
+     and bounds
 
 Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
 through K1 and K2, held off the image diagonals where the box's wall
@@ -174,8 +207,8 @@ and the comparisons are skipped.
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails.  The line before the last is the kernels JSON (the six
 kernels on the direct-lighting paths, then K1's two modes and K2 on the
-path_tracing frame, one frame's five launches each); the last is
-{"ok": true, "device": {...}}.
+path_tracing frame, one frame's five launches each, then on the
+many_lights_256 frame); the last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -196,6 +229,77 @@ CORNELL_CAM = dict(position=(0.0, 0.0, -3.2), fov_y=0.7)
 PT_SMALL = (512, 384)
 PT_FULL = (1920, 1080)
 PT_CORNELL = (800, 600)
+# scenes/studio.yaml and scenes/colonnade.yaml as dicts (no yaml import
+# here: the card's machine need not have pyyaml); a CPU test holds them
+# equal to the files.
+STUDIO_SPEC = {
+    "meshes": [{"name": "floor", "plane": {"size": 12.0}},
+               {"name": "ball",
+                "icosphere": {"subdivisions": 3, "radius": 1.0}},
+               {"name": "block", "cube": {"size": 1.0}}],
+    "textures": [{"name": "checker",
+                  "checkerboard": {"n": 12, "res": 256}}],
+    "materials": [
+        {"name": "floor", "color": [0.9, 0.9, 0.9], "roughness": 0.85,
+         "texture": "checker"},
+        {"name": "chrome", "color": [0.92, 0.93, 0.95], "metallic": 1.0,
+         "roughness": 0.04},
+        {"name": "glass", "color": [0.98, 0.99, 0.98], "roughness": 0.02,
+         "transmission": 1.0, "ior": 1.5},
+        {"name": "clay", "color": [0.75, 0.3, 0.2], "roughness": 0.9},
+        {"name": "gold", "color": [0.95, 0.75, 0.3], "metallic": 1.0,
+         "roughness": 0.25}],
+    "lights": [
+        {"position": [-3.0, -4.0, -2.0], "color": [1.0, 0.85, 0.7],
+         "intensity": 35.0},
+        {"position": [3.5, -3.0, -3.0], "color": [0.6, 0.75, 1.0],
+         "intensity": 25.0},
+        {"position": [0.0, -6.0, 1.0], "color": [1.0, 1.0, 1.0],
+         "intensity": 50.0, "type": "spot", "direction": [0.0, 1.0, 0.0],
+         "cone_angle": 0.6}],
+    "instances": [
+        {"mesh": "floor", "material": "floor", "position": [0, 1, 0]},
+        {"mesh": "ball", "material": "chrome", "position": [-1.6, 0.2, 0.6],
+         "scale": [0.8, 0.8, 0.8]},
+        {"mesh": "ball", "material": "glass", "position": [0.4, 0.45, -0.4],
+         "scale": [0.55, 0.55, 0.55]},
+        {"mesh": "ball", "material": "clay", "position": [1.8, 0.5, 0.8],
+         "scale": [0.5, 0.5, 0.5]},
+        {"mesh": "block", "material": "gold", "position": [0.9, 0.7, 1.6],
+         "rotation": [0, 0.5, 0], "scale": [0.6, 0.6, 0.6]}],
+    "sky": {"brightness": 0.6},
+}
+COLONNADE_SPEC = {
+    "meshes": [{"name": "ground", "plane": {"size": 40.0}},
+               {"name": "column", "cube": {"size": 1.0}},
+               {"name": "cap", "cube": {"size": 1.0}},
+               {"name": "orb",
+                "icosphere": {"subdivisions": 2, "radius": 1.0}}],
+    "materials": [
+        {"name": "stone", "color": [0.75, 0.72, 0.65], "roughness": 0.9},
+        {"name": "ground", "color": [0.45, 0.5, 0.4], "roughness": 1.0},
+        {"name": "brass", "color": [0.85, 0.65, 0.3], "metallic": 1.0,
+         "roughness": 0.3}],
+    "lights": [
+        {"position": [0.0, -50.0, 0.0], "color": [1.0, 0.95, 0.85],
+         "intensity": 3.0, "type": "directional",
+         "direction": [0.35, 1.0, 0.25]},
+        {"position": [0.0, -1.5, 2.0], "color": [1.0, 0.2, 0.1],
+         "intensity": 12.0}],
+    "instances": (
+        [{"mesh": "ground", "material": "ground", "position": [0, 1, 0]}]
+        + [{"mesh": "column", "material": "stone",
+            "position": [x, -0.5, z], "scale": [0.4, 3.0, 0.4]}
+           for z in (-2.0, 4.0) for x in (-4.5, -1.5, 1.5, 4.5)]
+        + [{"mesh": "cap", "material": "stone", "position": [x, -2.1, -2.0],
+            "scale": [0.7, 0.2, 0.7]} for x in (-4.5, -1.5, 1.5, 4.5)]
+        + [{"mesh": "orb", "material": "brass", "position": [0.0, 0.3, 1.0],
+            "scale": [0.7, 0.7, 0.7]}]),
+    "sky": {"brightness": 1.0},
+}
+# The studio frames' camera (tests/test_scenefile.py), also the
+# colonnade's.
+STUDIO_CAM = dict(position=(0.0, -1.5, -6.0), rotation=(-0.15, 0.0, 0.0))
 K1_SOURCE = "hrt_tpu_torch/csrc/bvh8_trace.cu"
 K1_REPLACES = "hrt_tpu/ops/traversal_wide8.py:679"
 K2_SOURCE = "hrt_tpu_torch/csrc/brdf_light_major.cu"
@@ -1361,11 +1465,10 @@ def batch_planes(b: dict, scene, cfg):
     n = o.x.numel()
     tmax = torch.broadcast_to(torch.as_tensor(
         b["t_max"], dtype=torch.float32, device=o.x.device), (n,)).contiguous()
-    lb = renderer.light_batch(scene, sh.normal, sh.world_pos, cfg,
-                              ray_mask=sh.hit)
+    lb, _ = renderer.nee_light_batch(scene, sh.normal, sh.world_pos, cfg,
+                                     sh.hit, b["seed"])
     shadow = (*lb.origin, *lb.l, lb.t_max)
-    k2 = (sh.mat, sh.normal, sh.view, lb.l, lb.relevant,
-          scene.lights.shape[0])
+    k2 = (sh.mat, sh.normal, sh.view, lb.l, lb.relevant, len(lb.color))
     return (*o, *d, tmax), shadow, k2
 
 
@@ -1832,6 +1935,379 @@ def path_times(sm: Smoke, dev, scene, accel, pt: dict, anim: dict) -> dict:
         print(f"  {key}, the frame's {cfg.max_depth} launches: {t['ms']:.4f} "
               f"ms, plain {t['plain_ms']:.4f} ms, bound {bms:.6f} ms ({by})",
               flush=True)
+    return entries
+
+
+def launch_counts() -> dict:
+    """Every walk's and K2's launch counters, by kernel."""
+    from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
+    from hrt_tpu_torch.ops import traversal_tlas8 as k4
+    from hrt_tpu_torch.ops import traversal_tlas_skip as k5
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    return {"k1_closest": k1.LAUNCHES["closest"],
+            "k1_any_hit": k1.LAUNCHES["any_hit"],
+            "k2": shade_kernel.LAUNCHES["brdf_light_major"],
+            "k3": k3.LAUNCHES["closest"] + k3.LAUNCHES["any_hit"],
+            "k4_closest": k4.LAUNCHES["closest"],
+            "k4_any_hit": k4.LAUNCHES["any_hit"],
+            "k5": k5.LAUNCHES["closest"] + k5.LAUNCHES["any_hit"]}
+
+
+def reset_all() -> None:
+    from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
+    from hrt_tpu_torch.ops import traversal_tlas8 as k4
+    from hrt_tpu_torch.ops import traversal_tlas_skip as k5
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    reset(k1.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES,
+          shade_kernel.LAUNCHES)
+
+
+def drive_loop(sm: Smoke, label: str, loop, cam, steps: int,
+               want: dict) -> dict:
+    """`steps` steps of a FrameLoop through the kernels, the counters set
+    to 0 just before and read just after: every step must launch `want`
+    (the counts not named there: none).  Returns the last frame, the
+    totals and the run's peak memory above what was held before it
+    (earlier phases' loops stay alive)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_all()
+    deltas = []
+    for _ in range(steps):
+        before = launch_counts()
+        img = loop.step(cam)
+        deltas.append({k: v - before[k] for k, v in launch_counts().items()})
+    torch.cuda.synchronize()
+    totals = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    full = {k: want.get(k, 0) for k in totals}
+    sm.check(all(d == full for d in deltas),
+             f"{label}: launches per step {deltas[-1]} on all {steps} steps")
+    sm.check(tuple(img.shape) == (loop.config.height, loop.config.width, 3)
+             and bool(torch.isfinite(img).all()),
+             f"{label}: frame {tuple(img.shape)} finite")
+    print(f"  {label}: peak memory {peak / 2**30:.3f} GiB, "
+          f"{(peak - held) / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB "
+          "held before the run", flush=True)
+    return {"img": img, "totals": totals, "peak": peak - held}
+
+
+def frame_with_batches(loop, frame: int, plain: bool):
+    """Frame `frame` of a loop without post stages, rendered again at the
+    loop's last camera (plain versions with `plain`), with every depth's
+    batch."""
+    from hrt_tpu_torch import renderer
+
+    b = []
+    img = renderer.render_rows(loop.scene, loop.accel, loop.prev_cams, 0,
+                               loop.config.height, loop.config, plain=plain,
+                               frame=frame, _batches=b)
+    return img, b
+
+
+def nee_checks(sm: Smoke, label: str, loop, walk, steps: int) -> dict:
+    """The last step's frame against its plain replay, and on its depth-0
+    batch: the walk's closest and any hit (over the light-major NEE
+    batch: the S samples, or every light) and K2 against their plain
+    versions, and the sampled lights' picks of the kernel path against
+    the plain path's.  Returns the batch's planes and the max errors."""
+    import torch
+
+    from hrt_tpu_torch import renderer
+
+    img, kb = frame_with_batches(loop, steps - 1, False)
+    ref, pb = frame_with_batches(loop, steps - 1, True)
+    p = psnr4(img, ref)
+    sm.check(p > 45.0, f"{label}: frame {steps - 1} vs the plain replay PSNR "
+             f"{p:.2f}")
+    cfg, scene, t_min = loop.config, loop.scene, loop.config.t_min
+    prim, shadow, k2 = batch_planes(kb[0], scene, cfg)
+    errs = {"closest": check_closest(
+        sm, f"{label}: closest vs plain", walk.trace_kernel(
+            loop.accel, *prim, t_min, True),
+        walk.trace_plain(loop.accel, *prim, t_min, True)),
+        "any_hit": check_occlusion(
+        sm, f"{label}: any hit vs plain on the light-major batch of "
+        f"{k2[5]} samples a ray", walk.trace_kernel(
+            loop.accel, *shadow, t_min, False),
+        walk.trace_plain(loop.accel, *shadow, t_min, False)),
+        "k2": k2_check(sm, f"{label}: L = {k2[5]}", k2) if cfg.brdf != "pbr"
+        else float("nan")}
+    if cfg.light_samples:
+        picks = []
+        for b in (kb[0], pb[0]):
+            sh = b["hits"]
+            lb, _ = renderer.nee_light_batch(scene, sh.normal, sh.world_pos,
+                                             cfg, sh.hit, b["seed"])
+            picks.append(lb.pick)
+        both = kb[0]["hits"].hit & pb[0]["hits"].hit
+        agree = min(float((a == b)[both].float().mean())
+                    for a, b in zip(*picks))
+        sm.check(agree >= 0.999, f"{label}: light picks of the kernel path "
+                 f"equal the plain path's on {agree:.6f} of the "
+                 f"{int(both.sum())} rays both hit")
+    return {"prim": prim, "shadow": shadow, "k2": k2, "errs": errs,
+            "batch": kb[0]}
+
+
+def many_lights_phases(sm: Smoke, dev) -> dict:
+    """Phases 31-32: bench_full's many_lights_256_512x384 (the light tree,
+    light_sampler="bvh"), the same scene with "auto" (the flat CDF scan
+    at 256 lights) and many_lights_scene(1024) with "auto" (the tree)
+    through FrameLoop, 32 steps each at 512x384; one 1920x1080 frame of
+    the first."""
+    import dataclasses
+
+    from hrt_tpu_torch.config import RenderConfig
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.models.scene import many_lights_scene
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    steps = 32
+    base = RenderConfig(width=512, height=384, max_depth=1, sky=True,
+                        light_samples=2, light_sampler="bvh",
+                        traversal="pallas")
+    runs = {"many_lights_256 bvh": (256, base),
+            "many_lights_256 auto (scan)": (256, dataclasses.replace(
+                base, light_sampler="auto")),
+            "many_lights_1024 auto (tree)": (1024, dataclasses.replace(
+                base, light_sampler="auto"))}
+    phase(f"phase 31: many lights through FrameLoop, {steps} steps each at "
+          "512x384 (2 light samples a ray): 256 lights by the tree and by "
+          "'auto' (the scan), 1024 lights by 'auto' (the tree)")
+    cam = Camera(**BENCH_CAM)
+    out = {}
+    want = {"k1_closest": 1, "k1_any_hit": 1, "k2": 1}
+    for label, (n_lights, cfg) in runs.items():
+        loop = FrameLoop(many_lights_scene(n_lights), cfg,
+                         cull_threshold_px=0.0, device=dev)
+        r = drive_loop(sm, label, loop, cam, steps, want)
+        r.update(nee_checks(sm, label, loop, k1, steps), loop=loop)
+        out[label] = r
+    w, h = PT_FULL
+    phase(f"phase 32: one {w}x{h} many_lights_256 frame by the tree")
+    loop = out["many_lights_256 bvh"]["loop"]
+    loop.set_resolution(w, h)
+    drive_loop(sm, f"many_lights_256 bvh {w}x{h}", loop, cam, 1, want)
+    img, _ = frame_with_batches(loop, 0, False)
+    ref, _ = frame_with_batches(loop, 0, True)
+    sm.check(psnr4(img, ref) > 45.0, f"{w}x{h} frame vs the plain replay "
+             f"PSNR {psnr4(img, ref):.2f}")
+    ms = time_ms(lambda: loop.step(cam))
+    px = w * h
+    print(f"  many_lights_256 bvh {w}x{h}: {ms:.4f} ms/frame (CUDA events, "
+          f"median of 7); traced rays {px * 3} = {px * 3 / ms / 1e3:.2f} "
+          f"Mray/s; equivalent queries {px * 257} = "
+          f"{px * 257 / ms / 1e3:.2f} Mray/s", flush=True)
+    loop.set_resolution(512, 384)
+    return out
+
+
+def scene_file_phases(sm: Smoke, dev) -> dict:
+    """Phases 33-34: scenes/studio.yaml at 800x600 (a checkerboard
+    texture, a spot light, glass and chrome) direct, path traced and with
+    the pbr BSDF; scenes/colonnade.yaml (a directional sun) through
+    FrameLoop(two_level=True) (K4) once per light and with one sampled
+    light, against its plain replay and the same scene flattened through
+    K1."""
+    import dataclasses
+
+    from hrt_tpu_torch.config import RenderConfig
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.models.scenefile import scene_from_dict
+    from hrt_tpu_torch.ops import traversal_tlas8 as k4
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    steps = 4
+    w, h = PT_CORNELL
+    direct = RenderConfig(width=w, height=h, max_depth=2, sky=True)
+    studio = {"studio direct": (direct, 1),
+              "studio path traced": (dataclasses.replace(
+                  direct, max_depth=4, indirect=True, jitter=True), 4),
+              "studio pbr": (dataclasses.replace(direct, brdf="pbr"), 1)}
+    phase(f"phase 33: scenes/studio.yaml at {w}x{h}, {steps} steps each: "
+          "direct (max_depth=2), path traced (max_depth=4, bounces, jitter) "
+          "and brdf='pbr'")
+    cam = Camera(**STUDIO_CAM)
+    out = {}
+    for label, (cfg, d) in studio.items():
+        loop = FrameLoop(scene_from_dict(STUDIO_SPEC), cfg,
+                         cull_threshold_px=0.0, device=dev)
+        sm.check(tuple(loop.scene.textures.shape) == (1, 256, 256, 3),
+                 f"{label}: one 256x256 texture on the card")
+        want = {"k1_closest": d, "k1_any_hit": d,
+                "k2": 0 if cfg.brdf == "pbr" else d}
+        r = drive_loop(sm, label, loop, cam, steps, want)
+        r.update(nee_checks(sm, label, loop, k1, steps), loop=loop)
+        out[label] = r
+    w, h = PT_SMALL
+    phase(f"phase 34: scenes/colonnade.yaml through FrameLoop(two_level="
+          f"True) at {w}x{h}, {steps} steps each, once per light and with "
+          "one sampled light; vs the scene flattened through K1")
+    for label, ls in (("colonnade", 0), ("colonnade sampled", 1)):
+        cfg = RenderConfig(width=w, height=h, max_depth=1, sky=True,
+                           light_samples=ls)
+        loop = FrameLoop(scene_from_dict(COLONNADE_SPEC), cfg,
+                         two_level=True, device=dev)
+        r = drive_loop(sm, label, loop, cam, steps,
+                       {"k4_closest": 1, "k4_any_hit": 1, "k2": 1})
+        r.update(nee_checks(sm, label, loop, k4, steps), loop=loop)
+        flat = FrameLoop(scene_from_dict(COLONNADE_SPEC), cfg,
+                         cull_threshold_px=0.0, device=dev)
+        for _ in range(steps):
+            img = flat.step(cam)
+        p = psnr4(r["img"], img)
+        sm.check(p > 45.0, f"{label}: the two-level frame vs the flattened "
+                 f"scene's through K1 PSNR {p:.2f}")
+        out[label] = r
+    return out
+
+
+def profiled_device_ms(fn) -> float:
+    """The device kernels' summed time of one fn() call under
+    torch.profiler (after a warm-up call); nan when the profile shows no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return ms if ms > 0 else float("nan")
+
+
+def materials_times(sm: Smoke, dev, ml: dict, sf: dict) -> list:
+    """Phase 35: ms/frame (CUDA events, median of 7 steps) and Mray/s of
+    every configuration of phases 31-34, counted twice: traced rays
+    (pixels x (1 + S) per depth, S the shadow rays a ray traces: the
+    light samples, or every light) and bench.py's equivalent queries
+    (pixels x (1 + L) per depth, bench.py:36-43); the device ms of light
+    sampling (the tree's descent against the scan) and of texture
+    sampling (torch.profiler); the tree's and the scan's 256-light
+    frames in alternating pairs; the busy share of the many-light
+    frames; K1 and K2 on the many_lights_256 frame's batches against
+    their plain versions and bounds.  Returns the kernels line's entries
+    for them."""
+    import torch
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.models.materials import BASE_COLOR_TEX
+    from hrt_tpu_torch.models.textures import sample_texture_p
+    from hrt_tpu_torch.ops import shade_kernel
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    phase("phase 35: many-light, studio and colonnade times (CUDA events, "
+          "median of 7; kernels 10 calls per sample)")
+    for runs, cam in ((ml, Camera(**BENCH_CAM)), (sf, Camera(**STUDIO_CAM))):
+        for label, r in runs.items():
+            loop = r["loop"]
+            cfg = loop.config
+            nl = loop.scene.lights.shape[0]
+            s = (cfg.light_samples if cfg.light_samples
+                 and nl > cfg.light_samples else nl)
+            d = cfg.max_depth if cfg.indirect else 1
+            px = cfg.width * cfg.height * cfg.spp
+            ms = time_ms(lambda: loop.step(cam))
+            print(f"  {label} {cfg.width}x{cfg.height}: {ms:.4f} ms/frame; "
+                  f"traced rays {px * (1 + s) * d} = "
+                  f"{px * (1 + s) * d / ms / 1e3:.2f} Mray/s; equivalent "
+                  f"queries {px * (1 + nl) * d} = "
+                  f"{px * (1 + nl) * d / ms / 1e3:.2f} Mray/s; peak memory "
+                  f"{r['peak'] / 2**30:.3f} GiB above the run's start",
+                  flush=True)
+    # The tree against the scan at 256 lights, frame for frame: the
+    # frames are host-bound, so only alternating pairs in one call
+    # compare them.
+    steps = {k: (lambda loop=ml[k]["loop"]: loop.step(Camera(**BENCH_CAM)))
+             for k in ("many_lights_256 bvh", "many_lights_256 auto (scan)")}
+    tree, scan = steps.values()
+    t, c = [], []
+    for p in range(10):
+        for fn in ((tree, scan) if p % 2 == 0 else (scan, tree)):
+            (t if fn is tree else c).append(time_ms(fn, reps=1))
+    print(f"  many_lights_256 at 512x384, 10 pairs alternating: median tree "
+          f"{statistics.median(t):.4f} ms/frame, scan "
+          f"{statistics.median(c):.4f} (tree / scan "
+          f"{statistics.median(t) / statistics.median(c):.4f}); tree faster "
+          f"in {sum(a < b for a, b in zip(t, c))} of 10", flush=True)
+    for label, r in ml.items():
+        loop, b = r["loop"], r["batch"]
+        sh = b["hits"]
+        sample = lambda: renderer.nee_light_batch(
+            loop.scene, sh.normal, sh.world_pos, loop.config, sh.hit,
+            b["seed"])
+        print(f"  {label}: light sampling (nee_light_batch, 2 samples over "
+              f"{sh.hit.numel()} rays) {profiled_device_ms(sample):.4f} ms "
+              f"device (torch.profiler), {time_ms(sample):.4f} ms CUDA events",
+              flush=True)
+    st = sf["studio direct"]
+    loop = st["loop"]
+    t, tri, u, v = k1.trace_kernel(loop.accel, *st["prim"], loop.config.t_min,
+                                   True)
+    _, _, rows, (tu, tv) = renderer._shade_attrs_p(loop.accel.attr, tri, u, v)
+    tex_id = rows[:, BASE_COLOR_TEX].to(torch.int32)
+    tex = lambda: sample_texture_p(loop.scene.textures, tex_id, tu, tv)
+    print(f"  studio 800x600: texture sampling {profiled_device_ms(tex):.4f} "
+          f"ms device (torch.profiler), {time_ms(tex):.4f} ms CUDA events; "
+          f"{float((tex_id >= 0).float().mean()):.3f} of rays textured",
+          flush=True)
+    for label in ("many_lights_256 bvh", "many_lights_256 auto (scan)"):
+        loop = ml[label]["loop"]
+        print(f"  {label}: one step (FrameLoop.step), profiled:", flush=True)
+        busy_share(lambda: loop.step(Camera(**BENCH_CAM)))
+    r = ml["many_lights_256 bvh"]
+    acc, t_min = r["loop"].accel, r["loop"].config.t_min
+    tab = nbytes(acc.w8_rec, acc.tris)
+    jobs = {
+        "closest": (lambda: k1.trace_kernel(acc, *r["prim"], t_min, True),
+                    lambda: k1.trace_plain(acc, *r["prim"], t_min, True),
+                    tab + walk_bytes(r["prim"], 16),
+                    walk_ops(k1, acc, r["prim"], t_min, True,
+                             "K1 closest, many_lights_256")),
+        "any_hit": (lambda: k1.trace_kernel(acc, *r["shadow"], t_min, False),
+                    lambda: k1.trace_plain(acc, *r["shadow"], t_min, False),
+                    tab + walk_bytes(r["shadow"], 1),
+                    walk_ops(k1, acc, r["shadow"], t_min, False,
+                             "K1 any-hit, many_lights_256 (2 samples)")),
+        "k2": (lambda: shade_kernel.brdf_light_major_kernel(*r["k2"]),
+               lambda: shade_kernel.brdf_light_major_plain(*r["k2"]),
+               k2_bytes(r["k2"]), int(r["k2"][4].sum()) * K2_OPS_PER_ELEMENT)}
+    entries = []
+    names = {"closest": ("bvh8_trace_closest", K1_SOURCE, K1_REPLACES,
+                         "k1_closest"),
+             "any_hit": ("bvh8_trace_any_hit", K1_SOURCE, K1_REPLACES,
+                         "k1_any_hit"),
+             "k2": ("brdf_light_major", K2_SOURCE, K2_REPLACES, "k2")}
+    for key, (kern, plain, n_bytes, ops) in jobs.items():
+        ms = time_ms(kern, calls=10)
+        plain_ms = time_ms(plain, reps=3)
+        bms, by = bound(n_bytes, ops)
+        print(f"  many_lights_256 bvh {key}: {ms:.4f} ms (one call alone "
+              f"{time_ms(kern):.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{bms:.6f} ms ({by}; {n_bytes} bytes, {ops:.4e} operations)",
+              flush=True)
+        name, src, rep, count = names[key]
+        entries.append({
+            "name": f"{name} (many_lights_256 frame)", "route": "cuda",
+            "source": src, "replaces": rep,
+            "launches": r["totals"][count], "max_abs_err": r["errs"][key],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None})
     return entries
 
 
@@ -2562,6 +3038,9 @@ def main() -> int:
         "K5": (floop, k5, forest_step)})
     anim = animated_phase(sm, dev)
     p_times = path_times(sm, dev, p_scene, p_accel, pt, anim)
+    ml = many_lights_phases(sm, dev)
+    sf = scene_file_phases(sm, dev)
+    m_entries = materials_times(sm, dev, ml, sf)
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,
@@ -2646,6 +3125,10 @@ def main() -> int:
         {"name": "brdf_light_major (path_tracing frame)", "route": "cuda",
          "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": pt["totals"]["k2"], **p_times["k2"]},
+        # The many_lights_256 frame by the tree (512x384, 2 samples): its
+        # batches' K1 closest, K1 any hit over the 2-sample light-major
+        # batch and K2 with L = 2; launches over phase 31's 32 steps.
+        *m_entries,
     ]
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} check(s) failed: "

@@ -1,10 +1,11 @@
 """hrt_tpu_torch — the path tracer on PyTorch + CUDA (NVIDIA Hopper).
 
 A second package beside the JAX reference `hrt_tpu`.  It renders the
-direct-lighting frame (primary closest hit, Disney BRDF, one shadow ray
-per light, sky on miss) on single-level and two-level (instanced)
-scenes, and its post stages (accumulate, SVGF, the learned 2x
-upscalers), through hand-written CUDA kernels:
+path tracer (Disney BRDF or the pbr BSDF, textures, a shadow ray per
+light or sampled lights by the CDF scan or the light tree, sky on miss,
+bounces) on single-level and two-level (instanced) scenes, and its post
+stages (accumulate, SVGF, the learned 2x upscalers), through
+hand-written CUDA kernels:
 
 - ``ops/traversal_wide8`` — the BVH8 walk (K1), ``csrc/bvh8_trace.cu``;
 - ``ops/traversal_skip`` — the binary skip-link walk (K3) of accels

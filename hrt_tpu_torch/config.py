@@ -4,9 +4,11 @@ Keeping every field (and its default) lets one config object describe
 the same frame to both packages.  Knobs that only steer TPU speed
 (`shade_pallas`, `block_reorder`, `shadow_interleave`,
 `shadow_from_light`, `tri_chunk`, `leaf_size`) are accepted and do not
-change this package's output.  Features outside the ported slice are
-refused by `require_slice`.  `CONFIGS` holds the JAX package's named
-benchmark configurations.
+change this package's output.  `light_sampler` picks the sampled NEE's
+light sampler: "bvh" the light-tree descent, "auto" the tree past 384
+lights, anything else the flat CDF scan.  Features outside the ported
+slice are refused by `require_slice`.  `CONFIGS` holds the JAX
+package's named benchmark configurations.
 """
 from __future__ import annotations
 
@@ -72,24 +74,19 @@ CONFIGS = {
 
 def require_slice(config: RenderConfig) -> None:
     """Raise NotImplementedError for any feature this package does not
-    render yet: the port covers the path tracer (Disney BRDF, one shadow
-    ray per light, sky on miss, bounces with Russian roulette, jitter,
+    render yet: the port covers the path tracer (the Disney BRDF or the
+    pbr BSDF, textures, a shadow ray per light or `light_samples`
+    sampled lights, sky on miss, bounces with Russian roulette, jitter,
     the sorted wavefront) and its post stages (accumulate, SVGF, the
-    spatial or temporal 2x upscaler); sampled many-light NEE, the pbr
-    BSDF and the brute-force walk are not ported.  An upscale_mode the
-    JAX package does not know raises ValueError."""
+    spatial or temporal 2x upscaler); the brute-force walk is not
+    ported.  An upscale_mode the JAX package does not know raises
+    ValueError."""
     if config.upscale_mode not in ("spatial", "temporal"):
         raise ValueError(f"upscale_mode must be 'spatial' or 'temporal', "
                          f"not {config.upscale_mode!r}")
-    unsupported = {
-        "light_samples>0": config.light_samples > 0,
-        "brdf='pbr'": config.brdf == "pbr",
-        "traversal='bruteforce'": config.traversal == "bruteforce",
-    }
-    names = [k for k, v in unsupported.items() if v]
-    if names:
+    if config.traversal == "bruteforce":
         raise NotImplementedError(
-            "not ported yet: " + ", ".join(names))
+            "not ported yet: traversal='bruteforce'")
 
 
 def resolve_device(device) -> torch.device:

@@ -77,3 +77,45 @@ def process_light_one(light: torch.Tensor, p: V3):
     unbounded = is_dir & has_dir
     color = V3(light[3], light[4], light[5])
     return direction, color, intensity, unbounded
+
+
+def process_light(lights: torch.Tensor, world_pos: torch.Tensor):
+    """processLight over every light at once (the JAX package's
+    `process_light`).  lights: (L, LIGHT_W); world_pos: (..., 3).
+    Returns (to_light (..., L, 3) unnormalized, color (L, 3), intensity
+    (..., L), unbounded shadow (L,) bool): a point light falls off with
+    1/d^2, a spot light also cuts at its cone, a directional light with
+    a direction shines along it unbounded and unattenuated, and a
+    non-point light without one takes the reference's fixed direction."""
+    lpos = lights[:, POSITION]
+    lcol = lights[:, COLOR]
+    lint = lights[:, INTENSITY]
+    ltype = lights[:, TYPE]
+    ldir = lights[:, DIRECTION]
+    has_dir = torch.sum(ldir * ldir, -1) > 1e-12
+
+    to_light_pt = lpos - world_pos[..., None, :]
+    d2 = torch.sum(to_light_pt * to_light_pt, dim=-1)
+    falloff = lint / torch.clamp(d2, min=1e-12)
+
+    is_point = ltype == POINT
+    is_spot = ltype == SPOT
+    is_dir = ltype == DIRECTIONAL
+
+    axis = ldir / torch.clamp(
+        torch.sqrt(torch.sum(ldir * ldir, -1, keepdim=True)), min=1e-12)
+    cos_to = torch.sum(-to_light_pt * axis, -1) / torch.clamp(
+        torch.sqrt(d2), min=1e-12)
+    in_cone = cos_to >= lights[:, COS_CONE]
+    spot_int = falloff * in_cone.to(torch.float32)
+
+    fixed = torch.tensor(_DEFAULT_DIR, dtype=torch.float32,
+                         device=lights.device)
+    dir_to_light = torch.where(has_dir[:, None], -ldir, fixed)
+
+    intensity = torch.where(is_point, falloff,
+                            torch.where(is_spot & has_dir, spot_int, lint))
+    direction = torch.where((is_point | is_spot)[:, None], to_light_pt,
+                            dir_to_light)
+    unbounded = is_dir & has_dir
+    return direction, lcol, intensity, unbounded

@@ -2,8 +2,8 @@
 demo and Cornell box scenes (numpy, carried over from
 hrt_tpu/models/mesh.py).
 
-Vertex layout: pos[3] + normal[3] + uv[2] = 8 float32.  OBJ loading
-comes with a later slice.
+Vertex layout: pos[3] + normal[3] + uv[2] = 8 float32.  OBJ files load
+through the native library (`load_obj`).
 """
 from __future__ import annotations
 
@@ -22,6 +22,15 @@ class Mesh:
     @property
     def num_triangles(self) -> int:
         return int(self.indices.shape[0])
+
+
+def load_obj(path: str) -> Mesh:
+    """An OBJ file as a Mesh (native/objloader.cpp: the JAX package's
+    load_obj semantics, Y negated as in the reference)."""
+    from .. import native
+
+    verts, idx = native.load_obj(path)
+    return Mesh(vertices=verts, indices=idx)
 
 
 def make_mesh(positions: np.ndarray, indices: np.ndarray,

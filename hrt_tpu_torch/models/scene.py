@@ -15,16 +15,20 @@ import torch
 from . import lights as lights_mod
 from . import materials as mat_mod
 from . import sky as sky_mod
+from . import textures as tex_mod
 from .instance import MeshInstance
-from .mesh import Mesh
+from .mesh import Mesh, load_obj
+from ..ops import lightbvh
 
 PAD = 128
 
 
 class SceneData(NamedTuple):
     """Flat scene tensors; field names and layouts as the JAX package's
-    SceneData.  `textures` and `light_tree` belong to later slices and
-    are None here."""
+    SceneData.  `textures` is the packed (K, R, R, 3) base-color table
+    (models/textures.py; K = 0 without textures), `light_tree` the
+    light BVH (ops/lightbvh.py; None without lights).  A SceneData made
+    by hand may leave both None."""
 
     tri_v0: torch.Tensor   # (T, 3) f32
     tri_e1: torch.Tensor   # (T, 3) f32   v1 - v0
@@ -57,9 +61,15 @@ class Scene:
     def __init__(self):
         self.meshes: list[Mesh] = []
         self.materials: list[np.ndarray] = []
+        self.textures: list[np.ndarray] = []
         self.lights: list[np.ndarray] = []
         self.instances: list[MeshInstance] = []
         self.sky: np.ndarray = sky_mod.default_sky()
+
+    def load_model(self, path: str) -> int:
+        """Add the mesh of an OBJ file (models/mesh.load_obj)."""
+        self.meshes.append(load_obj(path))
+        return len(self.meshes) - 1
 
     def add_mesh(self, mesh: Mesh) -> int:
         self.meshes.append(mesh)
@@ -74,6 +84,12 @@ class Scene:
                                   emissive_color, emission_strength,
                                   **extras))
         return len(self.materials) - 1
+
+    def create_texture(self, image) -> int:
+        """Register a base-color texture (an H x W x 3 array, 8-bit or
+        float); returns its id for create_material(texture=...)."""
+        self.textures.append(np.asarray(image))
+        return len(self.textures) - 1
 
     def create_light(self, position, color, intensity: float,
                      light_type: int = lights_mod.POINT,
@@ -162,7 +178,8 @@ class Scene:
                       np.stack(inst_bmax).astype(np.float32))
 
     def build(self, device, pad: int = PAD) -> SceneData:
-        """Flatten, pad and upload to `device`."""
+        """Flatten, pad and upload to `device`; pack the textures and
+        build the light tree there."""
         host, (inst_bmin, inst_bmax) = self.build_host()
         t = host["tri_v0"].shape[0]
         extra = ((t + pad - 1) // pad) * pad - t
@@ -174,13 +191,17 @@ class Scene:
         lights = (np.stack(self.lights) if self.lights
                   else np.zeros((0, lights_mod.LIGHT_W), np.float32))
         dev = lambda a: torch.as_tensor(a, device=device)
+        lights = dev(lights)
         return SceneData(
             **{k: dev(v) for k, v in host.items()},
             materials=dev(np.stack(self.materials)),
-            lights=dev(lights),
+            lights=lights,
             sky=dev(self.sky),
             inst_bmin=dev(inst_bmin),
             inst_bmax=dev(inst_bmax),
+            textures=dev(tex_mod.pack_textures(self.textures)),
+            light_tree=(lightbvh.build_light_tree(lights) if self.lights
+                        else None),
         )
 
 
@@ -243,4 +264,34 @@ def instance_grid_scene(n: int = 16) -> Scene:
                 (1.2 * (i - n / 2), 0.5, 1.2 * (j - n / 2)),
                 rotation=tuple(rs.uniform(0, 3.14, 3)),
                 scale=(s, s, s))
+    return sc
+
+
+def many_lights_scene(n_lights: int = 256) -> Scene:
+    """The scene the JAX package benchmarks as `many_lights_256_512x384`
+    (scripts/bench_full.py `_many_lights_scene`): a 5 x 5 field of
+    icospheres (320 triangles) on a ground plane under a grid of
+    `n_lights` colored point lights (RandomState(11))."""
+    from .mesh import icosphere, plane
+
+    sc = Scene()
+    sph = sc.add_mesh(icosphere(2))
+    gnd = sc.add_mesh(plane(40.0))
+    white = sc.create_material((0.8, 0.8, 0.8), 0.0, 0.8)
+    metal = sc.create_material((0.9, 0.7, 0.3), 1.0, 0.15)
+    sc.create_instance(gnd, white, (0.0, 1.0, 0.0))
+    for i in range(5):
+        for j in range(5):
+            sc.create_instance(
+                sph, metal if (i + j) % 2 else white,
+                (2.0 * (i - 2), 0.3, 2.0 * (j - 2)),
+                scale=(0.6, 0.6, 0.6))
+    rs = np.random.RandomState(11)
+    side = int(np.ceil(np.sqrt(n_lights)))
+    for k in range(n_lights):
+        i, j = divmod(k, side)
+        col = rs.uniform(0.3, 1.0, 3)
+        sc.create_light(
+            (1.5 * (i - side / 2), -1.5 - rs.rand(), 1.5 * (j - side / 2)),
+            tuple(col), 4.0 + 4.0 * rs.rand())
     return sc

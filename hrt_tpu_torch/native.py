@@ -1,4 +1,5 @@
-"""ctypes binding of the shared native SAH builder (native/sah_bvh.cpp).
+"""ctypes binding of the shared native library: the SAH builder
+(native/sah_bvh.cpp) and the OBJ loader (native/objloader.cpp).
 
 The library is built with `make -C native` at first use, into this
 package's `_build/` directory under a name keyed by the sources' hash
@@ -22,6 +23,13 @@ _NATIVE_DIR = os.path.abspath(os.path.join(
 _lib: ctypes.CDLL | None = None
 
 
+class _ObjMesh(ctypes.Structure):
+    _fields_ = [("vertices", ctypes.POINTER(ctypes.c_float)),
+                ("n_vertices", ctypes.c_int),
+                ("indices", ctypes.POINTER(ctypes.c_int)),
+                ("n_tris", ctypes.c_int)]
+
+
 def _lib_path() -> str:
     h = hashlib.sha256()
     for name in sorted(os.listdir(_NATIVE_DIR)):
@@ -42,6 +50,10 @@ def lib() -> ctypes.CDLL:
         path, lambda tmp: [[["make", "-C", _NATIVE_DIR, f"TARGET={tmp}"]]],
         "building the native SAH library", timeout=300)
     cdll = ctypes.CDLL(path)
+    cdll.obj_load.restype = ctypes.c_int
+    cdll.obj_load.argtypes = [ctypes.c_char_p, ctypes.POINTER(_ObjMesh)]
+    cdll.obj_free.restype = None
+    cdll.obj_free.argtypes = [ctypes.POINTER(_ObjMesh)]
     cdll.sah_build.restype = ctypes.c_int
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -94,3 +106,23 @@ def sah_build(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
         "leaf_min": leaf_min[:nl].copy(),
         "leaf_max": leaf_max[:nl].copy(),
     }
+
+
+def load_obj(path: str):
+    """Parse an OBJ file: (vertices (V, 8) float32, indices (T, 3)
+    int32), Y negated on positions and normals (the reference's y-down
+    convention), vertices deduplicated on their full record, polygons
+    fan-triangulated.  Raises FileNotFoundError when the file cannot be
+    read or parsed."""
+    cdll = lib()
+    mesh = _ObjMesh()
+    rc = cdll.obj_load(os.fsencode(path), ctypes.byref(mesh))
+    if rc != 0:
+        raise FileNotFoundError(f"obj_load({path!r}) failed with {rc}")
+    try:
+        verts = np.ctypeslib.as_array(mesh.vertices,
+                                      (mesh.n_vertices, 8)).copy()
+        idx = np.ctypeslib.as_array(mesh.indices, (mesh.n_tris, 3)).copy()
+    finally:
+        cdll.obj_free(ctypes.byref(mesh))
+    return verts, idx

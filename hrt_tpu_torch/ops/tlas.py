@@ -441,9 +441,12 @@ def shade_attrs_tlas(tl: TwoLevelFlat, materials: torch.Tensor, tri_id,
     """Hit attributes of two-level hits: one gather of the pool-order
     attribute table, the normal transformed by the hit instance's
     normal matrix, the material row from the instance's material id.
-    Returns (unit normal V3, MatP)."""
+    Returns (unit normal V3, MatP, the material rows (N, MAT_W), the
+    interpolated hit UVs (tu, tv))."""
     rt = tl.attr[tri_id.clamp(min=0).long()].T                 # (15, N)
     w = 1.0 - u - v
+    tu = w * rt[9] + u * rt[11] + v * rt[13]
+    tv = w * rt[10] + u * rt[12] + v * rt[14]
     n_obj = V3(w * rt[0] + u * rt[3] + v * rt[6],
                w * rt[1] + u * rt[4] + v * rt[7],
                w * rt[2] + u * rt[5] + v * rt[8])
@@ -453,5 +456,5 @@ def shade_attrs_tlas(tl: TwoLevelFlat, materials: torch.Tensor, tri_id,
         nm[0] * n_obj.x + nm[1] * n_obj.y + nm[2] * n_obj.z,
         nm[3] * n_obj.x + nm[4] * n_obj.y + nm[5] * n_obj.z,
         nm[6] * n_obj.x + nm[7] * n_obj.y + nm[8] * n_obj.z))
-    mt = materials[tl.inst_mat[si].long()].T                    # (MAT_W, N)
-    return normal, MatP.from_rows_t(mt)
+    mrows = materials[tl.inst_mat[si].long()]                   # (N, MAT_W)
+    return normal, MatP.from_rows_t(mrows.T), mrows, (tu, tv)

@@ -1,20 +1,24 @@
 """The path-traced frame: raygen (jittered per frame) -> closest hit ->
-attribute gather + sky -> Disney BRDF (K2) + shadow any-hit -> bounce
-sampling and Russian roulette -> the next depth's closest hit, and so
-on to `max_depth`, with the wavefront optionally sorted by a 6-D Morton
-key between depths (`sort_bounces`).
+attribute gather (base color times its texture) + sky -> next-event
+estimation: the Disney BRDF (K2) or the pbr BSDF + shadow any-hit, over
+every light or over `light_samples` lights picked by the flat CDF scan
+or the light tree -> bounce sampling and Russian roulette -> the next
+depth's closest hit, and so on to `max_depth`, with the wavefront
+optionally sorted by a 6-D Morton key between depths (`sort_bounces`).
 
 The accel is either a single-level Accel (ops/lbvh.py), traced by K1
 when it has a BVH8 table and by K3 when it has not (an LBVH, or a SAH
 tree past MAX_WIDE_NODES), or a two-level TwoLevelFlat (ops/tlas.py),
 traced by K4 (BVH8 route) or K5 (binary route) and shaded through the
 hit instance's normal matrix and material.  Every depth's closest and
-shadow traces go to the accel's walk, every depth's BRDF to K2.
+shadow traces go to the accel's walk, every depth's Disney BRDF to K2
+(the pbr BSDF, as in the JAX package, stays plain PyTorch).
 
 hrt_tpu/renderer.py's `trace_paths` and `render_rows` in plain PyTorch
 around the kernels.  Per-pixel output is the JAX package's: the same
-RNG words (ops/rng.py) drawn in the same order, the same samplers
-(ops/sampling.py).  Only the ray order differs: rays stay in pixel order
+RNG words (ops/rng.py) drawn in the same order (the light samples'
+before the bounce's), the same samplers (ops/sampling.py,
+ops/lightbvh.py).  Only the ray order differs: rays stay in pixel order
 (the TPU's pixel-block reorder and shadow interleave are layouts for its
 packet tiles), the shadow batch is light-major concatenated, the sorted
 wavefront is one stable torch.sort and index gathers instead of a
@@ -36,11 +40,13 @@ import torch
 
 from .config import RenderConfig, require_slice
 from .models.camera import Camera, CameraArrays, primary_rays_from_px_p
-from .models.lights import process_light_one
-from .models.materials import ROUGHNESS_MIN, MatP
+from .models.lights import process_light, process_light_one
+from .models.materials import BASE_COLOR_TEX, ROUGHNESS_MIN, MatP
 from .models.scene import Scene, SceneData
 from .models.sky import eval_sky_p
-from .ops import rng, sampling, shade_kernel, tlas, traversal, v3, wavefront
+from .models.textures import sample_texture_p
+from .ops import (lightbvh, pbr, rng, sampling, shade_kernel, tlas, traversal,
+                  v3, wavefront)
 from .ops.disney import schlick_weight
 from .ops.intersect import INF
 from .ops.lbvh import ATTR_MAT, Accel
@@ -54,6 +60,9 @@ SORT_CAP = 2
 # The key of a retired ray: after every live key (live keys are shifted
 # right one bit).
 _DEAD_KEY = 0xFFFFFFFF
+# light_sampler="auto" samples lights by the light tree past this many
+# lights, by the flat CDF scan up to it (the JAX package's crossover).
+AUTO_TREE_LIGHTS = 384
 
 
 def camera_arrays(cam: Camera, config: RenderConfig, device) -> CameraArrays:
@@ -67,22 +76,29 @@ def _zero3(like) -> V3:
 
 def _shade_attrs_p(tab: torch.Tensor, tri_idx, u, v):
     """Hit attributes from one gather of the (T, 16 + MAT_W) table by
-    leaf-pool id.  Returns (unit normal V3, MatP)."""
-    rt = tab[tri_idx.clamp(min=0).long()].T          # (W, N)
+    leaf-pool id.  Returns (unit normal V3, MatP, the material rows
+    (N, MAT_W), the interpolated hit UVs (tu, tv))."""
+    rows = tab[tri_idx.clamp(min=0).long()]
+    rt = rows.T                                      # (W, N)
     w = 1.0 - u - v
     normal = v3.normalize(V3(
         w * rt[0] + u * rt[3] + v * rt[6],
         w * rt[1] + u * rt[4] + v * rt[7],
         w * rt[2] + u * rt[5] + v * rt[8]))
-    return normal, MatP.from_rows_t(rt, base=ATTR_MAT)
+    tu = w * rt[9] + u * rt[11] + v * rt[13]
+    tv = w * rt[10] + u * rt[12] + v * rt[14]
+    return (normal, MatP.from_rows_t(rt, base=ATTR_MAT), rows[:, ATTR_MAT:],
+            (tu, tv))
 
 
 class LightBatch(NamedTuple):
-    """Next-event terms of all lights, light-major over (L*N,): the
+    """Next-event terms of C light samples, light-major over (C*N,): the
     direction to the light `l`, `relevant` (BRDF can be nonzero, light
     above threshold, ray hit a surface), the shadow segment's `t_max`
-    (-1 on irrelevant lanes), the shadow origins, and per light its
-    color and intensity plane."""
+    (-1 on irrelevant lanes), the shadow origins, and per sample its
+    color and intensity.  One sample per light (C = L), or, sampled,
+    `inv_pdf` and the picked light ids `pick` per sample (C =
+    light_samples)."""
 
     l: V3
     relevant: torch.Tensor
@@ -90,14 +106,33 @@ class LightBatch(NamedTuple):
     origin: V3
     color: list
     intensity: list
+    inv_pdf: list | None = None
+    pick: list | None = None
+
+
+def _segments(n: V3, world_pos: V3, config: RenderConfig, per):
+    """The light-major batch of `per`: one (l unit, ldir, lcol, lint,
+    unbounded, relevant, inv_pdf, pick) tuple per sample.  Shadow rays
+    leave the offset surface point, toward the light's distance or,
+    from a directional light, unbounded."""
+    shadow_o = world_pos + n * config.normal_offset
+    sts = [torch.where(rel, torch.where(unb, INF, v3.length(ldir)), -1.0)
+           for _, ldir, _, _, unb, rel, _, _ in per]
+    sampled = per[0][6] is not None
+    return LightBatch(
+        l=V3(*(torch.cat([p[0][c] for p in per]) for c in range(3))),
+        relevant=torch.cat([p[5] for p in per]), t_max=torch.cat(sts),
+        origin=shadow_o.map(lambda a: a.repeat(len(per))),
+        color=[p[2] for p in per], intensity=[p[3] for p in per],
+        inv_pdf=[p[6] for p in per] if sampled else None,
+        pick=[p[7] for p in per] if sampled else None)
 
 
 def light_batch(scene: SceneData, n: V3, world_pos: V3,
                 config: RenderConfig, ray_mask=None) -> LightBatch:
     """One shadow ray per light (ref: calculateColor,
     shaders/raytracing.slang:72-88), concatenated light-major."""
-    shadow_o = world_pos + n * config.normal_offset
-    ls, rels, sts, cols, ints = [], [], [], [], []
+    per = []
     for i in range(scene.lights.shape[0]):
         ldir, lcol, lint, unb = process_light_one(scene.lights[i],
                                                   world_pos)
@@ -105,36 +140,125 @@ def light_batch(scene: SceneData, n: V3, world_pos: V3,
         relevant = (v3.dot(n, l) > 0.0) & (lint >= config.light_threshold)
         if ray_mask is not None:
             relevant = relevant & ray_mask
-        # Directional lights shadow to infinity, others to the light.
-        reach = torch.where(unb, INF, v3.length(ldir))
-        ls.append(l)
-        rels.append(relevant)
-        sts.append(torch.where(relevant, reach, -1.0))
-        cols.append(lcol)
-        ints.append(lint)
-    cat = torch.cat
-    num_lights = len(ls)
-    return LightBatch(
-        l=V3(cat([a.x for a in ls]), cat([a.y for a in ls]),
-             cat([a.z for a in ls])),
-        relevant=cat(rels), t_max=cat(sts),
-        origin=shadow_o.map(lambda a: a.repeat(num_lights)),
-        color=cols, intensity=ints)
+        per.append((l, ldir, lcol, lint, unb, relevant, None, None))
+    return _segments(n, world_pos, config, per)
 
 
-def direct_lighting_p(scene: SceneData, accel, mat: MatP, n: V3,
-                      view: V3, world_pos: V3, config: RenderConfig,
-                      ray_mask=None, plain: bool = False) -> V3:
-    """Direct light at the hit points: the BRDF of all lights in one K2
-    call, all shadow rays in one light-major any-hit call (the accel's
-    walk: K1 or K3, K4 or K5 for a two-level accel)."""
+def _tree_samples(scene: SceneData, n: V3, world_pos: V3,
+                  config: RenderConfig, ray_mask, seed):
+    """`light_samples` lights per ray by the light tree's descent
+    (ops/lightbvh.py), each weighted by its exact pdf."""
+    tree = (scene.light_tree if scene.light_tree is not None
+            else lightbvh.build_light_tree(scene.lights))
+    per = []
+    for _ in range(config.light_samples):
+        u, seed = rng.rand(seed)
+        pick, pdf = lightbvh.sample_light(tree, world_pos, u)
+        ldir, lcol, lint, unb = lightbvh.process_light_rows(
+            scene.lights[pick.long()], world_pos)
+        l = v3.normalize(ldir)
+        relevant = ((v3.dot(n, l) > 0.0) & (lint >= config.light_threshold)
+                    & (pdf > 1e-12))
+        if ray_mask is not None:
+            relevant = relevant & ray_mask
+        inv_pdf = 1.0 / torch.clamp(pdf, min=1e-9)
+        per.append((l, ldir, lcol, lint, unb, relevant, inv_pdf, pick))
+    return per, seed
+
+
+def _scan_samples(scene: SceneData, n: V3, world_pos: V3,
+                  config: RenderConfig, ray_mask, seed):
+    """`light_samples` lights per ray in proportion to their unshadowed
+    contribution (intensity x NdotL x (luminance + 1e-3)): every light's
+    weight at every ray as one (L, N) array, its cumsum over the lights
+    as the CDF, and a pick per sample by counting the CDF's entries
+    below u x total."""
+    lights = scene.lights
+    ldir_a, lcol_a, lint_a, unb_a = process_light(lights,
+                                                  world_pos.to_array())
+    ldx, ldy, ldz = ldir_a[..., 0].T, ldir_a[..., 1].T, ldir_a[..., 2].T
+    lint_ln = lint_a.T                                    # (L, N)
+    inv_len = torch.rsqrt(torch.clamp(ldx * ldx + ldy * ldy + ldz * ldz,
+                                      min=1e-24))
+    lx, ly, lz = ldx * inv_len, ldy * inv_len, ldz * inv_len
+    ndotl = torch.clamp(n.x[None] * lx + n.y[None] * ly + n.z[None] * lz,
+                        min=0.0)
+    lum = (0.2126 * lcol_a[:, 0] + 0.7152 * lcol_a[:, 1]
+           + 0.0722 * lcol_a[:, 2])
+    ws = ndotl * lint_ln * (lum[:, None] + 1e-3)
+    ws = torch.where(lint_ln >= config.light_threshold, ws, 0.0) + 1e-12
+    cdf = torch.cumsum(ws, dim=0)
+    total = cdf[-1]
+    per = []
+    for _ in range(config.light_samples):
+        u, seed = rng.rand(seed)
+        pick = torch.sum(cdf[:-1] < (u * total)[None], dim=0)   # (N,)
+        at = pick[None]
+        sel = lambda a, at=at: a.gather(0, at)[0]
+        w_pick = sel(ws)
+        relevant = w_pick > 1e-9
+        if ray_mask is not None:
+            relevant = relevant & ray_mask
+        inv_pdf = 1.0 / torch.clamp(w_pick / total, min=1e-9)
+        per.append((V3(sel(lx), sel(ly), sel(lz)),
+                    V3(sel(ldx), sel(ldy), sel(ldz)),
+                    V3(*(lcol_a[pick, c] for c in range(3))), sel(lint_ln),
+                    unb_a[pick], relevant, inv_pdf, pick.to(torch.int32)))
+    return per, seed
+
+
+def nee_light_batch(scene: SceneData, n: V3, world_pos: V3,
+                    config: RenderConfig, ray_mask=None, seed=None):
+    """The light batch of direct_lighting_p, and the seed after its
+    draws: sampled (`light_samples` lights per ray, by the light tree
+    with light_sampler="bvh" or "auto" past AUTO_TREE_LIGHTS lights,
+    else by the flat CDF scan) when light_samples > 0, a seed is given
+    and there are more lights than samples, as the JAX package decides;
+    otherwise one sample per light."""
     num_lights = scene.lights.shape[0]
-    if num_lights == 0:
-        return _zero3(n.x)
-    lb = light_batch(scene, n, world_pos, config, ray_mask)
+    if not (config.light_samples and seed is not None
+            and num_lights > config.light_samples):
+        return light_batch(scene, n, world_pos, config, ray_mask), seed
+    tree = (config.light_sampler == "bvh"
+            or (config.light_sampler == "auto"
+                and num_lights > AUTO_TREE_LIGHTS))
+    per, seed = (_tree_samples if tree else _scan_samples)(
+        scene, n, world_pos, config, ray_mask, seed)
+    return _segments(n, world_pos, config, per), seed
+
+
+def _brdf_lm(config: RenderConfig, mat: MatP, rows, n: V3, view: V3,
+             lb: LightBatch, plain: bool) -> V3:
+    """The BRDF of every sample of the light-major batch: the Disney
+    BRDF in one K2 call (its plain version with `plain`), or with
+    brdf='pbr' the pbr BSDF in plain PyTorch on the material rows, a
+    sample at a time (as the JAX package, it reads the gathered rows,
+    not the texture-modulated color)."""
+    count = len(lb.color)
+    if config.brdf == "pbr":
+        nr = n.x.shape[0]
+        na, va, la = n.to_array(), view.to_array(), lb.l.to_array()
+        f = torch.cat([pbr.bsdf_evaluate_simple(
+            rows, na, va, la[i * nr:(i + 1) * nr]) for i in range(count)])
+        return V3(f[:, 0], f[:, 1], f[:, 2])
     brdf = (shade_kernel.brdf_light_major_plain if plain
             else shade_kernel.brdf_light_major)
-    f_lm = brdf(mat, n, view, lb.l, lb.relevant, num_lights)
+    return brdf(mat, n, view, lb.l, lb.relevant, count)
+
+
+def direct_lighting_p(scene: SceneData, accel, mat: MatP, rows, n: V3,
+                      view: V3, world_pos: V3, config: RenderConfig,
+                      ray_mask=None, seed=None, plain: bool = False):
+    """Direct light at the hit points over nee_light_batch's samples:
+    their BRDF in one call (K2, or the pbr BSDF), all their shadow rays
+    in one light-major any-hit call (the accel's walk: K1 or K3, K4 or
+    K5 for a two-level accel).  A sampled batch weighs each sample by
+    its 1 / pdf and averages them.  `rows` are the hits' material rows
+    (the pbr BSDF's input).  Returns (radiance V3, the advanced seed)."""
+    if scene.lights.shape[0] == 0:
+        return _zero3(n.x), seed
+    lb, seed = nee_light_batch(scene, n, world_pos, config, ray_mask, seed)
+    f_lm = _brdf_lm(config, mat, rows, n, view, lb, plain)
     if isinstance(accel, TwoLevelFlat):
         occluded = tlas.any_hit_tlas(accel, lb.origin, lb.l, config.t_min,
                                      lb.t_max, plain=plain)
@@ -144,12 +268,18 @@ def direct_lighting_p(scene: SceneData, accel, mat: MatP, n: V3,
                                            plain=plain)
     nr = n.x.shape[0]
     out = _zero3(n.x)
-    for i in range(num_lights):
+    for i in range(len(lb.color)):
         sl = slice(i * nr, (i + 1) * nr)
         vis = 1.0 - occluded[sl].to(torch.float32)
-        contrib = f_lm.map(lambda a: a[sl]) * lb.color[i] * lb.intensity[i]
-        out = out + v3.where(lb.relevant[sl], contrib * vis, 0.0)
-    return out
+        f = f_lm.map(lambda a: a[sl]) * lb.color[i]
+        if lb.inv_pdf is None:
+            contrib = f * lb.intensity[i] * vis
+        else:
+            contrib = f * (lb.intensity[i] * vis * lb.inv_pdf[i])
+        out = out + v3.where(lb.relevant[sl], contrib, 0.0)
+    if lb.inv_pdf is not None:
+        out = out * (1.0 / len(lb.color))
+    return out, seed
 
 
 class SurfaceHits(NamedTuple):
@@ -158,10 +288,11 @@ class SurfaceHits(NamedTuple):
     t: torch.Tensor
     hit: torch.Tensor
     normal: V3          # unit, facing the viewer
-    mat: MatP
+    mat: MatP           # base color modulated by the texture
     world_pos: V3
     view: V3
     entering: torch.Tensor  # the front face was hit (before the flip)
+    rows: torch.Tensor  # the material rows (N, MAT_W), unmodulated
 
 
 def surface_hits(scene: SceneData, accel, o: V3, d: V3,
@@ -169,21 +300,29 @@ def surface_hits(scene: SceneData, accel, o: V3, d: V3,
                  plain: bool = False) -> SurfaceHits:
     """Closest hit within (t_min, t_max) and the attribute gather: by
     leaf-pool id from the Accel's table (K1 or K3), or by global pool id
-    and instance from the TwoLevelFlat (K4 or K5)."""
+    and instance from the TwoLevelFlat (K4 or K5).  In a textured scene
+    the base color is multiplied by the hit material's texture at the
+    hit's UV (1 where the material has none)."""
     if isinstance(accel, TwoLevelFlat):
         t, tri, inst, u, v = tlas.closest_hit_tlas(
             accel, o, d, config.t_min, t_max, plain=plain)
-        nrm, mat = tlas.shade_attrs_tlas(accel, scene.materials, tri,
-                                         inst, u, v)
+        nrm, mat, rows, (tu, tv) = tlas.shade_attrs_tlas(
+            accel, scene.materials, tri, inst, u, v)
     else:
         t, tri, u, v = traversal.closest_hit_bvh_p(
             scene, accel, o, d, config.t_min, t_max, sorted_ids=True,
             plain=plain)
-        nrm, mat = _shade_attrs_p(accel.attr, tri, u, v)
+        nrm, mat, rows, (tu, tv) = _shade_attrs_p(accel.attr, tri, u, v)
+    if scene.textures is not None and scene.textures.shape[0] > 0:
+        tex = sample_texture_p(scene.textures,
+                               rows[:, BASE_COLOR_TEX].to(torch.int32),
+                               tu, tv)
+        mat = mat._replace(color=mat.color * V3(*tex))
     view = -d
     entering = v3.dot(nrm, view) >= 0.0
     nrm = v3.where(entering, nrm, -nrm)
-    return SurfaceHits(t, tri >= 0, nrm, mat, o + d * t, view, entering)
+    return SurfaceHits(t, tri >= 0, nrm, mat, o + d * t, view, entering,
+                       rows)
 
 
 def _gbuffer(sh: SurfaceHits) -> dict:
@@ -302,8 +441,6 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
         raise NotImplementedError(
             "only the single-level Accel and the two-level TwoLevelFlat "
             "are ported (no brute-force frame path)")
-    if scene.textures is not None and scene.textures.shape[0] > 0:
-        raise NotImplementedError("textured scenes are not ported yet")
     n = o.x.shape[0]
     dev = o.x.device
     radiance = _zero3(o.x)
@@ -334,14 +471,14 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
         hit = sh.hit & active
         if _batches is not None:
             _batches.append({"depth": depth, "o": o, "d": d, "t_max": t_max,
-                             "hits": sh._replace(hit=hit)})
+                             "hits": sh._replace(hit=hit), "seed": seed})
 
         sky_rad = eval_sky_p(scene.sky, d, enabled=config.sky)
         radiance = radiance + v3.where(active & ~sh.hit,
                                        throughput * sky_rad, 0.0)
-        direct = direct_lighting_p(scene, accel, sh.mat, sh.normal, sh.view,
-                                   sh.world_pos, config, ray_mask=hit,
-                                   plain=plain)
+        direct, seed = direct_lighting_p(
+            scene, accel, sh.mat, sh.rows, sh.normal, sh.view, sh.world_pos,
+            config, ray_mask=hit, seed=seed, plain=plain)
         emissive = sh.mat.emissive * sh.mat.emission_strength
         radiance = radiance + v3.where(hit, throughput * (direct + emissive),
                                        0.0)

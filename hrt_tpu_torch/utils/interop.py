@@ -3,9 +3,10 @@
 For a renderer the "weights" are the scene tables and the acceleration
 structure.  These take dicts of numpy arrays — as a caller gets them
 with `{k: np.asarray(v) for k, v in obj._asdict().items()}` from the JAX
-package's SceneData, from its Accel's tree fields plus `attr`,
-`flat.nodes` and `w8`, or from the fields of its TwoLevelFlat — so one
-structure can be fed to both packages.  The learned upscalers' weights
+package's SceneData (its light tree's fields likewise, each level a
+list), from its Accel's tree fields plus `attr`, `flat.nodes` and `w8`,
+or from the fields of its TwoLevelFlat — so one structure can be fed to
+both packages.  The learned upscalers' weights
 come over the same way (`upscaler_from_numpy`).
 """
 from __future__ import annotations
@@ -16,21 +17,36 @@ import torch
 from ..models.scene import SceneData
 from ..models.upscaler import TemporalUpscalerNet, UpscalerNet
 from ..ops import tlas, traversal_skip, wide8
+from ..ops.lightbvh import LightTree
 from ..ops.lbvh import Accel, make_accel, tri_table
 
 
 def scene_from_numpy(d: dict, device) -> SceneData:
-    """SceneData on `device` from numpy arrays keyed by field name.
-    Textures and light trees belong to later slices: a non-empty
-    texture table raises NotImplementedError, a light tree is
-    dropped."""
+    """SceneData on `device` from numpy arrays keyed by field name: the
+    texture table `textures` (None or missing: none) and the light tree
+    `light_tree` (None or missing: none; a dict of its fields, see
+    light_tree_from_numpy, or a LightTree) with the rest."""
+    dev = lambda a: torch.as_tensor(np.array(a), device=device)
     tex = d.get("textures")
-    if tex is not None and np.asarray(tex).shape[0] > 0:
-        raise NotImplementedError("textured scenes are not ported yet")
+    tree = d.get("light_tree")
+    if isinstance(tree, dict):
+        tree = light_tree_from_numpy(tree, device)
     fields = [f for f in SceneData._fields
               if f not in ("textures", "light_tree")]
-    return SceneData(**{f: torch.as_tensor(np.array(d[f]), device=device)
-                        for f in fields})
+    return SceneData(**{f: dev(d[f]) for f in fields},
+                     textures=None if tex is None else dev(tex),
+                     light_tree=tree)
+
+
+def light_tree_from_numpy(d: dict, device) -> LightTree:
+    """The light tree on `device` from its fields as numpy: bmin, bmax,
+    energy, energy_dir and pair as lists of per-level arrays, and
+    perm."""
+    dev = lambda a: torch.as_tensor(np.array(a), device=device)
+    return LightTree(**{k: tuple(dev(a) for a in d[k])
+                        for k in ("bmin", "bmax", "energy", "energy_dir",
+                                  "pair")},
+                     perm=dev(np.asarray(d["perm"], np.int32)))
 
 
 def accel_from_numpy(d: dict, leaf_size: int, device) -> Accel:

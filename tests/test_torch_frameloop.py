@@ -90,7 +90,8 @@ def test_single_level_loop_renders_and_refuses_animation():
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(cfg=dict(light_samples=2))])
+                                dict(cfg=dict(light_samples=2,
+                                              traversal="bruteforce"))])
 def test_loop_refusals(kw):
     with pytest.raises(NotImplementedError):
         _loop(**kw)

@@ -87,12 +87,16 @@ def test_scene_build_matches_jax(name):
         js, ts = jscene.reference_demo_scene().build(), \
             scene.reference_demo_scene().build("cpu")
     for field in scene.SceneData._fields:
-        if field in ("textures", "light_tree"):
+        if field == "light_tree":
             continue
         a, b = getattr(ts, field).numpy(), np.asarray(getattr(js, field))
         assert a.dtype == b.dtype, field
         np.testing.assert_array_equal(a, b, err_msg=field)
-    assert ts.textures is None and ts.light_tree is None
+    assert ts.textures.shape == (0, 256, 256, 3)
+    np.testing.assert_array_equal(ts.light_tree.perm.numpy(),
+                                  np.asarray(js.light_tree.perm))
+    for a, b in zip(ts.light_tree.pair, js.light_tree.pair):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
 
 
 def test_package_imports_neither_jax_nor_hrt_tpu():
@@ -111,22 +115,29 @@ def test_package_imports_neither_jax_nor_hrt_tpu():
     assert proc.returncode == 0, proc.stderr
 
 
-# The post stages (denoise, upscale) and the path tracer (indirect,
-# jitter, sort_bounces) are in the slice: a config with them raises for
-# its other features only.
+# The post stages (denoise, upscale), the path tracer (indirect,
+# jitter, sort_bounces), sampled NEE (light_samples) and the pbr BSDF
+# are in the slice: a config with them raises for the brute-force walk
+# only.
 @pytest.mark.parametrize("change", [
-    dict(indirect=True, light_samples=2), dict(jitter=True, brdf="pbr"),
-    dict(light_samples=2), dict(light_samples=1, denoise=True),
+    dict(indirect=True, light_samples=2, traversal="bruteforce"),
+    dict(jitter=True, brdf="pbr", traversal="bruteforce"),
+    dict(light_samples=2, traversal="bruteforce"),
+    dict(light_samples=1, denoise=True, traversal="bruteforce"),
     dict(indirect=True, max_depth=4, denoise=True, upscale=2,
-         upscale_mode="temporal", light_samples=4), dict(brdf="pbr"),
+         upscale_mode="temporal", light_samples=4, traversal="bruteforce"),
+    dict(brdf="pbr", traversal="bruteforce"),
     dict(sort_bounces=True, traversal="bruteforce"),
     dict(traversal="bruteforce")])
 def test_features_outside_the_slice_raise(change):
     require_slice(RenderConfig(max_depth=1, sky=True, denoise=True,
                                upscale=2, upscale_mode="temporal"))
+    accepted = {k: v for k, v in change.items() if k != "traversal"}
+    require_slice(RenderConfig(**{"max_depth": 1, **accepted}))
     with pytest.raises(NotImplementedError) as err:
         require_slice(RenderConfig(**{"max_depth": 1, **change}))
-    for name in ("denoise", "upscale", "indirect", "jitter", "sort_bounces"):
+    for name in ("denoise", "upscale", "indirect", "jitter", "sort_bounces",
+                 "light_samples", "pbr"):
         assert name not in str(err.value)
 
 

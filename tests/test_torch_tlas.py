@@ -326,13 +326,13 @@ def test_shade_attrs_match_jax(jax_loop, jax_closest, port_tl):
     """On the rays where both walks hit the same triangle of the same
     instance (test_tlas's hit set)."""
     o, d, (jt, jtri, jinst, ju, jv) = jax_closest
-    jn, jmat, _, _ = jtlas.shade_attrs_tlas(
+    jn, jmat, jrows, juv = jtlas.shade_attrs_tlas(
         jax_loop.accel, jax_loop.scene.materials, jnp.asarray(jtri),
         jnp.asarray(jinst), jnp.asarray(ju), jnp.asarray(jv))
     t, tri, inst, u, v = tlas.closest_hit_tlas(port_tl, _tv3(o), _tv3(d),
                                                1e-3, 1e32)
     mats = torch.as_tensor(np.array(jax_loop.scene.materials))
-    n, mat = tlas.shade_attrs_tlas(port_tl, mats, tri, inst, u, v)
+    n, mat, rows, uv = tlas.shade_attrs_tlas(port_tl, mats, tri, inst, u, v)
     m = ((tri.numpy() >= 0) & (tri.numpy() == np.asarray(jtri))
          & (inst.numpy() == np.asarray(jinst)))
     assert m.mean() > 0.3
@@ -343,6 +343,10 @@ def test_shade_attrs_match_jax(jax_loop, jax_closest, port_tl):
     for a, b in ((mat.color.x, jmat.color.x), (mat.metallic, jmat.metallic),
                  (mat.roughness, jmat.roughness)):
         np.testing.assert_array_equal(a.numpy()[m], np.asarray(b)[m])
+    np.testing.assert_array_equal(rows.numpy()[m], np.asarray(jrows)[m])
+    for a, b in zip(uv, juv):
+        np.testing.assert_allclose(a.numpy()[m], np.asarray(b)[m],
+                                   rtol=1e-3, atol=2e-3)
 
 
 def test_frame_matches_jax_frameloop(jax_loop):
@@ -422,14 +426,16 @@ def test_single_instance_scene_walks_binary():
     assert tl.w8_nodes is None and tl.tlas_m == 3
 
 
-# Bounces are ported; a two-level path-traced loop still refuses
-# sampled many-light NEE.
+# Bounces and sampled many-light NEE are ported; a two-level
+# path-traced loop with sampled NEE still refuses the brute-force walk,
+# and names only it.
 @pytest.mark.parametrize("what,call,exc,match", [
     pytest.param("light_samples", lambda: FrameLoop(
         port_scene(_instanced_scene()),
-        RenderConfig(indirect=True, light_samples=2, **FRAME),
+        RenderConfig(indirect=True, light_samples=2, traversal="bruteforce",
+                     **FRAME),
         two_level=True, device="cpu"), NotImplementedError,
-        "light_samples", id="light_samples"),
+        "^not ported yet: traversal='bruteforce'$", id="light_samples"),
 ])
 def test_refusals(what, call, exc, match):
     with pytest.raises(exc, match=match):
