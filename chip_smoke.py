@@ -6,7 +6,7 @@
 Builds the CUDA kernels from hrt_tpu_torch/csrc/, then drives the
 port's paths: the five direct-lighting ones, the path tracer, then
 many-light sampled NEE, textures and the pbr BSDF on the shipped scene
-files.  The bench frame: the bench scene (three icospheres +
+files, and last the render command (`python -m hrt_tpu_torch.render`).  The bench frame: the bench scene (three icospheres +
 ground plane, two point lights), SAH build with 32-triangle leaves and
 its BVH8 records, and `render_frames` of 32 frames at 512x384
 (max_depth=1, sky on), plus one 1920x1080 frame.  The instanced frame:
@@ -176,6 +176,22 @@ over the bench frame, whose history fetches run K6.  Phases:
      alternating pairs; the busy share of the many-light frames; K1 and
      K2 on the many_lights_256 frame's batches vs their plain versions
      and bounds
+ 36. the render command (hrt_tpu_torch.cli.main, as `python -m
+     hrt_tpu_torch.render` runs it, in this process, --stats): the demo
+     scene with sky at 800x600 (K1, K2), --config path_tracing on the
+     bench scene at 1920x1080, depth 5, 2 frames, bench --frames 8
+     --orbit (culling on: K3 where a visibility change rebuilt the
+     LBVH), scenes/colonnade.yaml --two-level (K4), bench --denoise
+     --upscale 2 --upscale-mode temporal --frames 3 (K6), and
+     --traversal bruteforce on the demo scene (no walk; PSNR > 45
+     against the K1 frame); each run's launch counters (set to 0 just
+     before it), its PNGs against the tonemapped FrameLoop.step replay of
+     the same arguments, its stats line beside the replay's per-frame
+     ms; --checkpoint written and resumed; --preview --frames 3 on port
+     0 with /frame.png fetched by urllib; the stacked two-level trace
+     (ops/twolevel.py: K3 per instance) on the bench scene's 512x384
+     rays against its plain walk (ids on >= 0.99999 of rays) and brute
+     force, timed
 
 Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
 through K1 and K2, held off the image diagonals where the box's wall
@@ -1939,11 +1955,12 @@ def path_times(sm: Smoke, dev, scene, accel, pt: dict, anim: dict) -> dict:
 
 
 def launch_counts() -> dict:
-    """Every walk's and K2's launch counters, by kernel."""
+    """Every kernel's launch counters, by kernel."""
     from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
     from hrt_tpu_torch.ops import traversal_tlas8 as k4
     from hrt_tpu_torch.ops import traversal_tlas_skip as k5
     from hrt_tpu_torch.ops import traversal_wide8 as k1
+    from hrt_tpu_torch.ops import warp_kernel as k6
 
     return {"k1_closest": k1.LAUNCHES["closest"],
             "k1_any_hit": k1.LAUNCHES["any_hit"],
@@ -1951,7 +1968,8 @@ def launch_counts() -> dict:
             "k3": k3.LAUNCHES["closest"] + k3.LAUNCHES["any_hit"],
             "k4_closest": k4.LAUNCHES["closest"],
             "k4_any_hit": k4.LAUNCHES["any_hit"],
-            "k5": k5.LAUNCHES["closest"] + k5.LAUNCHES["any_hit"]}
+            "k5": k5.LAUNCHES["closest"] + k5.LAUNCHES["any_hit"],
+            "k6": k6.LAUNCHES["warp_bilinear"]}
 
 
 def reset_all() -> None:
@@ -1959,9 +1977,10 @@ def reset_all() -> None:
     from hrt_tpu_torch.ops import traversal_tlas8 as k4
     from hrt_tpu_torch.ops import traversal_tlas_skip as k5
     from hrt_tpu_torch.ops import traversal_wide8 as k1
+    from hrt_tpu_torch.ops import warp_kernel as k6
 
     reset(k1.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES,
-          shade_kernel.LAUNCHES)
+          shade_kernel.LAUNCHES, k6.LAUNCHES)
 
 
 def drive_loop(sm: Smoke, label: str, loop, cam, steps: int,
@@ -2309,6 +2328,388 @@ def materials_times(sm: Smoke, dev, ml: dict, sf: dict) -> list:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None})
     return entries
+
+
+
+# The render command's runs of phase 36: (label, arguments).  Each adds
+# --device cuda --stats and an --out of its own.  The bench and colonnade
+# runs look from the bench frame's camera (the command's default camera
+# at (0, 0, -2) sits inside the bench spheres' field).
+_BENCH_ARGS = ["--camera", "0", "-1", "-6", "-0.15", "0", "0"]
+CLI_RUNS = [
+    ("demo", ["--scene", "demo", "--sky"]),
+    ("path_tracing", ["--config", "path_tracing", "--scene", "bench",
+                      "--frames", "2", *_BENCH_ARGS]),
+    ("orbit", ["--scene", "bench", "--sky", "--frames", "8", "--orbit"]),
+    ("colonnade two-level", ["--scene", os.path.join(
+        ROOT, "scenes", "colonnade.yaml"),
+                             "--two-level", "--sky", *_BENCH_ARGS]),
+    ("post", ["--scene", "bench", "--sky", "--denoise", "--upscale", "2",
+              "--upscale-mode", "temporal", "--frames", "3", *_BENCH_ARGS]),
+    ("bruteforce", ["--scene", "demo", "--sky", "--traversal",
+                    "bruteforce"]),
+]
+
+
+def cli_cameras(args) -> list:
+    """The cameras the command steps through, frame by frame."""
+    from hrt_tpu_torch.models.camera import Camera, orbit_camera
+
+    cam = Camera(position=tuple(args.camera[:3]),
+                 rotation=tuple(args.camera[3:]))
+    return [orbit_camera(f * 0.15, radius=4.0, height=-1.0) if args.orbit
+            else cam for f in range(args.frames)]
+
+
+def cli_replay(args, dev, state: str | None = None, plain: bool = False):
+    """The command's frames again through a FrameLoop built as the
+    command builds it (from `state` when given), through the kernels or,
+    with `plain`, through their plain versions: the tonemapped frames,
+    the HDR frames and each step's host-clock ms (synchronised)."""
+    import torch
+
+    from hrt_tpu_torch import cli
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.utils.image import tonemap
+
+    loop = FrameLoop(cli.load_scene(args.scene), cli.render_config(args),
+                     cull_threshold_px=1.0 if args.frames > 1 else 0.0,
+                     two_level=args.two_level, device=dev)
+    if state is not None:
+        loop.load_state(state)
+    frames, hdr, ms = [], [], []
+    for cam in cli_cameras(args):
+        t0 = time.perf_counter()
+        img = loop.step(cam, plain=plain)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        hdr.append(img)
+        frames.append(tonemap(img.cpu().numpy(), gamma=args.gamma))
+    return frames, hdr, ms
+
+
+def check_plain(sm: Smoke, label: str, args, dev, hdr: list,
+                state: str | None = None) -> float:
+    """Every HDR frame of a run against the plain replay of the same
+    arguments (the kernels' plain versions, cli_replay(plain=True)):
+    PSNR > 45 on each frame, as phases 20-35 hold their frames.  Returns
+    the plain replay's seconds."""
+    t0 = time.perf_counter()
+    _, ref, _ = cli_replay(args, dev, state, plain=True)
+    secs = time.perf_counter() - t0
+    ps = [psnr4(a, b) for a, b in zip(hdr, ref)]
+    sm.check(len(ps) == len(hdr) and min(ps) > 45.0,
+             f"{label}: {len(ps)} frame(s) vs the plain replay (every "
+             f"kernel's plain version), PSNR "
+             f"{', '.join(f'{p:.2f}' for p in ps)} (replay {secs:.2f} s)")
+    return secs
+
+
+class _FrameLog:
+    """Collects the ms of each `frame f -> path (x ms)` line the command
+    logs."""
+
+    def __init__(self):
+        import logging
+
+        self.ms: list[float] = []
+        self.handler = logging.Handler()
+        self.handler.emit = self._emit
+
+    def _emit(self, record) -> None:
+        msg = record.getMessage()
+        if msg.startswith("frame ") and msg.endswith(" ms)"):
+            self.ms.append(float(msg.rsplit("(", 1)[1].split()[0]))
+
+
+def run_cli(argv: list) -> tuple:
+    """cli.main(argv) in this process with the counters set to 0 just
+    before it: (the loop, the launches, the stats line, host seconds,
+    each frame's ms as the command logs it)."""
+    import contextlib
+    import io
+
+    from hrt_tpu_torch import cli
+    from hrt_tpu_torch.utils.logging import logger
+
+    buf, log = io.StringIO(), _FrameLog()
+    logger.addHandler(log.handler)
+    reset_all()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            loop = cli.main(argv)
+    finally:
+        logger.removeHandler(log.handler)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    return (loop, counts, json.loads(lines[-1]) if lines else None, seconds,
+            log.ms)
+
+
+def read_own_png(path: str):
+    """An (H, W, 3) uint8 image from a PNG that utils/image.encode_png
+    wrote (8-bit RGB, filter-0 rows); any other PNG raises."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        blob = f.read()
+    w, h, depth, ctype, _, _, lace = struct.unpack(">IIBBBBB", blob[16:29])
+    if blob[12:16] != b"IHDR" or (depth, ctype, lace) != (8, 2, 0):
+        raise ValueError(f"{path}: not an 8-bit RGB PNG of encode_png")
+    pos, idat = 8, b""
+    while pos < len(blob):
+        (n,) = struct.unpack(">I", blob[pos:pos + 4])
+        if blob[pos + 4:pos + 8] == b"IDAT":
+            idat += blob[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def check_pngs(sm: Smoke, label: str, paths: list, frames: list) -> None:
+    """Each PNG the command wrote decodes to the replay's frame."""
+    import numpy as np
+
+    worst, equal = 0, 1.0
+    for path, want in zip(paths, frames):
+        got = read_own_png(path)
+        if got.shape != want.shape:
+            sm.check(False, f"{label}: {os.path.basename(path)} shape "
+                     f"{got.shape}, the replay's {want.shape}")
+            return
+        diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+        worst = max(worst, int(diff.max()))
+        equal = min(equal, float((diff == 0).mean()))
+    sm.check(len(paths) == len(frames) and worst <= 1 and equal >= 0.999,
+             f"{label}: {len(paths)} PNG(s) equal the tonemapped FrameLoop."
+             f"step replay on {equal:.6f} of values, max diff {worst}")
+
+
+def want_launches(sm: Smoke, label: str, counts: dict, loop, frames: int,
+                  depth: int, k6: int = 0) -> None:
+    """A run's launches: a BRDF call and a closest and an any-hit walk a
+    depth a frame, by the accel's route (K1, or K3 after a culling
+    rebuild; K4 for a two-level loop), and `k6` warps."""
+    n = frames * depth
+    if loop.two_level:
+        want = {"k4_closest": n, "k4_any_hit": n, "k2": n, "k6": k6}
+        ok = counts == {k: want.get(k, 0) for k in counts}
+    elif loop.accel is None:
+        want = {"k2": n, "k6": k6}
+        ok = counts == {k: want.get(k, 0) for k in counts}
+    else:
+        walks = counts["k1_closest"] + counts["k1_any_hit"] + counts["k3"]
+        ok = (counts["k2"] == n and walks == 2 * n
+              and counts["k1_closest"] == counts["k1_any_hit"]
+              and counts["k4_closest"] + counts["k4_any_hit"]
+              + counts["k5"] == 0 and counts["k6"] == k6
+              and (loop.rebuilds > 0 or counts["k3"] == 0))
+    sm.check(ok, f"{label}: launches {counts} ({frames} frame(s) x {depth} "
+             f"depth(s), {loop.rebuilds} rebuild(s))")
+
+
+def cli_phase(sm: Smoke, dev) -> dict:
+    """Phase 36: the render command (hrt_tpu_torch.cli.main) in this
+    process, as a user runs it: each of CLI_RUNS, a checkpoint written
+    and resumed, the live preview; then the stacked two-level trace
+    (ops/twolevel.py) through K3 against its plain walk."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from hrt_tpu_torch import cli, preview, renderer
+    from hrt_tpu_torch.config import RenderConfig
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.models.scene import bench_scene
+    from hrt_tpu_torch.ops import twolevel
+    from hrt_tpu_torch.ops import traversal_skip as k3
+    from hrt_tpu_torch.utils.image import psnr
+
+    phase("phase 36: the render command on the card (cli.main, --stats): "
+          "demo, path_tracing, orbit, colonnade --two-level, post, brute "
+          "force, a checkpoint resumed, the preview, each against a replay "
+          "through the kernels and one through their plain versions; the "
+          "stacked two-level trace")
+    out, loops, pngs = {}, {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    base = ["--device", str(dev), "--stats"]
+    for label, argv in CLI_RUNS:
+        path = os.path.join(tmp.name, f"{label.split()[0]}.png")
+        full = argv + base + ["--out", path]
+        loop, counts, stats, secs, cli_ms = run_cli(full)
+        args = cli.build_parser().parse_args(full)
+        frames, hdr, ms = cli_replay(args, dev)
+        paths = [cli.frame_path(path, f, args.frames)
+                 for f in range(args.frames)]
+        sm.check(all(os.path.exists(p) for p in paths) and stats is not None
+                 and stats["frames"] == args.frames,
+                 f"{label}: {args.frames} PNG(s) written, stats line "
+                 f"{stats}")
+        check_pngs(sm, label, paths, frames)
+        cfg = loop.config
+        depth = cfg.max_depth if cfg.indirect else 1
+        k6 = 2 * args.frames if cfg.denoise and cfg.upscale == 2 else 0
+        want_launches(sm, label, counts, loop, args.frames, depth, k6)
+        sm.check(all(bool(torch.isfinite(h).all()) for h in hdr),
+                 f"{label}: replay frames finite")
+        check_plain(sm, label, args, dev, hdr)
+        print(f"  {label}: {cfg.width}x{cfg.height} -> "
+              f"{tuple(hdr[-1].shape[:2])}, {args.frames} frame(s); the "
+              f"command's stats: {stats['ms_per_frame']} ms/frame, "
+              f"{stats['mrays_per_sec']} Mray/s (every frame, the first "
+              f"included; frames {', '.join(f'{x:.1f}' for x in cli_ms)} "
+              f"ms as logged); FrameLoop.step replay: median "
+              f"{statistics.median(ms):.4f} ms/frame (frames "
+              f"{', '.join(f'{x:.2f}' for x in ms)} ms); cli.main "
+              f"{secs:.2f} s in all; {loop.rebuilds} rebuild(s)", flush=True)
+        out[label] = {"stats": stats, "replay_ms": ms, "counts": counts,
+                      "rebuilds": loop.rebuilds, "cli_ms": cli_ms}
+        loops[label] = (loop, cli_cameras(args)[-1])
+        pngs[label] = (paths, hdr)
+    if out["orbit"]["rebuilds"] == 0:
+        print("  orbit: no orbit frame changed visibility, so no LBVH "
+              "rebuild and no K3 launch in this run (K3 is held by the "
+              "stacked two-level trace below and by phase 28)", flush=True)
+    else:
+        print(f"  orbit: {out['orbit']['rebuilds']} LBVH rebuild(s), K3 "
+              f"launched {out['orbit']['counts']['k3']} times", flush=True)
+
+    # The brute-force frame against the K1 frame of the same arguments.
+    a = read_own_png(pngs["bruteforce"][0][0]).astype(np.float64) / 255.0
+    b = read_own_png(pngs["demo"][0][0]).astype(np.float64) / 255.0
+    p8 = psnr(a, b)
+    phdr = psnr4(pngs["bruteforce"][1][0], pngs["demo"][1][0])
+    size = "x".join(map(str, pngs["demo"][1][0].shape[1::-1]))
+    sm.check(p8 > 45.0 and phdr > 45.0,
+             f"brute-force frame vs the K1 frame at {size}: PSNR {p8:.2f} "
+             f"(8-bit PNGs), {phdr:.2f} (HDR)")
+    step_ms = {k: time_ms(lambda k=k: loops[k][0].step(loops[k][1]))
+               for k in ("bruteforce", "demo")}
+    print(f"  demo {size} FrameLoop.step (CUDA events, median of 7): brute "
+          f"force {step_ms['bruteforce']:.4f} ms, K1 {step_ms['demo']:.4f} "
+          f"ms", flush=True)
+    out["step_ms"] = step_ms
+
+    # --checkpoint: written by one call, resumed by the next.
+    ckpt = os.path.join(tmp.name, "state.npz")
+    argv = ["--scene", "demo", "--sky", "--checkpoint", ckpt] + base
+    run_cli(argv + ["--out", os.path.join(tmp.name, "c0.png")])
+    first = os.path.join(tmp.name, "state0.npz")
+    shutil.copy(ckpt, first)
+    path = os.path.join(tmp.name, "c1.png")
+    loop, counts, _, _, _ = run_cli(argv + ["--out", path])
+    with np.load(ckpt) as state:
+        resumed = int(state["frame"])
+    sm.check(resumed == 2 and loop.frame == 2,
+             f"checkpoint: the second call resumed at frame 1 and saved "
+             f"frame {resumed}")
+    args = cli.build_parser().parse_args(argv)
+    frames, hdr, _ = cli_replay(args, dev, first)
+    check_pngs(sm, "checkpoint resumed", [path], frames)
+    check_plain(sm, "checkpoint resumed", args, dev, hdr, first)
+    want_launches(sm, "checkpoint resumed", counts, loop, 1, 1)
+
+    # --preview on port 0: each published frame fetched by urllib.
+    fetched = []
+    publish = preview.PreviewServer.publish
+
+    def fetch_after_publish(self, rgb8):
+        publish(self, rgb8)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{self.port}/frame.png", timeout=30) as r:
+            fetched.append((np.array(rgb8), r.read()))
+
+    preview.PreviewServer.publish = fetch_after_publish
+    try:
+        argv = ["--scene", "demo", "--sky", "--preview", "--frames", "3",
+                "--port", "0", "--device", str(dev)]
+        loop, counts, _, _, _ = run_cli(argv)
+    finally:
+        preview.PreviewServer.publish = publish
+    args = cli.build_parser().parse_args(argv)
+    frames, hdr, _ = cli_replay(args, dev)
+    check_plain(sm, "preview", args, dev, hdr)
+    decoded = []
+    for i, (_, body) in enumerate(fetched):
+        p = os.path.join(tmp.name, f"preview_{i}.png")
+        with open(p, "wb") as f:
+            f.write(body)
+        decoded.append(read_own_png(p))
+    sm.check(len(fetched) == 3 and all(
+        np.array_equal(d, rgb8) for d, (rgb8, _) in zip(decoded, fetched)),
+        f"preview: {len(fetched)} frames fetched from /frame.png, each the "
+        "frame published")
+    check_pngs(sm, "preview", [os.path.join(tmp.name, f"preview_{i}.png")
+                               for i in range(len(fetched))], frames)
+    want_launches(sm, "preview", counts, loop, 3, 1)
+    tmp.cleanup()
+
+    # The stacked two-level trace: K3 over each instance's BLAS, against
+    # its plain walk, on the bench scene's 512x384 primary rays.
+    w, h = PT_SMALL
+    scene_obj = bench_scene()
+    t0 = time.perf_counter()
+    tl = twolevel.build_two_level(scene_obj, 8, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg = RenderConfig(width=w, height=h)
+    o, d = renderer.primary_rays(renderer.camera_arrays(
+        Camera(**BENCH_CAM), cfg, dev), h, 0, cfg)
+    o, d = o.to_array(), d.to_array()
+    reset(k3.LAUNCHES)
+    kt, ki, ktri, ku, kv = twolevel.trace_two_level(tl, o, d)
+    torch.cuda.synchronize()
+    k3_launches = dict(k3.LAUNCHES)
+    pt, pi, ptri, pu, pv = twolevel.trace_two_level(tl, o, d, plain=True)
+    same = (ki == pi) & (ktri == ptri)
+    agree = float(same.float().mean())
+    hit = same & (pi >= 0)
+    t_err = float((kt - pt)[hit].abs().max())
+    n_inst = len(scene_obj.instances)
+    sm.check(k3_launches == {"closest": n_inst, "any_hit": 0},
+             f"stacked two-level trace: K3 launched {k3_launches} "
+             f"(one closest walk per instance, {n_inst} instances)")
+    sm.check(agree >= 0.99999 and t_err <= 1e-4,
+             f"stacked two-level trace (K3) vs its plain walk on {o.shape[0]}"
+             f" rays: instance and triangle ids agree on {agree:.6f}, "
+             f"{float(hit.float().mean()):.3f} hit, max t err {t_err:.3g}")
+    occ = twolevel.trace_two_level(tl, o, d, find_closest=False)[1]
+    sm.check(bool(torch.equal(occ >= 0, ki >= 0)),
+             "stacked two-level any-hit mode: occluded exactly where the "
+             "closest walk hits")
+    soup = scene_obj.build(dev)
+    sub = torch.arange(0, o.shape[0], max(1, o.shape[0] // 4096),
+                       device=dev)[:4096]
+    from hrt_tpu_torch.ops import intersect
+
+    bt, bi, _, _ = intersect.closest_hit_bruteforce(
+        o[sub], d[sub], soup.tri_v0, soup.tri_e1, soup.tri_e2)
+    a = soup_agreement(ktri[sub], ki[sub], kt[sub], bi, bt, soup.tri_inst)
+    sm.check(a >= 0.999, f"stacked two-level trace vs brute force over the "
+             f"soup on {sub.numel()} rays (hit, instance, modulo ties): "
+             f"{a:.6f}")
+    ms = time_ms(lambda: twolevel.trace_two_level(tl, o, d))
+    pms = time_ms(lambda: twolevel.trace_two_level(tl, o, d, plain=True),
+                  reps=3)
+    print(f"  stacked two-level accel: build {build_s:.3f} s "
+          f"({len(tl.blas)} LBVHs of {int(tl.nrm0.shape[1])} slots, leaf "
+          f"8); trace of {o.shape[0]} "
+          f"rays {ms:.4f} ms through K3 ({n_inst} launches), plain "
+          f"{pms:.4f} ms (CUDA events, median of 7 / 3)", flush=True)
+    out["two_level"] = {"agree": agree, "ms": ms, "plain_ms": pms,
+                        "launches": k3_launches}
+    return out
 
 
 def main() -> int:
@@ -3041,6 +3442,7 @@ def main() -> int:
     ml = many_lights_phases(sm, dev)
     sf = scene_file_phases(sm, dev)
     m_entries = materials_times(sm, dev, ml, sf)
+    cli_phase(sm, dev)
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,

@@ -22,8 +22,16 @@ hand-written CUDA kernels:
 
 The walks run closest hit and any hit.  Each kernel has a plain PyTorch
 version beside it, used for CPU tensors (and by the tests); CUDA tensors
-always go to the kernel.  The package imports neither ``jax`` nor
-``hrt_tpu``.
+always go to the kernel.  ``traversal="bruteforce"`` traces against
+every triangle in plain PyTorch instead of walking an accel, and
+``ops/twolevel`` is the stacked per-mesh two-level accel, each BLAS
+walked by K3.
+
+Users start it as ``python -m hrt_tpu_torch.render`` (``cli.py``; the
+live preview is ``preview.py``); ``utils/`` holds the PNG writer, logging,
+profiling and the upscaler's ``.npz`` checkpoints.  The package imports
+neither ``jax`` nor ``hrt_tpu``, nor the JAX benchmark; PIL is imported
+only when a scene file's ``image:`` texture is loaded.
 """
 
 __version__ = "0.1.0"

@@ -4,11 +4,12 @@ Keeping every field (and its default) lets one config object describe
 the same frame to both packages.  Knobs that only steer TPU speed
 (`shade_pallas`, `block_reorder`, `shadow_interleave`,
 `shadow_from_light`, `tri_chunk`, `leaf_size`) are accepted and do not
-change this package's output.  `light_sampler` picks the sampled NEE's
-light sampler: "bvh" the light-tree descent, "auto" the tree past 384
-lights, anything else the flat CDF scan.  Features outside the ported
-slice are refused by `require_slice`.  `CONFIGS` holds the JAX
-package's named benchmark configurations.
+change this package's output.  `traversal="bruteforce"` traces a
+single-level scene against every triangle (no accel), as the JAX
+package does; the other values walk the accel.  `light_sampler` picks
+the sampled NEE's light sampler: "bvh" the light-tree descent, "auto"
+the tree past 384 lights, anything else the flat CDF scan.  `CONFIGS`
+holds the JAX package's named benchmark configurations.
 """
 from __future__ import annotations
 
@@ -73,28 +74,23 @@ CONFIGS = {
 
 
 def require_slice(config: RenderConfig) -> None:
-    """Raise NotImplementedError for any feature this package does not
-    render yet: the port covers the path tracer (the Disney BRDF or the
-    pbr BSDF, textures, a shadow ray per light or `light_samples`
-    sampled lights, sky on miss, bounces with Russian roulette, jitter,
-    the sorted wavefront) and its post stages (accumulate, SVGF, the
-    spatial or temporal 2x upscaler); the brute-force walk is not
-    ported.  An upscale_mode the JAX package does not know raises
-    ValueError."""
+    """Raise ValueError for an upscale_mode the JAX package does not
+    know.  Every other feature of RenderConfig is ported: the path
+    tracer (the Disney BRDF or the pbr BSDF, textures, a shadow ray per
+    light or `light_samples` sampled lights, sky on miss, bounces with
+    Russian roulette, jitter, the sorted wavefront), its post stages
+    (accumulate, SVGF, the spatial or temporal 2x upscaler) and both
+    traversals (an accel's walk, or brute force)."""
     if config.upscale_mode not in ("spatial", "temporal"):
         raise ValueError(f"upscale_mode must be 'spatial' or 'temporal', "
                          f"not {config.upscale_mode!r}")
-    if config.traversal == "bruteforce":
-        raise NotImplementedError(
-            "not ported yet: traversal='bruteforce'")
 
 
 def resolve_device(device) -> torch.device:
     """`device`, or the first CUDA device when it is None.  Never picks
-    the CPU on its own: with no card, a None device raises."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    the CPU on its own: with no card, a None or CUDA device raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass device='cpu' to run the "
                            "plain PyTorch versions")
-    return torch.device("cuda")
+    return dev

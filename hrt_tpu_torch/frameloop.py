@@ -17,8 +17,10 @@ refitting the TLAS; otherwise it starts as the single-level SAH Accel,
 and with `cull_threshold_px > 0` (the default, as in the JAX package)
 each step first updates the instances' visibility (ops/culling.py) and,
 when it changed, rebuilds the accel with the LBVH over the visible
-triangles (its walks take K3).  Two-level loops skip culling, as in the
-JAX package.  A multi-device `mesh` is not ported yet and raises
+triangles (its walks take K3).  With `traversal="bruteforce"` a
+single-level loop builds no accel (`accel` is None), traces by brute
+force and skips culling.  Two-level loops skip culling, as in the JAX
+package.  A multi-device `mesh` is not ported yet and raises
 NotImplementedError.
 """
 from __future__ import annotations
@@ -135,6 +137,8 @@ class FrameLoop:
                                     for i in self.scene_obj.instances])
                           for k in ("transform", "inverse_transform",
                                     "normal_matrix")]
+        elif cfg.traversal == "bruteforce":
+            self.accel = None
         else:
             self.accel = lbvh.build_bvh_sah(self.scene, self.leaf_size,
                                             device=self.device)
@@ -196,7 +200,8 @@ class FrameLoop:
         self.accel = tlas.refit_two_level(self.accel, *self._mats)
 
     def _maybe_cull(self, cams) -> None:
-        if self.cull_threshold_px <= 0 or self.two_level:
+        if (self.accel is None or self.cull_threshold_px <= 0
+                or self.two_level):
             return
         new_vis = culling.cull_instances(
             self.visible, self.scene.inst_bmin, self.scene.inst_bmax, cams,

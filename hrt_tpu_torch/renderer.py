@@ -12,7 +12,11 @@ tree past MAX_WIDE_NODES), or a two-level TwoLevelFlat (ops/tlas.py),
 traced by K4 (BVH8 route) or K5 (binary route) and shaded through the
 hit instance's normal matrix and material.  Every depth's closest and
 shadow traces go to the accel's walk, every depth's Disney BRDF to K2
-(the pbr BSDF, as in the JAX package, stays plain PyTorch).
+(the pbr BSDF, as in the JAX package, stays plain PyTorch).  With no
+accel, or `traversal="bruteforce"` on a single-level scene, every
+trace tests every triangle (ops/intersect.py, plain PyTorch as in the
+JAX package) in ray blocks, and hits shade from the scene's attribute
+table in original ids.
 
 hrt_tpu/renderer.py's `trace_paths` and `render_rows` in plain PyTorch
 around the kernels.  Per-pixel output is the JAX package's: the same
@@ -38,15 +42,15 @@ from typing import NamedTuple
 
 import torch
 
-from .config import RenderConfig, require_slice
+from .config import RenderConfig, require_slice, resolve_device
 from .models.camera import Camera, CameraArrays, primary_rays_from_px_p
 from .models.lights import process_light, process_light_one
 from .models.materials import BASE_COLOR_TEX, ROUGHNESS_MIN, MatP
 from .models.scene import Scene, SceneData
 from .models.sky import eval_sky_p
 from .models.textures import sample_texture_p
-from .ops import (lightbvh, pbr, rng, sampling, shade_kernel, tlas, traversal,
-                  v3, wavefront)
+from .ops import (intersect, lbvh, lightbvh, pbr, rng, sampling, shade_kernel,
+                  tlas, traversal, v3, wavefront)
 from .ops.disney import schlick_weight
 from .ops.intersect import INF
 from .ops.lbvh import ATTR_MAT, Accel
@@ -63,10 +67,51 @@ _DEAD_KEY = 0xFFFFFFFF
 # light_sampler="auto" samples lights by the light tree past this many
 # lights, by the flat CDF scan up to it (the JAX package's crossover).
 AUTO_TREE_LIGHTS = 384
+# Rays a block of the brute-force walk, which bounds its (rays x
+# tri_chunk) intersection temporaries: the JAX package's largest ray
+# block.  The last block may be ragged (a Python loop needs no equal
+# blocks); no ray's result depends on its block.
+BRUTE_BLOCK = 65536
 
 
 def camera_arrays(cam: Camera, config: RenderConfig, device) -> CameraArrays:
     return cam.ray_params(config.width, config.height, device)
+
+
+def _brute_force(config: RenderConfig, accel) -> bool:
+    """Whether traces test every triangle: with no accel, or with
+    traversal="bruteforce" on a single-level one (a two-level accel is
+    always walked, as in the JAX package)."""
+    return accel is None or (config.traversal == "bruteforce"
+                             and not isinstance(accel, TwoLevelFlat))
+
+
+def _brute_blocks(scene: SceneData, o: V3, d: V3, t_max,
+                  config: RenderConfig, closest: bool):
+    """The brute-force walk over BRUTE_BLOCK-ray blocks, the triangles
+    `min(tri_chunk, T)` at a time: (t, tri (original id), u, v) of the
+    closest hits, or the occlusion mask."""
+    ro, rd = o.to_array(), d.to_array()
+    n = ro.shape[0]
+    tmax = torch.broadcast_to(torch.as_tensor(
+        t_max, dtype=torch.float32, device=ro.device), (n,))
+    walk = (intersect.closest_hit_bruteforce if closest
+            else intersect.any_hit_bruteforce)
+    chunk = min(config.tri_chunk, scene.num_triangles)
+    outs = [walk(ro[s:s + BRUTE_BLOCK], rd[s:s + BRUTE_BLOCK],
+                 scene.tri_v0, scene.tri_e1, scene.tri_e2, config.t_min,
+                 tmax[s:s + BRUTE_BLOCK], chunk=chunk)
+            for s in range(0, n, BRUTE_BLOCK)]
+    if closest:
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def _scene_attr_table(scene: SceneData) -> torch.Tensor:
+    """The hit-attribute table in original triangle order, with
+    Accel.attr's columns (the brute-force walk's ids index it)."""
+    return lbvh.hit_attr_table(scene, torch.arange(
+        scene.num_triangles, device=scene.tri_v0.device))
 
 
 def _zero3(like) -> V3:
@@ -252,9 +297,10 @@ def direct_lighting_p(scene: SceneData, accel, mat: MatP, rows, n: V3,
     """Direct light at the hit points over nee_light_batch's samples:
     their BRDF in one call (K2, or the pbr BSDF), all their shadow rays
     in one light-major any-hit call (the accel's walk: K1 or K3, K4 or
-    K5 for a two-level accel).  A sampled batch weighs each sample by
-    its 1 / pdf and averages them.  `rows` are the hits' material rows
-    (the pbr BSDF's input).  Returns (radiance V3, the advanced seed)."""
+    K5 for a two-level accel; or brute force).  A sampled batch weighs
+    each sample by its 1 / pdf and averages them.  `rows` are the hits'
+    material rows (the pbr BSDF's input).  Returns (radiance V3, the
+    advanced seed)."""
     if scene.lights.shape[0] == 0:
         return _zero3(n.x), seed
     lb, seed = nee_light_batch(scene, n, world_pos, config, ray_mask, seed)
@@ -262,6 +308,9 @@ def direct_lighting_p(scene: SceneData, accel, mat: MatP, rows, n: V3,
     if isinstance(accel, TwoLevelFlat):
         occluded = tlas.any_hit_tlas(accel, lb.origin, lb.l, config.t_min,
                                      lb.t_max, plain=plain)
+    elif _brute_force(config, accel):
+        occluded = _brute_blocks(scene, lb.origin, lb.l, lb.t_max, config,
+                                 False)
     else:
         occluded = traversal.any_hit_bvh_p(scene, accel, lb.origin, lb.l,
                                            config.t_min, lb.t_max,
@@ -299,8 +348,9 @@ def surface_hits(scene: SceneData, accel, o: V3, d: V3,
                  config: RenderConfig, t_max=INF,
                  plain: bool = False) -> SurfaceHits:
     """Closest hit within (t_min, t_max) and the attribute gather: by
-    leaf-pool id from the Accel's table (K1 or K3), or by global pool id
-    and instance from the TwoLevelFlat (K4 or K5).  In a textured scene
+    leaf-pool id from the Accel's table (K1 or K3), by global pool id
+    and instance from the TwoLevelFlat (K4 or K5), or, brute force, by
+    original id from _scene_attr_table.  In a textured scene
     the base color is multiplied by the hit material's texture at the
     hit's UV (1 where the material has none)."""
     if isinstance(accel, TwoLevelFlat):
@@ -308,6 +358,10 @@ def surface_hits(scene: SceneData, accel, o: V3, d: V3,
             accel, o, d, config.t_min, t_max, plain=plain)
         nrm, mat, rows, (tu, tv) = tlas.shade_attrs_tlas(
             accel, scene.materials, tri, inst, u, v)
+    elif _brute_force(config, accel):
+        t, tri, u, v = _brute_blocks(scene, o, d, t_max, config, True)
+        nrm, mat, rows, (tu, tv) = _shade_attrs_p(_scene_attr_table(scene),
+                                                  tri, u, v)
     else:
         t, tri, u, v = traversal.closest_hit_bvh_p(
             scene, accel, o, d, config.t_min, t_max, sorted_ids=True,
@@ -437,10 +491,9 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
     `_batches`, a list, receives each depth's closest-hit batch and its
     shading inputs (a dict per depth; for measurements and tests)."""
     require_slice(config)
-    if not isinstance(accel, (Accel, TwoLevelFlat)):
-        raise NotImplementedError(
-            "only the single-level Accel and the two-level TwoLevelFlat "
-            "are ported (no brute-force frame path)")
+    if accel is not None and not isinstance(accel, (Accel, TwoLevelFlat)):
+        raise TypeError(f"accel must be an Accel, a TwoLevelFlat or None "
+                        f"(brute force), not {type(accel).__name__}")
     n = o.x.shape[0]
     dev = o.x.device
     radiance = _zero3(o.x)
@@ -607,12 +660,18 @@ def render_frames(scene: SceneData, accel, cam: CameraArrays,
         for i in range(k)])
 
 
-def render(scene_obj, cam: Camera, config: RenderConfig, accel,
-           frame: int = 0, plain: bool = False):
-    """Host entry: build the scene on the accel's device if needed and
-    render frame `frame` -> (H, W, 3) numpy array.  `accel` is an Accel
-    or a TwoLevelFlat."""
-    device = accel.tris.device
+def render(scene_obj, cam: Camera, config: RenderConfig, accel=None,
+           frame: int = 0, plain: bool = False, device=None):
+    """Host entry: build the scene if needed and render frame `frame` ->
+    (H, W, 3) numpy array.  `accel` is an Accel, a TwoLevelFlat, or None
+    to trace by brute force.  The device is `device`, else the accel's,
+    else a built SceneData's, else the first CUDA device
+    (config.resolve_device: raises without a card)."""
+    if device is None and accel is not None:
+        device = accel.tris.device
+    elif device is None and isinstance(scene_obj, SceneData):
+        device = scene_obj.tri_v0.device
+    device = resolve_device(device)
     scene = (scene_obj.build(device) if isinstance(scene_obj, Scene)
              else scene_obj)
     cams = camera_arrays(cam, config, device)

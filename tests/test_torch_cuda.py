@@ -758,3 +758,72 @@ def test_studio_frame_matches_plain(cuda, brdf):
                              cfg, chip_smoke.STUDIO_CAM,
                              (3, 3, 0 if brdf == "pbr" else 3))
     assert float(img.mean()) > 0.0
+
+
+def test_cli_renders_on_the_card(cuda, tmp_path, capsys):
+    """`python -m hrt_tpu_torch.render --scene demo --sky --stats`, in
+    process and without --device: the card, one K1 closest, one K1 any
+    hit and one K2 launch; the PNG is the file of the tonemapped
+    FrameLoop step, byte for byte."""
+    import json
+
+    from hrt_tpu_torch import cli
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models.scene import reference_demo_scene
+    from hrt_tpu_torch.utils.image import encode_png, tonemap
+
+    out = str(tmp_path / "f.png")
+    before = (dict(traversal_wide8.LAUNCHES), dict(shade_kernel.LAUNCHES))
+    loop = cli.main(["--scene", "demo", "--sky", "--stats", "--width",
+                     "128", "--height", "96", "--out", out])
+    assert loop.device.type == "cuda"
+    assert traversal_wide8.LAUNCHES == {m: c + 1
+                                        for m, c in before[0].items()}
+    assert shade_kernel.LAUNCHES == {m: c + 1 for m, c in before[1].items()}
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["frames"] == 1 and stats["mrays_per_sec"] > 0
+    ref = FrameLoop(reference_demo_scene(), loop.config,
+                    cull_threshold_px=0.0, device=cuda)
+    img = ref.step(Camera(position=(0.0, 0.0, -2.0)))
+    with open(out, "rb") as f:
+        assert f.read() == encode_png(tonemap(img.cpu().numpy()))
+
+
+def test_bruteforce_frame_matches_k1_frame(cuda):
+    """traversal='bruteforce' on the card (no walk launched) against the
+    K1 frame of the same config, PSNR > 45."""
+    from hrt_tpu_torch.models.scene import reference_demo_scene
+
+    sc = reference_demo_scene()
+    cfg = RenderConfig(width=160, height=120, max_depth=2, sky=True)
+    acc = lbvh.build_bvh_sah(sc.build(cuda), leaf_size=32)
+    before = dict(traversal_wide8.LAUNCHES)
+    brute = renderer.render(sc, Camera(), RenderConfig(
+        traversal="bruteforce", width=160, height=120, max_depth=2,
+        sky=True), device=cuda)
+    assert traversal_wide8.LAUNCHES == before
+    k1 = renderer.render(sc, Camera(), cfg, acc)
+    assert psnr(np.clip(brute, 0, 4), np.clip(k1, 0, 4), peak=4.0) > 45.0
+
+
+def test_stacked_two_level_trace_matches_plain(cuda):
+    """ops/twolevel.trace_two_level on the card walks each instance's
+    BLAS with K3 (one launch per instance) and matches its plain walk on
+    >= 0.99999 of rays."""
+    from hrt_tpu_torch.ops import traversal_skip, twolevel
+
+    sc = bench_scene()
+    tl = twolevel.build_two_level(sc, 8)
+    assert tl.nrm0.is_cuda
+    o, d = _rays(11, 8192, cuda)
+    before = dict(traversal_skip.LAUNCHES)
+    kt, ki, ktri, _, _ = twolevel.trace_two_level(tl, o, d)
+    torch.cuda.synchronize()
+    assert traversal_skip.LAUNCHES["closest"] \
+        == before["closest"] + len(sc.instances)
+    pt, pi, ptri, _, _ = twolevel.trace_two_level(tl, o, d, plain=True)
+    same = (ki == pi) & (ktri == ptri)
+    assert float(same.float().mean()) >= 0.99999
+    hit = same & (pi >= 0)
+    assert float(hit.float().mean()) > 0.05
+    assert float((kt - pt)[hit].abs().max()) <= 1e-4

@@ -89,9 +89,7 @@ def test_single_level_loop_renders_and_refuses_animation():
         loop.set_instance_transform(1, position=(0.0, 0.0, 0.0))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(cfg=dict(light_samples=2,
-                                              traversal="bruteforce"))])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_loop_refusals(kw):
     with pytest.raises(NotImplementedError):
         _loop(**kw)

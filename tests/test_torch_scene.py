@@ -1,6 +1,7 @@
 """hrt_tpu_torch scene side vs the JAX package on the same inputs: camera
 rays, lights, sky, scene flattening; plus the package's import
-boundary and its refusal of features outside the ported slice."""
+boundary (no jax, hrt_tpu, bench or PIL) and the configs it once
+refused."""
 import os
 import subprocess
 import sys
@@ -105,8 +106,8 @@ def test_package_imports_neither_jax_nor_hrt_tpu():
         "for m in pkgutil.walk_packages(hrt_tpu_torch.__path__, "
         "'hrt_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith"
-        "(('jax.', 'hrt_tpu.')) or k == 'hrt_tpu']\n"
+        "bad = [k for k in sys.modules if k in ('jax', 'hrt_tpu', "
+        "'bench', 'PIL') or k.startswith(('jax.', 'hrt_tpu.', 'PIL.'))]\n"
         "assert not bad, bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
@@ -115,10 +116,9 @@ def test_package_imports_neither_jax_nor_hrt_tpu():
     assert proc.returncode == 0, proc.stderr
 
 
-# The post stages (denoise, upscale), the path tracer (indirect,
-# jitter, sort_bounces), sampled NEE (light_samples) and the pbr BSDF
-# are in the slice: a config with them raises for the brute-force walk
-# only.
+# The configs that require_slice refused while the brute-force walk was
+# not ported: with it, every one renders with no accel, as the BVH walk
+# renders it.
 @pytest.mark.parametrize("change", [
     dict(indirect=True, light_samples=2, traversal="bruteforce"),
     dict(jitter=True, brdf="pbr", traversal="bruteforce"),
@@ -129,16 +129,30 @@ def test_package_imports_neither_jax_nor_hrt_tpu():
     dict(brdf="pbr", traversal="bruteforce"),
     dict(sort_bounces=True, traversal="bruteforce"),
     dict(traversal="bruteforce")])
-def test_features_outside_the_slice_raise(change):
-    require_slice(RenderConfig(max_depth=1, sky=True, denoise=True,
-                               upscale=2, upscale_mode="temporal"))
-    accepted = {k: v for k, v in change.items() if k != "traversal"}
-    require_slice(RenderConfig(**{"max_depth": 1, **accepted}))
-    with pytest.raises(NotImplementedError) as err:
-        require_slice(RenderConfig(**{"max_depth": 1, **change}))
-    for name in ("denoise", "upscale", "indirect", "jitter", "sort_bounces",
-                 "light_samples", "pbr"):
-        assert name not in str(err.value)
+def test_bruteforce_configs_render(change):
+    """require_slice accepts the config, FrameLoop builds no accel for
+    it, and two 16x12 steps of the demo scene (three lights, mirror and
+    rough metal) equal the BVH walk's steps of the same config (PSNR >
+    45)."""
+    import dataclasses
+
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.utils.image import psnr
+
+    cfg = RenderConfig(**{"width": 16, "height": 12, "max_depth": 1,
+                          "sky": True, **change})
+    require_slice(cfg)
+    brute = FrameLoop(scene.reference_demo_scene(), cfg, device="cpu")
+    walk = FrameLoop(scene.reference_demo_scene(),
+                     dataclasses.replace(cfg, traversal="auto"),
+                     device="cpu")
+    assert brute.accel is None and walk.accel is not None
+    cam = camera.Camera(position=(0.0, -0.3, -2.0))
+    for _ in range(2):
+        a, b = brute.step(cam).numpy(), walk.step(cam).numpy()
+    assert a.shape == b.shape == (12 * cfg.upscale, 16 * cfg.upscale, 3)
+    assert np.isfinite(a).all()
+    assert psnr(np.clip(a, 0, 4), np.clip(b, 0, 4), peak=4.0) > 45.0
 
 
 def test_path_tracing_configs_accepted():

@@ -426,20 +426,18 @@ def test_single_instance_scene_walks_binary():
     assert tl.w8_nodes is None and tl.tlas_m == 3
 
 
-# Bounces and sampled many-light NEE are ported; a two-level
-# path-traced loop with sampled NEE still refuses the brute-force walk,
-# and names only it.
-@pytest.mark.parametrize("what,call,exc,match", [
-    pytest.param("light_samples", lambda: FrameLoop(
-        port_scene(_instanced_scene()),
-        RenderConfig(indirect=True, light_samples=2, traversal="bruteforce",
-                     **FRAME),
-        two_level=True, device="cpu"), NotImplementedError,
-        "^not ported yet: traversal='bruteforce'$", id="light_samples"),
-])
-def test_refusals(what, call, exc, match):
-    with pytest.raises(exc, match=match):
-        call()
+# A two-level loop is walked whatever its traversal, as in the JAX
+# package: traversal='bruteforce' (once refused, with sampled NEE and
+# bounces) renders through the TLAS, the frame of traversal='auto'.
+def test_two_level_loop_walks_its_tlas_under_bruteforce():
+    cfg = dict(FRAME, indirect=True, max_depth=2, light_samples=2)
+    brute = FrameLoop(port_scene(_instanced_scene()), RenderConfig(
+        traversal="bruteforce", **cfg), two_level=True, device="cpu")
+    walk = FrameLoop(port_scene(_instanced_scene()), RenderConfig(**cfg),
+                     two_level=True, device="cpu")
+    assert isinstance(brute.accel, tlas.TwoLevelFlat)
+    np.testing.assert_array_equal(brute.step(Camera(**CAM)).numpy(),
+                                  walk.step(Camera(**CAM)).numpy())
 
 
 @pytest.fixture(scope="module")
