@@ -6,8 +6,10 @@
 Builds the CUDA kernels from hrt_tpu_torch/csrc/, then drives the
 port's paths: the five direct-lighting ones, the path tracer, then
 many-light sampled NEE, textures and the pbr BSDF on the shipped scene
-files, and last the render command (`python -m hrt_tpu_torch.render`).  The bench frame: the bench scene (three icospheres +
-ground plane, two point lights), SAH build with 32-triangle leaves and
+files, the render command (`python -m hrt_tpu_torch.render`), and last
+the upscaler's trainer (`python -m hrt_tpu_torch.train_upscaler`), whose
+recurrent fine-tune differentiates through K6.  The bench frame: the
+bench scene (three icospheres + ground plane, two point lights), SAH build with 32-triangle leaves and
 its BVH8 records, and `render_frames` of 32 frames at 512x384
 (max_depth=1, sky on), plus one 1920x1080 frame.  The instanced frame:
 the JAX package's `instanced_tlas_512x384` scene through
@@ -192,6 +194,36 @@ over the bench frame, whose history fetches run K6.  Phases:
      (ops/twolevel.py: K3 per instance) on the bench scene's 512x384
      rays against its plain walk (ids on >= 0.99999 of rays) and brute
      force, timed
+ 37. upscaler training (`python -m hrt_tpu_torch.train_upscaler`,
+     `train_upscaler.main` in this process, checkpoints to a temporary
+     directory), spatial: 4 path-traced 256x256 frames of the bench
+     scene and the Cornell box through FrameLoop (K1, K2; no warp), 300
+     Adam steps on 8 64-px crops (the script's sizes); the launch
+     counters set to 0 just before and read just after; the mean of the
+     last 10 losses < 0.8 x the first 10's
+ 38. the same, --temporal: two 16-frame orbits (1-spp 128x128 frames
+     with their G-buffers, 8-spp 256x256 targets; K1, K2), temporal
+     triples (K6), 600 steps on 8 corrupted 128-px crops, 60 recurrent
+     steps over both sequences (K6 forward and, for the gradient, its
+     backward: the counters must show 60 x 2 x 15 backward launches),
+     the held-out PSNR (temporal / spatial / bilinear) of the trained
+     nets beside the committed weights', the temporal net's more than
+     1 dB over bilinear's; the temporal run's last-10 / first-10 loss
+     ratio < 0.8, as phase 37's, and each net's loss on a fixed batch
+     of 64 crops < 0.9 x its initial net's (free of crop noise), the
+     recurrent fine-tune's last-10 / first-10 ratio of its steps'
+     losses (both sequences) < 1; both checkpoints through load_params
+     and upscaler_from_numpy give the trained nets' output bit for bit
+ 39. K6's backward against autograd of the plain warp at the trainer's
+     history (256x256, C=3, a bench orbit step's motion) and at the 4K
+     one of animated_4k's shape (phase 20's, 3840x2160, C=3): within
+     1e-5 of the largest |grad| (float atomics); times (CUDA events, 10
+     calls per sample) beside the plain backward's, grid_sample's input
+     gradient's and the bound
+ 40. one recurrent update on the card through K6 against the plain
+     route (`plain=True`): loss within rtol 1e-5, gradients within 1e-4
+     of each tensor's largest entry; with the warped history detached
+     the gradient moves; ms per spatial, temporal and recurrent step
 
 Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
 through K1 and K2, held off the image diagonals where the box's wall
@@ -222,13 +254,15 @@ and the comparisons are skipped.
 
 Exits non-zero, printing no result, without a CUDA device or when any
 check fails.  The line before the last is the kernels JSON (the six
-kernels on the direct-lighting paths, then K1's two modes and K2 on the
-path_tracing frame, one frame's five launches each, then on the
-many_lights_256 frame); the last is {"ok": true, "device": {...}}.
+kernels on the direct-lighting paths, K6's backward on the trainer's
+history, then K1's two modes and K2 on the path_tracing frame, one
+frame's five launches each, then on the many_lights_256 frame); the
+last is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -976,11 +1010,12 @@ def run_post_loop(dev, cfg, steps: int, replay: int | None = None):
     return deltas, totals, peak, img, ref, loop
 
 
-def post_phases(sm: Smoke, dev, baseline=None) -> dict:
+def post_phases(sm: Smoke, dev, baseline=None) -> tuple:
     """Phases 20-23, the post frame; `baseline` is load_baseline()'s
     library or None.  Returns K6's entry of the kernels line (its ms,
     plain_ms, library_ms and bound_ms are those of one frame's two
-    launches, one at each shape)."""
+    launches, one at each shape) and phase 20's 3840x2160 C=3 warp
+    inputs (history, px, py)."""
     import torch
     import torch.nn.functional as F
 
@@ -1148,8 +1183,9 @@ def post_phases(sm: Smoke, dev, baseline=None) -> dict:
                 and has_baseline(baseline, "hrt_brdf_light_major"):
             frame_vs_baseline(bench_swaps(baseline), steps_k,
                               f"post frame {size} -> 2x, {k} steps")
-    return {"launches": results[22]["totals"]["k6"], "max_abs_err": k6_err,
-            "bound_by": "bytes", **t}
+    return ({"launches": results[22]["totals"]["k6"],
+             "max_abs_err": k6_err, "bound_by": "bytes", **t},
+            shapes["upscaler 3840x2160 C=3"])
 
 
 def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
@@ -1969,7 +2005,8 @@ def launch_counts() -> dict:
             "k4_closest": k4.LAUNCHES["closest"],
             "k4_any_hit": k4.LAUNCHES["any_hit"],
             "k5": k5.LAUNCHES["closest"] + k5.LAUNCHES["any_hit"],
-            "k6": k6.LAUNCHES["warp_bilinear"]}
+            "k6": k6.LAUNCHES["warp_bilinear"],
+            "k6_backward": k6.LAUNCHES["warp_bilinear_backward"]}
 
 
 def reset_all() -> None:
@@ -2712,6 +2749,328 @@ def cli_phase(sm: Smoke, dev) -> dict:
     return out
 
 
+# The trainer's sizes (scripts/train_upscaler.py): steps of the spatial
+# and temporal runs (its usage lines: 300 / 600) and of the recurrent
+# fine-tune (its default, 60).
+SPATIAL_STEPS = 300
+TEMPORAL_STEPS = 600
+RECURRENT_STEPS = 60
+# The least held-out PSNR gain of the trained temporal net over bilinear.
+PSNR_MARGIN_DB = 1.0
+
+
+def window_ratio(losses: list) -> float:
+    """The mean of the last 10 losses over that of the first 10 (crops
+    are random: single losses are too noisy to compare)."""
+    return statistics.mean(losses[-10:]) / statistics.mean(losses[:10])
+
+
+def fixed_batch_losses(make, loss_fn, trained, batch) -> tuple:
+    """The loss of the trained net and of the trainer's initial net
+    (`make()` rebuilds it from the trainer's seed) on one fixed batch,
+    in full float32: (initial, trained)."""
+    import torch
+
+    from hrt_tpu_torch.models import upscaler
+
+    init, _ = make()
+    with torch.no_grad(), upscaler.fp32_convs():
+        return float(loss_fn(init, *batch)), float(loss_fn(trained, *batch))
+
+
+def round_trip(sm: Smoke, label: str, net, path: str, temporal: bool,
+               args) -> None:
+    """The checkpoint the trainer wrote, through load_params and
+    upscaler_from_numpy, gives the trained net's output bit for bit."""
+    import torch
+
+    from hrt_tpu_torch.models import upscaler
+    from hrt_tpu_torch.utils.checkpoint import load_params
+    from hrt_tpu_torch.utils.interop import (upscaler_from_numpy,
+                                             upscaler_to_numpy)
+
+    template = upscaler_to_numpy(upscaler.TemporalUpscalerNet() if temporal
+                                 else upscaler.UpscalerNet())
+    back = upscaler_from_numpy(load_params(path, template), temporal,
+                               args[0].device)
+    with torch.no_grad(), upscaler.fp32_convs():
+        same = torch.equal(back(*args), net(*args))
+    sm.check(same, f"{label}: save -> load_params -> upscaler_from_numpy "
+             f"gives the trained net's output bit for bit ({path})")
+
+
+def warp_backward_check(sm: Smoke, label: str, img, px, py, seed: int):
+    """K6's backward (the adjoint's kernel, and through WarpBilinear)
+    against autograd of the plain warp on an (Ho, Wo, C) grad_val drawn
+    from `seed`.  The kernel's adds are float atomics in an order that
+    changes from run to run, and an edge tap takes an add from every
+    pixel clamped onto it (up to ~1.3M at 4K), so each element is held
+    within 1e-5 of its terms' absolute sum (the plain adjoint of
+    |grad_val|), as K6's forward is held to its taps' absolute weighted
+    sum.  Returns (grad_val, max abs err, plain backward ms)."""
+    import torch
+
+    from hrt_tpu_torch.ops import warp_kernel as k6
+
+    g = torch.Generator(device=img.device).manual_seed(seed)
+    gv = torch.randn((*px.shape, img.shape[2]), generator=g,
+                     device=img.device)
+    hs, ws = img.shape[0], img.shape[1]
+    kg = k6.warp_bilinear_backward_kernel(gv, px, py, hs, ws)
+    src = img.detach().clone().requires_grad_(True)
+    val = k6.warp_bilinear_plain(src, px, py)[0]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    (pg,) = torch.autograd.grad(val, src, gv, retain_graph=True)
+    ev[1].record()
+    (scale,) = torch.autograd.grad(val, src, gv.abs())
+    before = k6.LAUNCHES["warp_bilinear_backward"]
+    (fg,) = torch.autograd.grad(k6.warp_bilinear(src, px, py)[0], src, gv)
+    torch.cuda.synchronize()
+    err = float((kg - pg).abs().max())
+    rel = float(((kg - pg).abs() / scale.clamp(min=1e-30)).max())
+    frel = float(((fg - pg).abs() / scale.clamp(min=1e-30)).max())
+    sm.check(rel <= 1e-5 and frel <= 1e-5 and bool(torch.isfinite(kg).all())
+             and k6.LAUNCHES["warp_bilinear_backward"] == before + 1,
+             f"{label}: K6 backward vs autograd of the plain warp: rel err "
+             f"{rel:.3g} of each element's absolute sum (max abs {err:.3g}, "
+             f"max |grad| {float(pg.abs().max()):.4g}, max sum "
+             f"{float(scale.max()):.4g}); through WarpBilinear {frel:.3g}, "
+             f"one backward launch")
+    return gv, err, ev[0].elapsed_time(ev[1])
+
+
+def train_phases(sm: Smoke, dev, hist4k) -> dict:
+    """Phases 37-40, upscaler training (hrt_tpu_torch.train_upscaler) on
+    the card.  `hist4k`: phase 20's (history, px, py) at 3840x2160, C=3.
+    Returns the kernels line's entry of K6's backward."""
+    import copy
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from hrt_tpu_torch import train_upscaler as tu
+    from hrt_tpu_torch.models import upscaler
+    from hrt_tpu_torch.ops import denoise, warp_kernel as k6
+
+    tmp = tempfile.TemporaryDirectory()
+    spath = os.path.join(tmp.name, "upscaler_torch.npz")
+    tpath = os.path.join(tmp.name, "upscaler_temporal_torch.npz")
+    dflag = ["--device", str(dev)]
+
+    phase(f"phase 37: train_upscaler, spatial: 4 frames at 256x256, "
+          f"{SPATIAL_STEPS} steps of 8 64-px crops")
+    reset_all()
+    t0 = time.perf_counter()
+    sp = tu.main(dflag + ["--steps", str(SPATIAL_STEPS), "--out", spath])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"  trainer run {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}", flush=True)
+    sm.check(counts["k1_closest"] > 0 and counts["k1_any_hit"] > 0
+             and counts["k2"] > 0 and counts["k6"] == 0
+             and counts["k6_backward"] == 0 and counts["k3"] == 0,
+             f"spatial run: K1 and K2 launched (the frames), no warp")
+    r = window_ratio(sp["losses"])
+    sm.check(r < 0.8 and all(map(math.isfinite, sp["losses"])),
+             f"spatial: the mean of the last 10 losses over the first 10's "
+             f"{r:.4f} < 0.8 ({len(sp['losses'])} steps)")
+
+    phase(f"phase 38: train_upscaler --temporal: 2 x 16-frame orbits "
+          f"(128x128 -> 256x256, 8-spp targets), {TEMPORAL_STEPS} steps, "
+          f"{RECURRENT_STEPS} recurrent steps, held-out PSNR")
+    reset_all()
+    t0 = time.perf_counter()
+    tr = tu.main(dflag + ["--temporal", "--steps", str(TEMPORAL_STEPS),
+                          "--recurrent-steps", str(RECURRENT_STEPS),
+                          "--out", tpath])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"  trainer run {time.perf_counter() - t0:.1f} s, launches "
+          f"{counts}", flush=True)
+    seqs, ev = tr["seqs"], tr["held_out"]
+    n_seq = seqs[0][0].shape[0]
+    warps = RECURRENT_STEPS * len(seqs) * (n_seq - 1)
+    want_fwd = len(seqs) * (n_seq - 1) + warps + ev[0].shape[0] - 1
+    sm.check(counts["k6_backward"] == warps and counts["k6"] == want_fwd
+             and counts["k1_closest"] > 0 and counts["k1_any_hit"] > 0
+             and counts["k2"] > 0 and counts["k3"] == 0,
+             f"temporal run: {counts['k6_backward']} K6 backward launches "
+             f"(want {warps}: {RECURRENT_STEPS} steps x {len(seqs)} "
+             f"sequences x {n_seq - 1} warped frames), {counts['k6']} K6 "
+             f"forward (want {want_fwd}: triples, unrolls, held-out)")
+    # The window ratio is noisy (a CPU rehearsal at these sizes read it
+    # at 0.75-0.85 from 30 to 100 steps, as the 1-spp inputs' loss nears
+    # its floor), so a fixed batch of 64 crops through the initial and
+    # the trained net, free of crop noise, must show a 10% fall too.
+    gen = torch.Generator().manual_seed(99)
+    lr_t, hist_t, hr_t = (torch.cat(x) for x in zip(
+        *(tu.temporal_triples(*s) for s in seqs)))
+    fixed = tu.crops(gen, lr_t, hist_t, hr_t, batch=64)
+    l0, l1 = fixed_batch_losses(
+        lambda: upscaler.create_temporal(lr=2e-3, device=dev),
+        upscaler._loss_fn_temporal, tr["net"], fixed)
+    r = window_ratio(tr["losses"])
+    sm.check(r < 0.8 and l1 < 0.9 * l0
+             and all(map(math.isfinite, tr["losses"])),
+             f"temporal: the mean of the last 10 losses over the first "
+             f"10's {r:.4f} < 0.8 ({len(tr['losses'])} steps); on a fixed "
+             f"batch of 64 crops the trained net's loss {l1:.5f} < 0.9 x "
+             f"the initial net's {l0:.5f} (ratio {l1 / l0:.4f})")
+    clean = torch.cat([s[4] for s in seqs])
+    fixed_s = upscaler.self_supervised_batch(clean, gen, 64, 64)
+    l0, l1 = fixed_batch_losses(lambda: upscaler.create(lr=2e-3, device=dev),
+                               upscaler._loss_fn, sp["net"], fixed_s)
+    sm.check(l1 < 0.9 * l0,
+             f"spatial: on a fixed batch of 64 crops of phase 38's clean "
+             f"frames the trained net's loss {l1:.5f} < 0.9 x the initial "
+             f"net's {l0:.5f} (ratio {l1 / l0:.4f})")
+    # The fine-tune starts with a transient (Adam's moments come from the
+    # crop objective: a sequence's loss rises for a few steps, then
+    # falls), so a step's loss against the first step's can still be
+    # higher after 60 steps; the windows' means over both sequences fall.
+    rec = tr["recurrent_losses"]
+    per_seq = [rec[i::len(seqs)] for i in range(len(seqs))]
+    r = window_ratio([sum(x) for x in zip(*per_seq)])
+    sm.check(r < 1.0 and all(map(math.isfinite, rec)),
+             f"recurrent fine-tune: the mean of the last 10 steps' losses "
+             f"(both sequences) over the first 10's {r:.4f} < 1 (first -> "
+             f"highest -> last step, per sequence: "
+             + "; ".join(f"{s[0]:.5f} -> {max(s):.5f} -> {s[-1]:.5f}"
+                         for s in per_seq) + ")")
+    trained_s = sp["net"]
+    p_new = tu.eval_temporal(tr["net"], trained_s, *ev)
+    p_old = tu.eval_temporal(upscaler.load_weights("temporal", dev),
+                             upscaler.load_weights("spatial", dev), *ev)
+    p_run = tr["psnr"]
+    spatial_from = ("a checkpoint" if os.path.exists(tu.SPATIAL_CKPT)
+                    else "the committed weights")
+    print(f"  held-out PSNR (temporal / spatial / bilinear, dB): the "
+          f"trainer's report (trained temporal, spatial from "
+          f"{spatial_from}) {p_run[0]:.4f} / {p_run[1]:.4f} / "
+          f"{p_run[2]:.4f}; both "
+          f"trained {p_new[0]:.4f} / {p_new[1]:.4f} / "
+          f"{p_new[2]:.4f}; committed {p_old[0]:.4f} / {p_old[1]:.4f} / "
+          f"{p_old[2]:.4f}", flush=True)
+    sm.check(all(math.isfinite(p) for p in (*p_run, *p_new, *p_old)),
+             "held-out PSNRs finite")
+    # At the script's sizes the trained temporal net must beat bilinear
+    # on the held-out frames (the committed weights: by 2.69 dB).
+    sm.check(p_new[0] > p_new[2] + PSNR_MARGIN_DB,
+             f"held-out: the trained temporal net {p_new[0]:.4f} dB beats "
+             f"bilinear {p_new[2]:.4f} by {p_new[0] - p_new[2]:.4f} > "
+             f"{PSNR_MARGIN_DB} dB")
+    round_trip(sm, "spatial", trained_s, spath, False, (lr_t[:2],))
+    round_trip(sm, "temporal", tr["net"], tpath, True,
+               (lr_t[:2], hist_t[:2]))
+
+    phase("phase 39: K6 backward vs its plain backward: the trainer's "
+          "history (256x256, C=3, a bench orbit step's motion) and the 4K "
+          "one of animated_4k's shape (3840x2160, C=3, phase 20's)")
+    lrs, wps, hits, cams, cleans = seqs[0]
+    prev = cams[0]
+    px, py, _ = denoise._project(upscaler._upsample2_corner(wps[1]),
+                                 prev.origin, prev.basis, prev.tan_half_fovy,
+                                 prev.aspect, cleans.shape[2],
+                                 cleans.shape[1])
+    shapes = {"trainer 256x256 C=3": (cleans[0], px, py),
+              "4K history 3840x2160 C=3 (animated_4k's)": hist4k}
+    entry = None
+    for i, (label, (img, px, py)) in enumerate(shapes.items()):
+        gv, err, plain_once = warp_backward_check(sm, label, img, px, py,
+                                                  seed=i)
+        hi, wi, c = img.shape
+        # grad_val and the coordinates read, grad_img written once (the
+        # zero fill is this design's cost: it stays in `ms`, not here).
+        n_bytes = nbytes(gv, px, py) + hi * wi * c * 4
+        src = img.detach().clone().requires_grad_(True)
+        val = k6.warp_bilinear_plain(src, px, py)[0]
+        gsrc = img.permute(2, 0, 1)[None].contiguous().requires_grad_(True)
+        grid = torch.stack([px / (wi - 1) * 2 - 1, py / (hi - 1) * 2 - 1],
+                           -1)[None]
+        gs = F.grid_sample(gsrc, grid, mode="bilinear",
+                           padding_mode="border", align_corners=True)
+        ggv = gv.permute(2, 0, 1)[None].contiguous()
+        row = {
+            "ms": time_ms(lambda: k6.warp_bilinear_backward_kernel(
+                gv, px, py, hi, wi), calls=10),
+            # The plain backward at 4K takes seconds (its index_put
+            # serialises the ~1.3M adds of a clamped edge tap): the
+            # check's one call is its time there.
+            "plain_ms": plain_once if entry is not None else time_ms(
+                lambda: torch.autograd.grad(val, src, gv, retain_graph=True),
+                calls=10),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                gs, gsrc, ggv, retain_graph=True), calls=10),
+            "bound_ms": bound(n_bytes)[0]}
+        print(f"  K6 backward {label}: kernel {row['ms']:.4f} ms (with the "
+              f"zero fill), plain (autograd of the plain warp"
+              f"{', one call' if entry is not None else ''}) "
+              f"{row['plain_ms']:.4f} ms, grid_sample backward "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({n_bytes} bytes)", flush=True)
+        if entry is None:
+            entry = {"max_abs_err": err, "bound_by": "bytes", **row}
+        del val, gs, src, gsrc
+
+    phase("phase 40: one recurrent step on the card, K6 route vs the plain "
+          "route, the history path's gradient; ms per step (CUDA events)")
+    net = copy.deepcopy(tr["net"])
+    seq = seqs[0]
+
+    def grads(plain: bool):
+        net.zero_grad(set_to_none=True)
+        with upscaler.fp32_convs():
+            loss = tu.recurrent_loss(net, *seq, plain=plain)
+            loss.backward()
+        return float(loss.detach()), [p.grad.clone()
+                                      for p in net.parameters()]
+
+    before = k6.LAUNCHES["warp_bilinear_backward"]
+    loss_k, g_k = grads(False)
+    bwd = k6.LAUNCHES["warp_bilinear_backward"] - before
+    loss_p, g_p = grads(True)
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(g_k, g_p))
+    sm.check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p) and rel <= 1e-4
+             and bwd == n_seq - 1,
+             f"recurrent step ({n_seq} frames): loss {loss_k:.7f} through "
+             f"K6 vs {loss_p:.7f} plain; gradients within {rel:.3g} of "
+             f"each tensor's largest entry; {bwd} K6 backward launches")
+    orig = upscaler.reproject_history
+    upscaler.reproject_history = \
+        lambda hist, *a, **k: orig(hist.detach(), *a, **k)
+    try:
+        loss_d, g_d = grads(False)
+    finally:
+        upscaler.reproject_history = orig
+    hist_rel = max(float((a - b).abs().max() / a.abs().max())
+                   for a, b in zip(g_k, g_d))
+    sm.check(loss_d == loss_k and hist_rel > 1e-3,
+             f"the history path carries gradient: with the warped history "
+             f"detached the loss is the same and the gradient moves by "
+             f"{hist_rel:.3g} of a tensor's largest entry")
+    gen = torch.Generator().manual_seed(5)
+    frames = torch.cat([cleans[:4], seqs[1][4][:4]])
+    lr_b, hr_b = upscaler.self_supervised_batch(frames, gen, 64, 8)
+    s_net, s_opt = upscaler.create(lr=2e-3, device=dev)
+    tb = tu.crops(gen, lr_t, hist_t, hr_t)
+    t_opt = upscaler.adam(net, 2e-3)
+    step_ms = {
+        "spatial step (8 x 64 px)": time_ms(
+            lambda: upscaler.train_step(s_net, s_opt, lr_b, hr_b)),
+        "temporal step (8 x 128 px)": time_ms(
+            lambda: upscaler.train_step_temporal(net, t_opt, *tb)),
+        f"recurrent update ({n_seq} frames)": time_ms(
+            lambda: upscaler.update(t_opt, lambda: tu.recurrent_loss(
+                net, *seq)), reps=5)}
+    for k, v in step_ms.items():
+        print(f"  {k}: {v:.4f} ms", flush=True)
+    tmp.cleanup()
+    return {"launches": counts["k6_backward"], **entry}
+
+
 def main() -> int:
     import torch
 
@@ -3414,7 +3773,7 @@ def main() -> int:
                           lambda: forest_steps(4, False),
                           "forest still frame 512x384, 4 frames")
 
-    post = post_phases(sm, dev, baseline)
+    post, hist4k = post_phases(sm, dev, baseline)
 
     rng_phase(sm, dev)
     from hrt_tpu_torch.models.scene import bench_scene
@@ -3443,6 +3802,8 @@ def main() -> int:
     sf = scene_file_phases(sm, dev)
     m_entries = materials_times(sm, dev, ml, sf)
     cli_phase(sm, dev)
+    k6_bwd = train_phases(sm, dev, hist4k)
+    del hist4k
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,
@@ -3515,6 +3876,11 @@ def main() -> int:
          **extra("k5_any_hit")},
         {"name": "warp_bilinear", "route": "cuda", "source": K6_SOURCE,
          "replaces": K6_REPLACES, **post},
+        # K6's adjoint (the image gradient) in the recurrent fine-tune:
+        # launches over phase 38's run; times and bound at the trainer's
+        # 256x256 C=3 history, library_ms grid_sample's input gradient.
+        {"name": "warp_bilinear_backward", "route": "cuda",
+         "source": K6_SOURCE, "replaces": K6_REPLACES, **k6_bwd},
         # The path_tracing frame (1080p, depth 5, sorted): one frame's five
         # launches of each, every depth's batch; launches over phase 26's
         # 8 steps.

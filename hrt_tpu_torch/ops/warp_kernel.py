@@ -19,14 +19,21 @@ sample sits at (j, i)).  Returns (val (Ho, Wo, C) float32, valid
 (Ho, Wo) bool), valid = 0 <= px <= Ws-1 and 0 <= py <= Hs-1.  Invalid
 pixels carry the edge-clamped taps' value; callers mask them.
 `warp_bilinear` takes the plain version only for CPU tensors; CUDA
-tensors always launch the kernel.
+tensors always launch the kernel, through `WarpBilinear`, whose backward
+launches the kernel's adjoint (`hrt_warp_bilinear_backward`): the
+gradient with respect to the image, as autodiff of the JAX `_bilinear`
+gives it, so the upscaler's recurrent fine-tune
+(hrt_tpu_torch/train_upscaler.py) trains through the warp on the card
+as on the CPU.  The coordinates get no gradient: they come from the
+G-buffer and the previous camera, and `warp_bilinear` raises if they
+require one.  `valid` is not differentiable.
 """
 from __future__ import annotations
 
 import torch
 
-# Launches of the CUDA kernel; the plain version never counts.
-LAUNCHES = {"warp_bilinear": 0}
+# Launches of the CUDA kernels; the plain version never counts.
+LAUNCHES = {"warp_bilinear": 0, "warp_bilinear_backward": 0}
 
 
 def _check_inputs(img, px, py) -> None:
@@ -65,6 +72,55 @@ def warp_bilinear_kernel(img, px, py):
     return val, valid
 
 
+def warp_bilinear_backward_kernel(grad_val, px, py, hs: int, ws: int):
+    """Launch the adjoint of csrc/warp_bilinear.cu on CUDA tensors:
+    the gradient of the fetch's (Ho, Wo, C) value with respect to an
+    (hs, ws, C) image, given grad_val (Ho, Wo, C).  Returns a new
+    contiguous (hs, ws, C) float32 tensor; the kernel refuses an image
+    of 2^31 floats or more (RuntimeError)."""
+    from ..kernels import build
+
+    if (grad_val.dim() != 3 or px.dim() != 2 or px.shape != py.shape
+            or grad_val.shape[:2] != px.shape or hs < 1 or ws < 1
+            or any(t.dtype != torch.float32 for t in (grad_val, px, py))
+            or not grad_val.device == px.device == py.device):
+        raise ValueError("warp_bilinear backward: grad_val must be (Ho, Wo, "
+                         "C) and px, py (Ho, Wo), float32 on one device")
+    c = grad_val.shape[2]
+    grad_val = grad_val.contiguous()
+    px, py = px.contiguous(), py.contiguous()
+    dev = grad_val.device
+    grad_img = torch.zeros((hs, ws, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = build.stream(dev)
+        rc = build.load().hrt_warp_bilinear_backward(
+            grad_val.data_ptr(), hs, ws, c, px.data_ptr(), py.data_ptr(),
+            px.numel(), grad_img.data_ptr(), stream)
+    build.check(rc, "warp_bilinear backward")
+    LAUNCHES["warp_bilinear_backward"] += 1
+    return grad_img
+
+
+class WarpBilinear(torch.autograd.Function):
+    """The warp on CUDA tensors, differentiable in the image: forward
+    K6, backward its adjoint."""
+
+    @staticmethod
+    def forward(ctx, img, px, py):
+        val, valid = warp_bilinear_kernel(img, px, py)
+        ctx.mark_non_differentiable(valid)
+        ctx.save_for_backward(px, py)
+        ctx.image_hw = (img.shape[0], img.shape[1])
+        return val, valid
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_val, _grad_valid):
+        px, py = ctx.saved_tensors
+        return (warp_bilinear_backward_kernel(grad_val, px, py,
+                                              *ctx.image_hw), None, None)
+
+
 def warp_bilinear_plain(img, px, py):
     """The same fetch as gathers of the four clamped taps, in the JAX
     `_bilinear`'s order of operations."""
@@ -91,10 +147,14 @@ def warp_bilinear_plain(img, px, py):
 
 
 def warp_bilinear(img, px, py):
-    """The reprojection warp: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """The reprojection warp: the CUDA kernels for CUDA tensors (the
+    forward, and its adjoint when a gradient flows back to `img`), the
+    plain version, differentiated by autograd, for CPU tensors."""
+    if px.requires_grad or py.requires_grad:
+        raise ValueError("warp_bilinear: px and py get no gradient (they "
+                         "come from the G-buffer and the camera)")
     if px.is_cuda:
-        return warp_bilinear_kernel(img, px, py)
+        return WarpBilinear.apply(img, px, py)
     if px.device.type != "cpu":
         raise ValueError(f"no warp kernel for device {px.device}")
     return warp_bilinear_plain(img, px, py)

@@ -117,8 +117,10 @@ def upscaler_from_numpy(d: dict, temporal: bool, device):
     """The spatial (or temporal) upscaler net on `device` from flax
     parameters as numpy, keyed `Conv_i/kernel` (HWIO) and `Conv_i/bias`
     — as `{f"{k}/{f}": np.asarray(v[f]) for k, v in params["params"]
-    .items() for f in ("kernel", "bias")}` gives them.  HWIO kernels
-    become OIHW weights.  The net holds no gradients."""
+    .items() for f in ("kernel", "bias")}` gives them, or as
+    `upscaler_to_numpy` writes them.  HWIO kernels become OIHW weights.
+    The net is frozen for inference (no gradients, eval mode);
+    `.requires_grad_(True).train()` makes it trainable."""
     net = TemporalUpscalerNet() if temporal else UpscalerNet()
     with torch.no_grad():
         for name, conv in net.named_children():
@@ -132,3 +134,15 @@ def upscaler_from_numpy(d: dict, temporal: bool, device):
             conv.weight.copy_(w)
             conv.bias.copy_(b)
     return net.requires_grad_(False).eval().to(device)
+
+
+def upscaler_to_numpy(net) -> dict:
+    """The flax-keyed numpy dict of an upscaler net (`Conv_i/kernel`
+    HWIO, `Conv_i/bias`): what utils/checkpoint.save_params writes and
+    upscaler_from_numpy reads back, bit for bit."""
+    out = {}
+    for name, conv in net.named_children():
+        out[f"{name}/kernel"] = conv.weight.detach().permute(
+            2, 3, 1, 0).cpu().numpy().copy()
+        out[f"{name}/bias"] = conv.bias.detach().cpu().numpy().copy()
+    return out

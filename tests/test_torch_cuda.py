@@ -5,6 +5,8 @@ hrt_tpu, so it runs wherever the port runs:
 
     python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -827,3 +829,156 @@ def test_stacked_two_level_trace_matches_plain(cuda):
     hit = same & (pi >= 0)
     assert float(hit.float().mean()) > 0.05
     assert float((kt - pt)[hit].abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+@pytest.mark.parametrize("c", [1, 3, 10])
+def test_warp_backward_kernel_matches_plain(cuda, c, layout):
+    """K6's backward at a ragged size (a 37x29 grid, so the last tile is
+    partial, from a 31x23 source) with coordinates on the edges, outside
+    the image and at +-1e10 (clamped taps that coincide), from a
+    contiguous image and a channels-first view: the kernel and the
+    gradient through warp_bilinear (WarpBilinear) against autograd of the
+    plain warp, each element within 1e-5 of its terms' absolute sum
+    (float atomics add in an order that changes from run to run), one
+    backward launch, a contiguous result."""
+    from hrt_tpu_torch.ops import warp_kernel
+
+    rs = np.random.RandomState(17 + c)
+    hs, ws, ho, wo = 23, 31, 29, 37
+    src = rs.uniform(-2, 2, (hs, ws, c)).astype(np.float32)
+    if layout == "hwc":
+        img = torch.as_tensor(src, device=cuda)
+    else:
+        img = torch.as_tensor(np.ascontiguousarray(src.transpose(2, 0, 1)),
+                              device=cuda).permute(1, 2, 0)
+    px = rs.uniform(-4, ws + 3, (ho, wo)).astype(np.float32)
+    py = rs.uniform(-4, hs + 3, (ho, wo)).astype(np.float32)
+    px[0], py[:, 0] = 0.0, 0.0
+    px[1], py[:, 1] = ws - 1.0, hs - 1.0
+    px[::5, ::3] = 1e10
+    py[::7, ::2] = -1e10
+    px, py = (torch.as_tensor(a, device=cuda) for a in (px, py))
+    gv = torch.as_tensor(rs.normal(0, 1, (ho, wo, c)).astype(np.float32),
+                         device=cuda)
+    leaf = img.detach().clone().requires_grad_(True)
+    plain = warp_kernel.warp_bilinear_plain(leaf, px, py)[0]
+    (pg,) = torch.autograd.grad(plain, leaf, gv, retain_graph=True)
+    (scale,) = torch.autograd.grad(plain, leaf, gv.abs())
+    before = warp_kernel.LAUNCHES["warp_bilinear_backward"]
+    kg = warp_kernel.warp_bilinear_backward_kernel(gv, px, py, hs, ws)
+    val, valid = warp_kernel.warp_bilinear(leaf, px, py)
+    assert val.grad_fn is not None and not valid.requires_grad
+    (fg,) = torch.autograd.grad(val, leaf, gv)
+    torch.cuda.synchronize()
+    assert warp_kernel.LAUNCHES["warp_bilinear_backward"] == before + 2
+    assert kg.shape == (hs, ws, c) and kg.is_contiguous()
+    assert ((kg - pg).abs() <= 1e-5 * scale).all()
+    assert ((fg - pg).abs() <= 1e-5 * scale).all()
+
+
+def test_warp_without_image_grad_launches_no_backward(cuda):
+    """A warp whose image needs no gradient (the frame loop's) records
+    no graph and never launches the backward."""
+    from hrt_tpu_torch.ops import warp_kernel
+
+    img = torch.rand(16, 24, 3, device=cuda)
+    px = torch.rand(8, 12, device=cuda) * 23
+    py = torch.rand(8, 12, device=cuda) * 15
+    before = dict(warp_kernel.LAUNCHES)
+    val, _ = warp_kernel.warp_bilinear(img, px, py)
+    assert val.grad_fn is None
+    assert warp_kernel.LAUNCHES == {**before, "warp_bilinear":
+                                    before["warp_bilinear"] + 1}
+
+
+def test_recurrent_step_on_the_card_matches_plain(cuda):
+    """One recurrent unroll of a 3-frame bench orbit (64x64 -> 128x128)
+    on the card: through K6 and its backward against the plain warp
+    (`plain=True`), loss within rtol 1e-5 and each gradient within 1e-4
+    of its tensor's largest entry; two backward launches; detaching the
+    warped history moves the gradient."""
+    from hrt_tpu_torch import train_upscaler
+    from hrt_tpu_torch.models import upscaler
+    from hrt_tpu_torch.ops import warp_kernel
+
+    seq = train_upscaler.render_sequence(3, size=(128, 128), clean_spp=2,
+                                         device=cuda)
+    net, _ = upscaler.create_temporal(seed=4, device=cuda)
+
+    def grads(plain):
+        net.zero_grad(set_to_none=True)
+        with upscaler.fp32_convs():
+            loss = train_upscaler.recurrent_loss(net, *seq, plain=plain)
+            loss.backward()
+        return float(loss.detach()), [p.grad.clone()
+                                      for p in net.parameters()]
+
+    before = warp_kernel.LAUNCHES["warp_bilinear_backward"]
+    lk, gk = grads(False)
+    assert warp_kernel.LAUNCHES["warp_bilinear_backward"] == before + 2
+    lp, gp = grads(True)
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    orig = upscaler.reproject_history
+    upscaler.reproject_history = \
+        lambda hist, *a, **k: orig(hist.detach(), *a, **k)
+    try:
+        _, gd = grads(False)
+    finally:
+        upscaler.reproject_history = orig
+    assert max(float((a - b).abs().max() / a.abs().max())
+               for a, b in zip(gk, gd)) > 1e-3
+
+
+def test_train_step_on_the_card_matches_cpu(cuda):
+    """The spatial and the temporal loss and gradients from the same
+    seed and batch on the card (float32 convolutions: TF32 off inside
+    `fp32_convs`, restored after) and on the CPU: loss within rtol 1e-5,
+    each gradient within 1e-4 of its tensor's largest entry.  Control:
+    the card's gradients with TF32 on leave that bound for at least one
+    tensor, so the bound tells float32 from TF32.  Then one train step
+    on the card moves every parameter and leaves the TF32 setting as it
+    was."""
+    from hrt_tpu_torch.models import upscaler
+
+    rs = np.random.RandomState(21)
+    hr = rs.uniform(0, 2, (4, 32, 32, 3)).astype(np.float32)
+    hist = np.concatenate([hr, np.ones((4, 32, 32, 1), np.float32)], -1)
+    prev = torch.backends.cudnn.allow_tf32
+
+    def rel_errs(ga, gb):
+        return [float((a - b).abs().max()) / float(a.abs().max())
+                for a, b in zip(ga, gb)]
+
+    for make, loss_fn, step, extra in (
+            (upscaler.create, upscaler._loss_fn, upscaler.train_step, ()),
+            (upscaler.create_temporal, upscaler._loss_fn_temporal,
+             upscaler.train_step_temporal, (hist,))):
+        def grads(dev, fp32=True):
+            net, opt = make(seed=6, lr=2e-3, device=dev)
+            t = lambda a: torch.as_tensor(a, device=dev)
+            batch = (upscaler.downsample2(t(hr)), *map(t, extra), t(hr))
+            with (upscaler.fp32_convs() if fp32 else contextlib.nullcontext()):
+                loss = loss_fn(net, *batch)
+                loss.backward()
+            return (float(loss.detach()),
+                    [p.grad.cpu() for p in net.parameters()], net, opt,
+                    batch)
+
+        lc, gc, *_ = grads("cpu")
+        lg, gg, net, opt, batch = grads(cuda)
+        assert abs(lc - lg) <= 1e-5 * abs(lc)
+        assert max(rel_errs(gc, gg)) <= 1e-4
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            _, gt, *_ = grads(cuda, fp32=False)
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+        assert max(rel_errs(gc, gt)) > 1e-4
+        before = [p.detach().clone() for p in net.parameters()]
+        assert np.isfinite(float(step(net, opt, *batch)))
+        assert all(float((p.detach() - q).abs().max()) > 1e-4
+                   for p, q in zip(net.parameters(), before))
+    assert torch.backends.cudnn.allow_tf32 == prev
