@@ -6,9 +6,11 @@
 Builds the CUDA kernels from hrt_tpu_torch/csrc/, then drives the
 port's paths: the five direct-lighting ones, the path tracer, then
 many-light sampled NEE, textures and the pbr BSDF on the shipped scene
-files, the render command (`python -m hrt_tpu_torch.render`), and last
-the upscaler's trainer (`python -m hrt_tpu_torch.train_upscaler`), whose
-recurrent fine-tune differentiates through K6.  The bench frame: the
+files, the render command (`python -m hrt_tpu_torch.render`), the
+upscaler's trainer (`python -m hrt_tpu_torch.train_upscaler`), whose
+recurrent fine-tune differentiates through K6, and last multi-GPU
+rendering (row bands, scene shards, a data-parallel step) over one- and
+two-rank process groups on the one card.  The bench frame: the
 bench scene (three icospheres + ground plane, two point lights), SAH build with 32-triangle leaves and
 its BVH8 records, and `render_frames` of 32 frames at 512x384
 (max_depth=1, sky on), plus one 1920x1080 frame.  The instanced frame:
@@ -224,6 +226,25 @@ over the bench frame, whose history fetches run K6.  Phases:
      route (`plain=True`): loss within rtol 1e-5, gradients within 1e-4
      of each tensor's largest entry; with the warped history detached
      the gradient moves; ms per spatial, temporal and recurrent step
+
+ 41. multi-GPU rendering (hrt_tpu_torch.parallel) over a one-rank NCCL
+     group: the tiled bench frame (render_frame_tiled) and its G-buffer
+     at 512x384 and 1920x1080 bit-equal to render_rows' whole frame,
+     one K1 closest, K1 any-hit and K2 launch each; FrameLoop(mesh) on
+     phase 22's post config, 3 steps (K1, K2, 2 K6 a step), within 1e-5
+     of the loop without a mesh; both loops' ms/frame in turns; the
+     all-gather's ms (the 1080p frame, and with its G-buffer)
+ 42. four ranks stood in for by one process at full width: the 1080p
+     path_tracing frame as 4 render_bands bit-equal to the whole frame,
+     and one band's ms against the frame's in turns; instance_grid_
+     scene()'s soup as 4 shard LBVHs, each walked by K3 over the 1080p
+     orbit rays, combined (combine_hits) against K3 on the whole soup's
+     LBVH (ids on >= 0.999 of rays, t rel <= 1e-5); the 4 walks' ms
+     against the one walk's in turns
+ 43. two ranks on cuda:0 over gloo, spawned (gloo_worker): the tiled
+     512x384 frame bit-equal to render_rows', the sharded hits of the
+     bench soup equal to the local combine, a data-parallel upscaler
+     step on 4 crops against the one-process step
 
 Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
 through K1 and K2, held off the image diagonals where the box's wall
@@ -3071,6 +3092,324 @@ def train_phases(sm: Smoke, dev, hist4k) -> dict:
     return {"launches": counts["k6_backward"], **entry}
 
 
+def gather_ms(group, tensors) -> float:
+    """CUDA-event time of all-gathering `tensors` along rows over
+    `group` (10 gathers per sample)."""
+    from hrt_tpu_torch.parallel import tiles
+
+    return time_ms(lambda: [tiles.gather_rows(t, group) for t in tensors],
+                   calls=10)
+
+
+def multi_gpu_phases(sm: Smoke, dev, scene, accel) -> dict:
+    """Phases 41-42, multi-GPU rendering (hrt_tpu_torch.parallel) on the
+    one card: a one-rank NCCL group, then four ranks stood in for by one
+    process.  `scene` and `accel` are the bench scene's on the card.
+    Returns the times."""
+    import torch
+    import torch.distributed as dist
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.config import CONFIGS, RenderConfig
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models.camera import Camera, orbit_camera
+    from hrt_tpu_torch.models.scene import bench_scene, instance_grid_scene
+    from hrt_tpu_torch.ops import lbvh, traversal
+    from hrt_tpu_torch.parallel import scene_shard, tiles
+
+    times = {}
+    phase("phase 41: a one-rank NCCL group: the tiled bench frame at "
+          "512x384 and 1920x1080, FrameLoop(mesh) on the 1080p post "
+          "config, the all-gather")
+    mesh = tiles.make_mesh(1)
+    group = mesh.get_group()
+    sm.check(dist.get_backend() == "nccl" and mesh.size() == 1
+             and tiles.mesh_device(mesh) == dev,
+             f"group {dist.get_backend()}, mesh {mesh}")
+    one_frame = {"k1_closest": 1, "k1_any_hit": 1, "k2": 1}
+    for w, h in ((512, 384), PT_FULL):
+        cfg = RenderConfig(width=w, height=h, max_depth=1, sky=True)
+        cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, dev)
+        torch.cuda.synchronize()
+        reset_all()
+        img, gb = tiles.render_frame_tiled(scene, accel, cams, 0, cfg, mesh,
+                                           want_gbuffer=True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want_img, want_gb = renderer.render_rows(scene, accel, cams, 0, h,
+                                                 cfg, want_gbuffer=True)
+        sm.check(counts == {k: one_frame.get(k, 0) for k in counts},
+                 f"{w}x{h} tiled frame: launches {counts}")
+        sm.check(torch.equal(img, want_img)
+                 and all(torch.equal(gb[k], want_gb[k]) for k in want_gb),
+                 f"{w}x{h} tiled frame and its G-buffer bit-equal to "
+                 "render_rows' whole frame")
+        times[f"tiled_{w}x{h}_ms"], times[f"rows_{w}x{h}_ms"] = (
+            time_ms(lambda: tiles.render_frame_tiled(
+                scene, accel, cams, 0, cfg, mesh)),
+            time_ms(lambda: renderer.render_rows(scene, accel, cams, 0, h,
+                                                 cfg)))
+    times["gather_frame_ms"] = gather_ms(group, [img])
+    times["gather_gbuffer_ms"] = gather_ms(group, [img, *gb.values()])
+    gb_bytes = nbytes(img, *gb.values())
+    print(f"  all-gather of the 1080p frame ({nbytes(img)} bytes): "
+          f"{times['gather_frame_ms']:.4f} ms; with its G-buffer "
+          f"({gb_bytes} bytes, {1 + len(gb)} gathers): "
+          f"{times['gather_gbuffer_ms']:.4f} ms", flush=True)
+
+    post = RenderConfig(width=1920, height=1080, max_depth=1, sky=True,
+                        denoise=True, upscale=2, upscale_mode="temporal")
+    tloop = FrameLoop(bench_scene(), post, mesh=mesh)
+    loop = FrameLoop(bench_scene(), post, device=dev)
+    torch.cuda.synchronize()
+    reset_all()
+    outs = [tloop.step(post_cam(f)).clone() for f in range(3)]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_step = {"k1_closest": 1, "k1_any_hit": 1, "k2": 1, "k6": 2}
+    sm.check(counts == {k: 3 * per_step.get(k, 0) for k in counts},
+             f"FrameLoop(mesh) 3 post steps: launches {counts}")
+    errs = []
+    for f, got in enumerate(outs):
+        want = loop.step(post_cam(f))
+        errs.append(float((got - want).abs().max()))
+    sm.check(tuple(outs[-1].shape) == (2160, 3840, 3) and max(errs) <= 1e-5
+             and all(bool(torch.isfinite(o).all()) for o in outs),
+             f"FrameLoop(mesh) vs the loop without a mesh, 3 steps at "
+             f"3840x2160: max abs {errs}")
+    del outs
+    (p1, p2), (t1, t2) = in_turns(lambda: loop.step(post_cam(3)),
+                                  lambda: tloop.step(post_cam(3)))
+    times["post_plain_ms"], times["post_tiled_ms"] = [p1, p2], [t1, t2]
+    print(f"  post frame 1080p -> 4K in turns (plain loop, mesh loop, mesh "
+          f"loop, plain loop): {p1:.4f} {t1:.4f} {t2:.4f} {p2:.4f} ms",
+          flush=True)
+    for k in (f"tiled_512x384_ms", "rows_512x384_ms", "tiled_1920x1080_ms",
+              "rows_1920x1080_ms"):
+        print(f"  {k}: {times[k]:.4f}", flush=True)
+    del tloop, loop
+
+    phase("phase 42: four ranks stood in for by one process: the 1080p "
+          "path_tracing frame as 4 bands, instance_grid_scene()'s soup as "
+          "4 shard LBVHs walked by K3")
+    cfg = CONFIGS["path_tracing"]
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, dev)
+    torch.cuda.synchronize()
+    reset_all()
+    bands = torch.cat([tiles.render_band(scene, accel, cams, 1, cfg, r, 4)
+                       for r in range(4)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    whole = renderer.render_rows(scene, accel, cams, 0, cfg.height, cfg,
+                                 frame=1)
+    differ = (bands != whole).any(-1)
+    sm.check(all(counts[k] >= 4 for k in one_frame)
+             and counts["k3"] == 0, f"4 path_tracing bands: launches "
+             f"{counts}")
+    sm.check(not bool(differ.any()),
+             f"4 bands bit-equal to the whole frame ({int(differ.sum())} "
+             "pixels differ, rows "
+             f"{torch.nonzero(differ.any(-1)).flatten()[:8].tolist()})")
+    del bands, whole
+    # What one of 4 ranks would spend on its band, against the whole
+    # frame on one card.
+    (w1, w2), (b1, b2) = in_turns(
+        lambda: renderer.render_rows(scene, accel, cams, 0, cfg.height, cfg,
+                                     frame=1),
+        lambda: tiles.render_band(scene, accel, cams, 1, cfg, 1, 4))
+    times.update(pt_frame_ms=[w1, w2], pt_band_ms=[b1, b2])
+    print(f"  path_tracing 1080p in turns (whole frame, one band of 4, one "
+          f"band, whole frame): {w1:.4f} {b1:.4f} {b2:.4f} {w2:.4f} ms",
+          flush=True)
+
+    soup = instance_grid_scene().build(dev, pad=4 * 128)
+    t0 = time.perf_counter()
+    sharded, accs = scene_shard.build_sharded_accel(soup, 4, leaf_size=32)
+    full = lbvh.build_bvh(soup, 32)
+    torch.cuda.synchronize()
+    print(f"  {soup.num_triangles} triangles, 4 shard LBVHs and the whole "
+          f"one built in {time.perf_counter() - t0:.2f} s", flush=True)
+    rcfg = RenderConfig(width=1920, height=1080)
+    rcams = renderer.camera_arrays(
+        orbit_camera(0.0, radius=4.0, height=-1.0), rcfg, dev)
+    o, d = renderer.primary_rays(rcams, 1080, 0, rcfg)
+    o3, d3 = torch.stack(list(o), -1), torch.stack(list(d), -1)
+    t_per = sharded.tri_v0.shape[1]
+
+    def four():
+        return scene_shard.combine_hits(*(torch.stack(h) for h in zip(*[
+            scene_shard.shard_closest_hit(a, o3, d3, s, t_per)
+            for s, a in enumerate(accs)])))
+
+    def one():
+        return traversal.closest_hit_bvh_p(None, full, o, d, 1e-3, 1e32)
+
+    torch.cuda.synchronize()
+    reset_all()
+    hits = four()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    sm.check(counts == {k: 4 if k == "k3" else 0 for k in counts},
+             f"4 shard walks: launches {counts}")
+    ref = one()
+    check_closest(sm, "4 shards combined vs the whole soup's LBVH (K3, "
+                  "1920x1080 orbit rays)", hits, ref)
+    agree = (hits[1] == ref[1]) & (hits[1] >= 0)
+    rel = float(((hits[0] - ref[0]).abs()
+                 / ref[0].abs().clamp(min=1e-6))[agree].max())
+    sm.check(rel <= 1e-5, f"combined t rel err {rel:.3g} where ids agree")
+    (w1, w2), (f1, f2) = in_turns(one, four)
+    shard_ms = [time_ms(lambda: scene_shard.shard_closest_hit(
+        a, o3, d3, s, t_per)) for s, a in enumerate(accs)]
+    times.update(one_walk_ms=[w1, w2], four_walks_ms=[f1, f2],
+                 shard_ms=shard_ms)
+    print(f"  in turns (one walk, 4 shards + combine, 4 shards + combine, "
+          f"one walk): {w1:.4f} {f1:.4f} {f2:.4f} {w2:.4f} ms; each shard "
+          f"alone {[round(x, 4) for x in shard_ms]} ms", flush=True)
+    dist.destroy_process_group()
+    return times
+
+
+def gloo_worker(rank: int, out_dir: str) -> None:
+    """Phase 43's rank `rank` of two on cuda:0 over gloo: the tiled
+    frame, the sharded hits and a data-parallel upscaler step, each
+    against the one-process result; writes rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.config import RenderConfig
+    from hrt_tpu_torch.models import upscaler
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.models.scene import bench_scene
+    from hrt_tpu_torch.ops import lbvh, traversal
+    from hrt_tpu_torch.parallel import scene_shard, tiles
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/store",
+                            rank=rank, world_size=2)
+    mesh = tiles.make_mesh(2)
+    dev = tiles.mesh_device(mesh)
+    res = {"device": str(dev), "backend": dist.get_backend()}
+    scene = tiles.replicate(bench_scene().build(dev), mesh)
+    accel = tiles.replicate(lbvh.build_bvh_sah(scene, leaf_size=32), mesh)
+    cfg = RenderConfig(width=512, height=384, max_depth=1, sky=True)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, dev)
+    torch.cuda.synchronize()
+    reset_all()
+    img = tiles.render_frame_tiled(scene, accel, cams, 0, cfg, mesh)
+    torch.cuda.synchronize()
+    res["launches"] = launch_counts()
+    res["frame_equal"] = torch.equal(img, renderer.render_rows(
+        scene, accel, cams, 0, 384, cfg))
+    res["gather_ms"] = host_ms(lambda: tiles.gather_rows(
+        img[:192] if rank == 0 else img[192:], mesh.get_group()))
+
+    soup = bench_scene().build(dev, pad=2 * 128)
+    sharded, accs = scene_shard.build_sharded_accel(soup, 2, leaf_size=8)
+    o, d = renderer.primary_rays(cams, 384, 0, cfg)
+    o3, d3 = torch.stack(list(o), -1), torch.stack(list(d), -1)
+    reset_all()
+    hits = scene_shard.closest_hit_sharded(sharded, accs, o3, d3, mesh,
+                                           leaf_size=8)
+    torch.cuda.synchronize()
+    res["shard_launches"] = launch_counts()["k3"]
+    local = scene_shard.combine_hits(*(torch.stack(h) for h in zip(*[
+        scene_shard.shard_closest_hit(a, o3, d3, s, sharded.tri_v0.shape[1])
+        for s, a in enumerate(accs)])))
+    res["hits_equal"] = all(torch.equal(a, b) for a, b in zip(hits, local))
+    whole = traversal.closest_hit_bvh_p(None, lbvh.build_bvh(soup, 8), o, d,
+                                        1e-3, 1e32)
+    res["ids_agree"] = float((hits[1] == whole[1]).float().mean())
+    res["hit_share"] = float((hits[1] >= 0).float().mean())
+
+    net, opt = upscaler.create(device=dev)
+    ref, ref_opt = upscaler.create(device=dev)
+    g = torch.Generator().manual_seed(11)
+    lr = torch.rand((4, 32, 32, 3), generator=g).to(dev)
+    hr = torch.rand((4, 64, 64, 3), generator=g).to(dev)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    losses, grads = [], []
+    for _ in range(2):
+        loss = upscaler.train_step(net, opt, lr, hr, group=mesh.get_group())
+        losses.append(rel(loss, upscaler.train_step(ref, ref_opt, lr, hr)))
+        # The averaged gradient the step took, against the whole batch's.
+        grads.append(max(rel(p.grad, q.grad) for p, q in zip(
+            net.parameters(), ref.parameters())))
+    res["loss_rel"], res["grad_rel"] = max(losses), max(grads)
+    res["param_rel"] = max(rel(p, q) for p, q in zip(net.parameters(),
+                                                     ref.parameters()))
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def gloo_phase(sm: Smoke) -> None:
+    """Phase 43: two ranks on the one card over gloo, spawned."""
+    import tempfile
+
+    phase("phase 43: two ranks on cuda:0 over gloo (spawned processes): "
+          "the tiled frame, the sharded hits, a data-parallel upscaler "
+          "step")
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, LOCAL_RANK="0", PYTHONPATH=os.pathsep.join(
+            [ROOT, os.environ.get("PYTHONPATH", "")]))
+        code = ("import sys, chip_smoke; "
+                "chip_smoke.gloo_worker(int(sys.argv[1]), sys.argv[2])")
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code, str(r), tmp], cwd=ROOT,
+            env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ok = all(p.returncode == 0 for p in procs)
+        sm.check(ok, f"both ranks exit 0 ({[p.returncode for p in procs]})")
+        if not ok:
+            for r, out in enumerate(outs):
+                print(f"  rank {r} output:\n{out[-3000:]}", flush=True)
+            return
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res = json.load(f)
+            launches = res["launches"]
+            sm.check(res["backend"] == "gloo" and res["device"] == "cuda:0"
+                     and launches["k1_closest"] == 1
+                     and launches["k1_any_hit"] == 1 and launches["k2"] == 1
+                     and res["frame_equal"],
+                     f"rank {r} ({res['backend']} on {res['device']}): the "
+                     f"tiled 512x384 frame bit-equal to render_rows', "
+                     f"launches {launches}")
+            sm.check(res["shard_launches"] == 1 and res["hits_equal"]
+                     and res["ids_agree"] >= 0.999
+                     and res["hit_share"] > 0.3,
+                     f"rank {r}: sharded hits equal to the local combine "
+                     f"(1 K3 launch), ids agree with the whole LBVH on "
+                     f"{res['ids_agree']:.6f} ({res['hit_share']:.3f} hit)")
+            # Adam's first steps move each parameter by about lr times
+            # the sign of its gradient, so where a gradient is near 0 the
+            # last bits of the two sums (cuDNN picks its algorithm by
+            # batch size) can move a parameter by up to 2 lr: the
+            # parameters are held to 1e-4 of their largest, the loss
+            # and the gradients to 1e-6 and 1e-5.
+            sm.check(res["loss_rel"] <= 1e-6 and res["grad_rel"] <= 1e-5
+                     and res["param_rel"] <= 1e-4,
+                     f"rank {r}: data-parallel step vs the one-process step "
+                     f"on 4 crops, 2 steps: loss rel {res['loss_rel']:.3g}, "
+                     f"gradients rel {res['grad_rel']:.3g} (of each "
+                     f"tensor's largest), parameters rel "
+                     f"{res['param_rel']:.3g}")
+            print(f"  rank {r}: gloo all-gather of a 192-row band of CUDA "
+                  f"tensors (host clock): {res['gather_ms']:.4f} ms",
+                  flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3804,6 +4143,8 @@ def main() -> int:
     cli_phase(sm, dev)
     k6_bwd = train_phases(sm, dev, hist4k)
     del hist4k
+    multi_gpu_phases(sm, dev, p_scene, p_accel)
+    gloo_phase(sm)
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,

@@ -27,6 +27,10 @@ every triangle in plain PyTorch instead of walking an accel, and
 ``ops/twolevel`` is the stacked per-mesh two-level accel, each BLAS
 walked by K3.
 
+``parallel/`` renders over several GPUs on ``torch.distributed``: row
+bands of each frame (``tiles.py``), the triangle pool sharded across
+ranks (``scene_shard.py``) and frame ranges per process (``farm.py``).
+
 Users start it as ``python -m hrt_tpu_torch.render`` (``cli.py``; the
 live preview is ``preview.py``); ``utils/`` holds the PNG writer, logging,
 profiling and the upscaler's ``.npz`` checkpoints.  The package imports

@@ -12,7 +12,15 @@ versions).  `--upscaler-ckpt` reads an `.npz` of the upscaler's
 flax-keyed parameters (utils/checkpoint.py), `--checkpoint` resumes and
 saves the frame loop's state (FrameLoop.load_state / save_state, the
 JAX package's npz keys), `--debug-nans` raises on a non-finite frame.
-Multi-device rendering (`--devices` > 1) is not ported yet.
+
+`--devices N` > 1 renders each frame in N row bands, one process per
+GPU, launched by torchrun:
+
+  torchrun --nproc-per-node N -m hrt_tpu_torch.render --devices N ...
+
+Each rank renders its band (parallel/tiles.py); rank 0 alone logs and
+writes the PNGs, the stats line and the checkpoint.  Without torchrun's
+environment, or with a WORLD_SIZE other than N, it raises ValueError.
 """
 from __future__ import annotations
 
@@ -93,7 +101,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="BLAS-per-mesh + TLAS traversal (instanced/"
                          "animated scenes)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="devices to render over (only 1 is ported)")
+                    help="GPUs to render over in row bands (N > 1: one "
+                         "process each, under torchrun)")
     ap.add_argument("--preview", action="store_true",
                     help="serve a live interactive viewer (WASD/arrow "
                          "camera) instead of writing files")
@@ -124,12 +133,51 @@ def frame_path(out: str, f: int, frames: int) -> str:
     return out.replace(".png", f"_{f:04d}.png") if frames > 1 else out
 
 
+def tiled_mesh(devices: int, device):
+    """The "tiles" mesh of a --devices run, over the process group that
+    torchrun's environment describes (started here unless one is
+    running).  Returns (mesh, whether this call started the group)."""
+    import torch.distributed as dist
+
+    from .parallel import tiles
+
+    world = os.environ.get("WORLD_SIZE")
+    if world is None or int(world) != devices:
+        raise ValueError(
+            f"--devices {devices} runs one process per device: launch it "
+            f"as torchrun --nproc-per-node {devices} -m hrt_tpu_torch.render "
+            f"--devices {devices} ... (WORLD_SIZE is {world})")
+    started = not dist.is_initialized()
+    if started:
+        # env:// reads RANK, MASTER_ADDR and MASTER_PORT (rank -1).
+        tiles.init_group(device, devices, -1, "env://")
+    return tiles.make_mesh(devices, device), started
+
+
 def main(argv=None):
     """Run the command; returns the FrameLoop it drove."""
     args = build_parser().parse_args(argv)
+    mesh, started = None, False
     if args.devices > 1:
-        raise NotImplementedError("multi-GPU is not ported yet")
-    device = resolve_device(args.device)
+        if args.preview:
+            raise ValueError("--preview serves one process: drop --devices")
+        mesh, started = tiled_mesh(args.devices, args.device)
+    lead = mesh is None or mesh.get_local_rank() == 0
+    # Rank 0 alone logs and writes.
+    quiet = logger.disabled
+    logger.disabled = quiet or not lead
+    try:
+        return _run(args, mesh, lead)
+    finally:
+        logger.disabled = quiet
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, mesh, lead: bool):
+    device = resolve_device(args.device) if mesh is None else None
     cfg = render_config(args)
 
     from .frameloop import FrameLoop
@@ -144,7 +192,10 @@ def main(argv=None):
         up_params = load_params(args.upscaler_ckpt)
     loop = FrameLoop(scene_obj, cfg, upscaler_params=up_params,
                      cull_threshold_px=1.0 if args.frames > 1 else 0.0,
-                     two_level=args.two_level, device=device)
+                     two_level=args.two_level, mesh=mesh, device=device)
+    device = loop.device
+    if mesh is not None:
+        logger.info("multi-GPU mode: %d ranks in row bands", mesh.size())
     if args.checkpoint and os.path.exists(args.checkpoint):
         loop.load_state(args.checkpoint)
         logger.info("resumed frame-loop state from %s (frame %d)",
@@ -173,15 +224,16 @@ def main(argv=None):
         if args.debug_nans and not bool(torch.isfinite(img).all()):
             raise FloatingPointError(f"frame {f}: non-finite values")
         stats.add(rays_per_frame(cfg, num_lights), dt)
-        out = frame_path(args.out, f, args.frames)
-        write_png(out, tonemap(img.cpu().numpy(), gamma=args.gamma))
-        logger.info("frame %d -> %s (%.1f ms)", f, out, dt * 1e3)
+        if lead:
+            out = frame_path(args.out, f, args.frames)
+            write_png(out, tonemap(img.cpu().numpy(), gamma=args.gamma))
+            logger.info("frame %d -> %s (%.1f ms)", f, out, dt * 1e3)
 
-    if args.checkpoint:
+    if args.checkpoint and lead:
         loop.save_state(args.checkpoint)
         logger.info("saved frame-loop state to %s", args.checkpoint)
 
-    if args.stats:
+    if args.stats and lead:
         print(json.dumps({
             "frames": stats.frames,
             "ms_per_frame": round(stats.ms_per_frame, 2),

@@ -20,8 +20,13 @@ when it changed, rebuilds the accel with the LBVH over the visible
 triangles (its walks take K3).  With `traversal="bruteforce"` a
 single-level loop builds no accel (`accel` is None), traces by brute
 force and skips culling.  Two-level loops skip culling, as in the JAX
-package.  A multi-device `mesh` is not ported yet and raises
-NotImplementedError.
+package.
+
+With a `mesh` (parallel/tiles.make_mesh) the loop is one rank of a
+multi-GPU render: its scene and accel are replicated from rank 0, each
+step traces this rank's row band and gathers the frame
+(parallel/tiles.frame_program_tiled), and the post stages run on the
+whole frame on every rank.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from .models.camera import Camera
 from .models.instance import MeshInstance
 from .models.scene import Scene, SceneData
 from .ops import culling, denoise, lbvh, tlas
+from .parallel import tiles
 from .renderer import camera_arrays, render_rows
 from .utils.interop import upscaler_from_numpy
 
@@ -44,6 +50,11 @@ from .utils.interop import upscaler_from_numpy
 def _temporal_up(config: RenderConfig, up_history) -> bool:
     return (config.upscale == 2 and config.upscale_mode == "temporal"
             and up_history is not None)
+
+
+def wants_gbuffer(config: RenderConfig, up_history) -> bool:
+    """Whether the post stages read the frame's G-buffer."""
+    return config.denoise or _temporal_up(config, up_history)
 
 
 def post_stages(img, gbuffer, prev_cams, dn_state, accum, frame: int,
@@ -81,6 +92,20 @@ def post_stages(img, gbuffer, prev_cams, dn_state, accum, frame: int,
     return img, dn_state, accum, up_history
 
 
+def frame_program(scene: SceneData, accel, cams, prev_cams, dn_state, accum,
+                  frame: int, config: RenderConfig, net=None,
+                  up_history=None, plain: bool = False):
+    """One frame: render_rows over the whole frame, then post_stages.
+    Returns (output image, new denoise state, new accumulation buffer,
+    new upscaler history)."""
+    want_gb = wants_gbuffer(config, up_history)
+    out = render_rows(scene, accel, cams, 0, config.height, config,
+                      plain=plain, want_gbuffer=want_gb, frame=frame)
+    img, gbuffer = out if want_gb else (out, None)
+    return post_stages(img, gbuffer, prev_cams, dn_state, accum, frame,
+                       config, net, up_history, plain=plain)
+
+
 @dataclasses.dataclass
 class FrameLoop:
     """Host-side driver holding cross-frame state.
@@ -100,6 +125,10 @@ class FrameLoop:
     load_weights).  The JAX package's default is a PRNGKey(0) init,
     which torch cannot reproduce and which no one would serve.
 
+    `mesh`: a parallel/tiles.make_mesh DeviceMesh; the loop then runs on
+    this rank's device, and raises ValueError when the ranks do not
+    divide the frame's height.
+
     `visible` holds the instances' culling state and `rebuilds` counts
     the LBVH rebuilds that culling made."""
 
@@ -114,10 +143,11 @@ class FrameLoop:
     def __post_init__(self):
         cfg = self.config
         require_slice(cfg)
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "multi-device rendering (mesh) is not ported yet")
-        self.device = resolve_device(self.device)
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+        else:
+            tiles.band(0, self.mesh.size(), cfg)  # the ranks divide H
+            self.device = tiles.mesh_device(self.mesh)
         self.scene: SceneData = (
             self.scene_obj.build(self.device)
             if isinstance(self.scene_obj, Scene) else self.scene_obj)
@@ -142,6 +172,9 @@ class FrameLoop:
         else:
             self.accel = lbvh.build_bvh_sah(self.scene, self.leaf_size,
                                             device=self.device)
+        if self.mesh is not None:
+            self.scene = tiles.replicate(self.scene, self.mesh)
+            self.accel = tiles.replicate(self.accel, self.mesh)
         self.prev_cams = None
         self.net = None
         self.up_history = None
@@ -225,14 +258,12 @@ class FrameLoop:
         if self.prev_cams is None:
             self.prev_cams = cams
         self._maybe_cull(cams)
-        want_gb = cfg.denoise or _temporal_up(cfg, self.up_history)
-        out = render_rows(self.scene, self.accel, cams, 0, cfg.height, cfg,
-                          plain=plain, want_gbuffer=want_gb,
-                          frame=self.frame)
-        img, gbuffer = out if want_gb else (out, None)
-        img, self.dn_state, self.accum, self.up_history = post_stages(
-            img, gbuffer, self.prev_cams, self.dn_state, self.accum,
-            self.frame, cfg, self.net, self.up_history, plain=plain)
+        args = (self.scene, self.accel, cams, self.prev_cams, self.dn_state,
+                self.accum, self.frame, cfg)
+        kw = dict(net=self.net, up_history=self.up_history, plain=plain)
+        img, self.dn_state, self.accum, self.up_history = (
+            frame_program(*args, **kw) if self.mesh is None else
+            tiles.frame_program_tiled(*args, self.mesh, **kw))
         self.prev_cams = cams
         self.frame += 1
         return img

@@ -33,7 +33,9 @@ three decimal digits).  Fresh nets are initialised as flax's `nn.Conv`
 is (lecun_normal kernels, zero biases), from a `torch.Generator` on the
 CPU, so a seed gives the same net on every device; `jax.random` cannot
 be reproduced, so parity tests pass JAX's parameters through
-utils/interop.
+utils/interop.  With a process `group` a step is data parallel: each
+rank takes the loss of its share of the batch and the gradients are
+averaged across the ranks before the update.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -287,30 +290,62 @@ def _loss_fn_temporal(net: TemporalUpscalerNet, lr_batch, hist_batch,
     return charbonnier(net(lr_batch, hist_batch), hr_batch)
 
 
-def update(opt: torch.optim.Optimizer, loss_of) -> torch.Tensor:
+def update(opt: torch.optim.Optimizer, loss_of, group=None) -> torch.Tensor:
     """One optimizer update on the loss `loss_of()` computes, in full
-    float32; returns the loss, detached."""
+    float32; returns the loss, detached.  With a process `group` the
+    ranks' gradients and losses are averaged (one all-reduce) before the
+    step, so that every rank takes the same step."""
     with fp32_convs():
         opt.zero_grad(set_to_none=True)
         loss = loss_of()
         loss.backward()
+    loss = loss.detach()
+    if group is not None:
+        params = [p for g in opt.param_groups for p in g["params"]
+                  if p.grad is not None]
+        flat = torch.cat([p.grad.reshape(-1) for p in params]
+                         + [loss.reshape(1)])
+        dist.all_reduce(flat, group=group)
+        flat /= dist.get_world_size(group)
+        for p, g in zip(params, flat[:-1].split([p.numel() for p in params])):
+            p.grad.copy_(g.view_as(p.grad))
+        loss = flat[-1]
     opt.step()
-    return loss.detach()
+    return loss
 
 
-def train_step(net: UpscalerNet, opt, lr_batch, hr_batch) -> torch.Tensor:
+def _share(group, *batches):
+    """Rank r's equal share of each batch along its first axis: rows
+    [r B / n, (r + 1) B / n) of n ranks (the whole batch without a
+    group)."""
+    if group is None:
+        return batches
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    b = batches[0].shape[0]
+    if b % n:
+        raise ValueError(f"batch of {b} does not split over {n} ranks")
+    return tuple(x[r * (b // n):(r + 1) * (b // n)] for x in batches)
+
+
+def train_step(net: UpscalerNet, opt, lr_batch, hr_batch,
+               group=None) -> torch.Tensor:
     """One optimizer update of the spatial net, in place.  Batches:
-    (B, h, w, 3) and (B, 2h, 2w, 3).  Returns the loss."""
-    return update(opt, lambda: _loss_fn(net, lr_batch, hr_batch))
+    (B, h, w, 3) and (B, 2h, 2w, 3), the whole batch on every rank of
+    `group` (data parallel: each rank takes the loss of its share).
+    Returns the loss."""
+    lr_batch, hr_batch = _share(group, lr_batch, hr_batch)
+    return update(opt, lambda: _loss_fn(net, lr_batch, hr_batch), group)
 
 
 def train_step_temporal(net: TemporalUpscalerNet, opt, lr_batch,
-                        hist_batch, hr_batch) -> torch.Tensor:
+                        hist_batch, hr_batch, group=None) -> torch.Tensor:
     """One optimizer update of the temporal net, in place.  Batches:
-    (B, h, w, 3), (B, 2h, 2w, 4) and (B, 2h, 2w, 3).  Returns the
-    loss."""
-    return update(opt, lambda: _loss_fn_temporal(net, lr_batch,
-                                                  hist_batch, hr_batch))
+    (B, h, w, 3), (B, 2h, 2w, 4) and (B, 2h, 2w, 3), data parallel over
+    `group` as train_step.  Returns the loss."""
+    lr_batch, hist_batch, hr_batch = _share(group, lr_batch, hist_batch,
+                                            hr_batch)
+    return update(opt, lambda: _loss_fn_temporal(net, lr_batch, hist_batch,
+                                                  hr_batch), group)
 
 
 def downsample2(img: torch.Tensor) -> torch.Tensor:

@@ -196,11 +196,20 @@ def test_cli_flags_match_jax(monkeypatch):
 
 
 def test_cli_refusals(tmp_path, monkeypatch):
-    """--devices > 1 is not ported; --device cuda without a card raises;
-    --debug-nans raises on a non-finite frame."""
+    """--devices > 1 without torchrun's environment (or with another
+    world size) and with --preview raises ValueError; --device cuda
+    without a card raises; --debug-nans raises on a non-finite frame."""
     args = SMOKE + ["--out", str(tmp_path / "f.png"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         cli.main(args + ["--devices", "2"])
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(ValueError, match="WORLD_SIZE is 3"):
+        cli.main(args + ["--devices", "2"])
+    with pytest.raises(ValueError, match="--preview"):
+        cli.main(args + ["--devices", "2", "--preview"])
+    monkeypatch.delenv("WORLD_SIZE")
+    assert not os.path.exists(tmp_path / "f.png")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(SMOKE + ["--out", str(tmp_path / "g.png")])

@@ -982,3 +982,76 @@ def test_train_step_on_the_card_matches_cpu(cuda):
         assert all(float((p.detach() - q).abs().max()) > 1e-4
                    for p, q in zip(net.parameters(), before))
     assert torch.backends.cudnn.allow_tf32 == prev
+
+
+@pytest.fixture
+def nccl_group(cuda, tmp_path):
+    """A one-rank NCCL group on the card, destroyed after the test."""
+    import torch.distributed as dist
+
+    from hrt_tpu_torch.parallel import tiles
+
+    tiles.init_group(cuda, 1, 0, f"file://{tmp_path}/store")
+    yield tiles.make_mesh(1)
+    dist.destroy_process_group()
+
+
+def test_world_one_tiled_frame_is_the_frame(nccl_group):
+    """render_frame_tiled over a one-rank NCCL group: the whole frame
+    through the same kernels, bit for bit, with and without the
+    G-buffer; FrameLoop(mesh) with the post stages equal to the loop
+    without one."""
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.parallel import tiles
+
+    dev = tiles.mesh_device(nccl_group)
+    cfg = RenderConfig(width=128, height=96, max_depth=1, sky=True)
+    scene = bench_scene().build(dev)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, dev)
+    before = traversal_wide8.LAUNCHES["closest"]
+    img = tiles.render_frame_tiled(scene, accel, cams, 0, cfg, nccl_group)
+    assert traversal_wide8.LAUNCHES["closest"] == before + 1
+    assert torch.equal(img, renderer.render_rows(scene, accel, cams, 0, 96,
+                                                 cfg))
+    img, gb = tiles.render_frame_tiled(scene, accel, cams, 0, cfg,
+                                       nccl_group, want_gbuffer=True)
+    _, want = renderer.render_rows(scene, accel, cams, 0, 96, cfg,
+                                   want_gbuffer=True)
+    assert all(torch.equal(gb[k], want[k]) for k in want)
+    post = RenderConfig(width=128, height=96, max_depth=1, sky=True,
+                        denoise=True, accumulate=True, upscale=2,
+                        upscale_mode="temporal")
+    a = FrameLoop(bench_scene(), post, mesh=nccl_group)
+    b = FrameLoop(bench_scene(), post, device=dev)
+    for f in range(2):
+        cam = Camera(position=(0.03 * f, -1.0, -6.0),
+                     rotation=(-0.15, 0.0, 0.0))
+        assert torch.equal(a.step(cam), b.step(cam))
+
+
+def test_sharded_combine_matches_whole_soup(cuda):
+    """The bench soup in 4 shard LBVHs, each walked by K3 on the card,
+    combined: the whole soup's LBVH walked by K3, ids on >= 0.999 of
+    the rays and t within 1e-5 where they agree."""
+    from hrt_tpu_torch.ops import traversal, traversal_skip
+    from hrt_tpu_torch.parallel import scene_shard
+
+    scene = bench_scene().build(cuda, pad=4 * 128)
+    sharded, accs = scene_shard.build_sharded_accel(scene, 4, leaf_size=8)
+    o, d = _rays(5, 4093, cuda)
+    before = traversal_skip.LAUNCHES["closest"]
+    hits = [scene_shard.shard_closest_hit(a, o, d, s,
+                                          sharded.tri_v0.shape[1])
+            for s, a in enumerate(accs)]
+    assert traversal_skip.LAUNCHES["closest"] == before + 4
+    t, tri, _, _ = scene_shard.combine_hits(
+        *(torch.stack(h) for h in zip(*hits)))
+    wt, wtri, _, _ = traversal.closest_hit_bvh_p(
+        None, lbvh.build_bvh(scene, 8), V3(*o.unbind(-1)),
+        V3(*d.unbind(-1)), 1e-3, 1e32)
+    same = tri == wtri
+    assert same.float().mean().item() >= 0.999
+    hit = same & (tri >= 0)
+    assert hit.float().mean().item() > 0.3
+    torch.testing.assert_close(t[hit], wt[hit], rtol=1e-5, atol=0)

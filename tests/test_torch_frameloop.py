@@ -12,6 +12,7 @@ from hrt_tpu_torch.config import RenderConfig
 from hrt_tpu_torch.frameloop import FrameLoop
 from hrt_tpu_torch.models.camera import Camera
 from hrt_tpu_torch.ops import tlas
+from hrt_tpu_torch.parallel import tiles
 
 from test_tlas import _instanced_scene
 from test_torch_tlas import CAM, port_scene
@@ -89,10 +90,16 @@ def test_single_level_loop_renders_and_refuses_animation():
         loop.set_instance_transform(1, position=(0.0, 0.0, 0.0))
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object())])
-def test_loop_refusals(kw):
-    with pytest.raises(NotImplementedError):
-        _loop(**kw)
+@pytest.mark.parametrize("case", ["no_group", "height"])
+def test_loop_refusals(case):
+    """A mesh of two ranks with no process group to hold them, and a
+    height that the ranks do not divide, raise ValueError."""
+    if case == "no_group":
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+            _loop(mesh=tiles.make_mesh(2, device="cpu"))
+    else:
+        with pytest.raises(ValueError, match="not divisible by 2"):
+            tiles.band(0, 2, RenderConfig(**{**SMALL, "height": 25}))
 
 
 def test_unknown_upscale_mode_raises():
