@@ -221,7 +221,13 @@ over the bench frame, whose history fetches run K6.  Phases:
      one of animated_4k's shape (phase 20's, 3840x2160, C=3): within
      1e-5 of the largest |grad| (float atomics); times (CUDA events, 10
      calls per sample) beside the plain backward's, grid_sample's input
-     gradient's and the bound
+     gradient's and the bound, and in turns with the first backward
+     kernel (scripts/torch_k6_backward_probe.py's FIRST_BACKWARD); the
+     gradients one recurrent step of phase 38's net sends through K6
+     (captured, sky and off-image pixels masked to 0) against the plain
+     adjoint and timed in turns; an all-zero gradient gives an all-+0
+     image gradient bit for bit; NaN and +Inf at a sky and at an
+     off-image pixel land exactly where the plain adjoint puts them
  40. one recurrent update on the card through K6 against the plain
      route (`plain=True`): loss within rtol 1e-5, gradients within 1e-4
      of each tensor's largest entry; with the warped history detached
@@ -2861,6 +2867,20 @@ def warp_backward_check(sm: Smoke, label: str, img, px, py, seed: int):
     return gv, err, ev[0].elapsed_time(ev[1])
 
 
+def load_k6_probe():
+    """scripts/torch_k6_backward_probe.py as a module: the first
+    backward kernel's source and its build, the raw launcher, the
+    trainer's gradient capture and the special values."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_k6_backward_probe",
+        os.path.join(ROOT, "scripts", "torch_k6_backward_probe.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def train_phases(sm: Smoke, dev, hist4k) -> dict:
     """Phases 37-40, upscaler training (hrt_tpu_torch.train_upscaler) on
     the card.  `hist4k`: phase 20's (history, px, py) at 3840x2160, C=3.
@@ -2872,6 +2892,7 @@ def train_phases(sm: Smoke, dev, hist4k) -> dict:
     import torch.nn.functional as F
 
     from hrt_tpu_torch import train_upscaler as tu
+    from hrt_tpu_torch.kernels import build
     from hrt_tpu_torch.models import upscaler
     from hrt_tpu_torch.ops import denoise, warp_kernel as k6
 
@@ -2988,15 +3009,37 @@ def train_phases(sm: Smoke, dev, hist4k) -> dict:
 
     phase("phase 39: K6 backward vs its plain backward: the trainer's "
           "history (256x256, C=3, a bench orbit step's motion) and the 4K "
-          "one of animated_4k's shape (3840x2160, C=3, phase 20's)")
+          "one of animated_4k's shape (3840x2160, C=3, phase 20's), in "
+          "turns with the first backward kernel; the trainer's own "
+          "gradients; an all-zero gradient; NaN and +Inf")
     lrs, wps, hits, cams, cleans = seqs[0]
     prev = cams[0]
     px, py, _ = denoise._project(upscaler._upsample2_corner(wps[1]),
                                  prev.origin, prev.basis, prev.tan_half_fovy,
                                  prev.aspect, cleans.shape[2],
                                  cleans.shape[1])
+    px_t = px  # frame 1's coordinates (the loop below rebinds px)
     shapes = {"trainer 256x256 C=3": (cleans[0], px, py),
               "4K history 3840x2160 C=3 (animated_4k's)": hist4k}
+    probe = load_k6_probe()
+    first = probe.build_designs(("first",))["first"]
+    kept = build.load().hrt_warp_bilinear_backward
+
+    def turns(items):
+        """(kernel ms, first kernel's ms) a launch, in turns (first,
+        kernel, kernel, first), each call the launches of `items` with
+        their zero fills, 10 calls per event pair."""
+        calls = [[probe.launcher(fn, *it) for it in items]
+                 for fn in (first, kept)]
+        b, c = in_turns(lambda: [f() for f in calls[0]],
+                        lambda: [f() for f in calls[1]], calls=10)
+        print(f"  in turns (first, kernel, kernel, first): "
+              + ", ".join(f"{x / len(items):.4f}" for x in
+                          (b[0], c[0], c[1], b[1])) + " ms a launch",
+              flush=True)
+        return statistics.mean(c) / len(items), \
+            statistics.mean(b) / len(items)
+
     entry = None
     for i, (label, (img, px, py)) in enumerate(shapes.items()):
         gv, err, plain_once = warp_backward_check(sm, label, img, px, py,
@@ -3026,14 +3069,58 @@ def train_phases(sm: Smoke, dev, hist4k) -> dict:
                 gs, gsrc, ggv, retain_graph=True), calls=10),
             "bound_ms": bound(n_bytes)[0]}
         print(f"  K6 backward {label}: kernel {row['ms']:.4f} ms (with the "
-              f"zero fill), plain (autograd of the plain warp"
-              f"{', one call' if entry is not None else ''}) "
+              f"zero fill, through the wrapper), plain (autograd of the "
+              f"plain warp{', one call' if entry is not None else ''}) "
               f"{row['plain_ms']:.4f} ms, grid_sample backward "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({n_bytes} bytes)", flush=True)
+        row["wrapper_ms"] = row["ms"]
+        row["ms"], row["before_ms"] = turns([(gv, px, py, hi, wi)])
         if entry is None:
             entry = {"max_abs_err": err, "bound_by": "bytes", **row}
+        else:
+            entry.update({f"{k}_4k": v for k, v in row.items()})
+            entry["max_abs_err_4k"] = err
         del val, gs, src, gsrc
+
+    # (i) The gradients the trainer sends: one recurrent step of phase
+    # 38's net, each K6 backward launch's grad_val captured.
+    got = probe.trainer_grads(copy.deepcopy(tr["net"]), seqs[0])
+    worst = max(probe.compare(k6.warp_bilinear_backward_kernel(*it), *it)
+                ["rel"] for it in got)
+    torch.cuda.synchronize()
+    live = sum(int((it[0] != 0).any(-1).sum()) for it in got) / sum(
+        it[1].numel() for it in got)
+    sm.check(len(got) == n_seq - 1 and worst <= 1e-5,
+             f"the trainer's gradient ({len(got)} warps of one recurrent "
+             f"step, {live:.4f} of pixels with a nonzero gradient): K6 "
+             f"backward vs the plain adjoint, rel err {worst:.3g} of each "
+             f"element's absolute sum")
+    entry["ms_trainer_grad"], entry["before_ms_trainer_grad"] = turns(got)
+    entry["nonzero_share_trainer_grad"] = live
+    # (ii) Special values, on frame 1's warp of that step (the one whose
+    # coordinates are phase 39's trainer px, py).
+    hs, ws = cleans.shape[1], cleans.shape[2]
+    one = [it for it in got if torch.equal(it[1], px_t)]
+    sm.check(len(one) == 1, "one captured warp has frame 1's coordinates")
+    gv1, px1, py1 = one[0][:3] if one else got[-1][:3]
+    zero = k6.warp_bilinear_backward_kernel(torch.zeros_like(gv1), px1, py1,
+                                            hs, ws)
+    hit = hits[1].repeat_interleave(2, 0).repeat_interleave(2, 1)
+    sg, spx, spy, (sky, off) = probe.with_special_values(gv1, px1, py1, hit,
+                                                         hs, ws)
+    cmp = probe.compare(k6.warp_bilinear_backward_kernel(sg, spx, spy, hs,
+                                                         ws),
+                        sg, spx, spy, hs, ws)
+    torch.cuda.synchronize()
+    sm.check(bool((zero.view(torch.int32) == 0).all()),
+             "an all-zero grad_val gives an all-+0 grad_img, bit for bit")
+    sm.check(cmp["nonfinite_match"] and cmp["nonfinite"] > 0
+             and cmp["rel"] <= 1e-5,
+             f"NaN and +Inf at sky pixel {sky} and off-image pixel {off}: "
+             f"the {cmp['nonfinite']} non-finite elements of the plain "
+             f"adjoint are K6's, NaN for NaN and Inf for Inf; the rest "
+             f"within {cmp['rel']:.3g} of each element's absolute sum")
 
     phase("phase 40: one recurrent step on the card, K6 route vs the plain "
           "route, the history path's gradient; ms per step (CUDA events)")
@@ -4219,7 +4306,10 @@ def main() -> int:
          "replaces": K6_REPLACES, **post},
         # K6's adjoint (the image gradient) in the recurrent fine-tune:
         # launches over phase 38's run; times and bound at the trainer's
-        # 256x256 C=3 history, library_ms grid_sample's input gradient.
+        # 256x256 C=3 history, library_ms grid_sample's input gradient,
+        # ms and before_ms in turns with the first backward kernel; the
+        # same keys with _4k at 3840x2160, with _trainer_grad on the
+        # gradients one recurrent step sends (phase 39).
         {"name": "warp_bilinear_backward", "route": "cuda",
          "source": K6_SOURCE, "replaces": K6_REPLACES, **k6_bwd},
         # The path_tracing frame (1080p, depth 5, sorted): one frame's five

@@ -148,7 +148,8 @@ def load() -> ctypes.CDLL:
     cdll.hrt_warp_bilinear.argtypes = [p, i, i, i, i, i, i, p, p, i, p, p,
                                          p]
     cdll.hrt_warp_bilinear_backward.restype = i
-    cdll.hrt_warp_bilinear_backward.argtypes = [p, i, i, i, p, p, i, p, p]
+    cdll.hrt_warp_bilinear_backward.argtypes = [p, i, i, i, p, p, i, i, p,
+                                                p]
     cdll.hrt_cuda_error_string.restype = ctypes.c_char_p
     cdll.hrt_cuda_error_string.argtypes = [i]
     _lib = cdll

@@ -24,9 +24,20 @@ launches the kernel's adjoint (`hrt_warp_bilinear_backward`): the
 gradient with respect to the image, as autodiff of the JAX `_bilinear`
 gives it, so the upscaler's recurrent fine-tune
 (hrt_tpu_torch/train_upscaler.py) trains through the warp on the card
-as on the CPU.  The coordinates get no gradient: they come from the
-G-buffer and the previous camera, and `warp_bilinear` raises if they
-require one.  `valid` is not differentiable.
+as on the CPU.  The adjoint scatters with float atomics into a zeroed
+image gradient, and takes apart the adds that would serialise on one
+address (every sky pixel projects onto the same taps, every pixel off
+the image onto an edge tap): it drops products that are exactly +-0
+(exact, since the sum starts at +0; a NaN or Inf still adds), sums a
+pixel's coincident clamped taps in the thread, merges equal taps
+across a warp (`__match_any_sync`, a shuffle tree) and, in a block with
+a large cluster, across the block in a shared-memory window flushed
+once (the source note has the steps and the bound).  Its results match
+the plain adjoint to float rounding in a run-dependent order; NaN and
+Inf land where the plain adjoint puts them.  The coordinates get no
+gradient: they come from the G-buffer and the previous camera, and
+`warp_bilinear` raises if they require one.  `valid` is not
+differentiable.
 """
 from __future__ import annotations
 
@@ -95,7 +106,7 @@ def warp_bilinear_backward_kernel(grad_val, px, py, hs: int, ws: int):
         stream = build.stream(dev)
         rc = build.load().hrt_warp_bilinear_backward(
             grad_val.data_ptr(), hs, ws, c, px.data_ptr(), py.data_ptr(),
-            px.numel(), grad_img.data_ptr(), stream)
+            *px.shape, grad_img.data_ptr(), stream)
     build.check(rc, "warp_bilinear backward")
     LAUNCHES["warp_bilinear_backward"] += 1
     return grad_img

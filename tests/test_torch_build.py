@@ -13,6 +13,14 @@ from hrt_tpu_torch.ops import (lbvh, traversal, traversal_skip,
 from hrt_tpu_torch.utils.interop import accel_from_numpy, scene_from_numpy
 
 from test_fuzz import random_scene_data
+from test_torch_native import jax_native_lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_sah():
+    """JAX's build_bvh_sah through its native builder, never the LBVH
+    fallback (test_torch_native.jax_native_lib)."""
+    jax_native_lib()
 
 
 def jax_scene_dict(scene):

@@ -30,6 +30,15 @@ from hrt_tpu_torch.utils import checkpoint
 from hrt_tpu_torch.utils.image import tonemap
 
 from test_torch_materials import OBJ_TEXT
+from test_torch_native import jax_native_lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_sah():
+    """JAX's build_bvh_sah through its native builder, never the LBVH
+    fallback (test_torch_native.jax_native_lib)."""
+    jax_native_lib()
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_CAM = dict(position=(0.0, -1.0, -6.0), rotation=(-0.15, 0.0, 0.0))

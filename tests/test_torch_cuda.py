@@ -831,9 +831,12 @@ def test_stacked_two_level_trace_matches_plain(cuda):
     assert float((kt - pt)[hit].abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("layout", ["hwc", "chw"])
-@pytest.mark.parametrize("c", [1, 3, 10])
-def test_warp_backward_kernel_matches_plain(cuda, c, layout):
+@pytest.mark.parametrize("c,layout,grad", [
+    *(pytest.param(c, layout, "randn", id=f"{c}-{layout}")
+      for layout in ("hwc", "chw") for c in (1, 3, 10)),
+    pytest.param(3, "chw", "masked", id="masked-3-chw"),
+    pytest.param(3, "hwc", "nonfinite", id="nonfinite-3-hwc")])
+def test_warp_backward_kernel_matches_plain(cuda, c, layout, grad):
     """K6's backward at a ragged size (a 37x29 grid, so the last tile is
     partial, from a 31x23 source) with coordinates on the edges, outside
     the image and at +-1e10 (clamped taps that coincide), from a
@@ -841,7 +844,12 @@ def test_warp_backward_kernel_matches_plain(cuda, c, layout):
     gradient through warp_bilinear (WarpBilinear) against autograd of the
     plain warp, each element within 1e-5 of its terms' absolute sum
     (float atomics add in an order that changes from run to run), one
-    backward launch, a contiguous result."""
+    backward launch, a contiguous result.  `grad`: a normal gradient;
+    "masked", zero over every clamped pixel and over a block of the grid
+    (as the trainer masks sky and off-image pixels), so the kernel drops
+    those adds; "nonfinite", NaN, +Inf and -Inf at clamped, coincident
+    and inner pixels, which must land exactly where the plain adjoint
+    puts them (NaN for NaN, Inf of the same sign for Inf)."""
     from hrt_tpu_torch.ops import warp_kernel
 
     rs = np.random.RandomState(17 + c)
@@ -858,13 +866,22 @@ def test_warp_backward_kernel_matches_plain(cuda, c, layout):
     px[1], py[:, 1] = ws - 1.0, hs - 1.0
     px[::5, ::3] = 1e10
     py[::7, ::2] = -1e10
-    px, py = (torch.as_tensor(a, device=cuda) for a in (px, py))
-    gv = torch.as_tensor(rs.normal(0, 1, (ho, wo, c)).astype(np.float32),
-                         device=cuda)
+    gv = rs.normal(0, 1, (ho, wo, c)).astype(np.float32)
+    if grad == "masked":
+        gv[(px < 0) | (px > ws - 1) | (py < 0) | (py > hs - 1)] = 0.0
+        gv[4:20, 6:30] = 0.0
+    elif grad == "nonfinite":
+        gv[0, 5, 0] = np.nan      # px 0: clamped onto the left edge
+        gv[5, 3, 1] = np.inf      # px 1e10: coincident clamped taps
+        gv[6, 4, 2] = -np.inf     # py -1e10
+        gv[12, 17, 0] = np.inf
+        gv[12, 17, 2] = np.nan
+    px, py, gv = (torch.as_tensor(a, device=cuda) for a in (px, py, gv))
     leaf = img.detach().clone().requires_grad_(True)
     plain = warp_kernel.warp_bilinear_plain(leaf, px, py)[0]
     (pg,) = torch.autograd.grad(plain, leaf, gv, retain_graph=True)
-    (scale,) = torch.autograd.grad(plain, leaf, gv.abs())
+    mag = torch.where(torch.isfinite(gv), gv.abs(), 0.0)
+    (scale,) = torch.autograd.grad(plain, leaf, mag)
     before = warp_kernel.LAUNCHES["warp_bilinear_backward"]
     kg = warp_kernel.warp_bilinear_backward_kernel(gv, px, py, hs, ws)
     val, valid = warp_kernel.warp_bilinear(leaf, px, py)
@@ -873,8 +890,14 @@ def test_warp_backward_kernel_matches_plain(cuda, c, layout):
     torch.cuda.synchronize()
     assert warp_kernel.LAUNCHES["warp_bilinear_backward"] == before + 2
     assert kg.shape == (hs, ws, c) and kg.is_contiguous()
-    assert ((kg - pg).abs() <= 1e-5 * scale).all()
-    assert ((fg - pg).abs() <= 1e-5 * scale).all()
+    fin = torch.isfinite(pg)
+    assert bool(fin.all()) == (grad != "nonfinite")
+    for got in (kg, fg):
+        for where in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(where(got), where(pg))
+        assert ((got - pg).abs()[fin] <= 1e-5 * scale[fin]).all()
+    if grad == "masked":
+        assert int((gv == 0).all(-1).sum()) > ho * wo // 3
 
 
 def test_warp_without_image_grad_launches_no_backward(cuda):

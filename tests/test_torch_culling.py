@@ -23,7 +23,16 @@ from hrt_tpu_torch.models.camera import CameraArrays, orbit_camera
 from hrt_tpu_torch.ops import culling, traversal, traversal_skip
 from hrt_tpu_torch.utils.image import psnr
 
+from test_torch_native import jax_native_lib
 from test_torch_tlas import port_scene
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_sah():
+    """JAX's build_bvh_sah through its native builder, never the LBVH
+    fallback (test_torch_native.jax_native_lib)."""
+    jax_native_lib()
+
 
 FRAME = dict(width=64, height=48, max_depth=1, sky=True, jitter=False)
 

@@ -18,6 +18,14 @@ from hrt_tpu_torch.ops.v3 import V3
 
 from test_fuzz import random_rays
 from test_torch_build import scene_pair
+from test_torch_native import jax_native_lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_sah():
+    """JAX's build_bvh_sah through its native builder, never the LBVH
+    fallback (test_torch_native.jax_native_lib)."""
+    jax_native_lib()
 
 
 def _bits(a):

@@ -39,6 +39,15 @@ from hrt_tpu_torch.utils.interop import (accel_from_numpy,
                                          light_tree_from_numpy)
 
 from test_torch_build import jax_accel_dict
+from test_torch_native import jax_native_lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_sah():
+    """JAX's build_bvh_sah through its native builder, never the LBVH
+    fallback (test_torch_native.jax_native_lib)."""
+    jax_native_lib()
+
 
 CAM = dict(position=(0.0, -1.0, -6.0), rotation=(-0.15, 0.0, 0.0))
 SMALL = dict(width=48, height=32, sky=True)

@@ -43,6 +43,15 @@ from hrt_tpu_torch.ops import lbvh, math3d, pbr
 from hrt_tpu_torch.utils.interop import accel_from_numpy, scene_from_numpy
 
 from test_torch_build import jax_accel_dict
+from test_torch_native import jax_native_lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_sah():
+    """JAX's build_bvh_sah through its native builder, never the LBVH
+    fallback (test_torch_native.jax_native_lib)."""
+    jax_native_lib()
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = ("cornell", "studio", "colonnade")

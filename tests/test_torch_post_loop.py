@@ -27,7 +27,16 @@ from hrt_tpu_torch.utils.image import psnr
 from hrt_tpu_torch.utils.interop import accel_from_numpy
 
 from test_torch_build import jax_accel_dict
+from test_torch_native import jax_native_lib
 from test_torch_post import cam_at, committed_npz, flax_params
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_sah():
+    """JAX's build_bvh_sah through its native builder, never the LBVH
+    fallback (test_torch_native.jax_native_lib)."""
+    jax_native_lib()
+
 
 # The post path at 64x48 -> 128x96.  JAX walks its plain BVH loop
 # (traversal="bvh") and plain BRDF, the port its plain versions; the

@@ -22,6 +22,15 @@ from hrt_tpu_torch.ops import lbvh
 from hrt_tpu_torch.utils.interop import accel_from_numpy
 
 from test_torch_build import jax_accel_dict
+from test_torch_native import jax_native_lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_sah():
+    """JAX's build_bvh_sah through its native builder, never the LBVH
+    fallback (test_torch_native.jax_native_lib)."""
+    jax_native_lib()
+
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 BENCH_CAM = dict(position=(0.0, -1.0, -6.0), rotation=(-0.15, 0.0, 0.0))

@@ -43,6 +43,15 @@ from hrt_tpu_torch.utils.image import psnr
 from hrt_tpu_torch.utils.interop import two_level_from_numpy
 
 from test_tlas import _instanced_scene, _rays
+from test_torch_native import jax_native_lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_sah():
+    """JAX's build_bvh_sah through its native builder, never the LBVH
+    fallback (test_torch_native.jax_native_lib)."""
+    jax_native_lib()
+
 
 CAM = dict(position=(0.0, -1.0, -6.0), rotation=(-0.15, 0.0, 0.0))
 FRAME = dict(width=64, height=48, max_depth=1, sky=True, jitter=False)

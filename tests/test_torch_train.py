@@ -109,6 +109,80 @@ def test_warp_image_gradient_matches_jax(c):
         > 0
 
 
+def test_warp_image_gradient_special_values_match_jax():
+    """The adjoint K6's backward is held to, on special gradients: an
+    all-zero gradient gives +0 everywhere, bit for bit, in both packages
+    (K6's backward drops exact-zero products and relies on it), and NaN,
+    +Inf and -Inf at clamped, coincident and inner pixels land on the
+    same elements of both (NaN x a zero weight is NaN, Inf + -Inf is
+    NaN); the finite rest within atol 1e-6."""
+    rs = np.random.RandomState(5)
+    img = rs.uniform(-1, 1, (13, 17, 3)).astype(np.float32)
+    px, py = _edge_coords(3, 13, 17, 24, 31)
+    far = np.argwhere(np.abs(px) > 1e9)
+    gv = rs.normal(0, 1, (24, 31, 3)).astype(np.float32)
+    gv[tuple(far[0])][0] = np.nan
+    gv[tuple(far[1])][1] = np.inf
+    gv[0, 0, 2] = -np.inf
+    gv[11, 12] = [np.inf, -np.inf, np.nan]
+    for grad in (np.zeros_like(gv), gv):
+        jgrad = np.asarray(jax.grad(lambda im: jnp.sum(
+            jdenoise._bilinear(im, jnp.asarray(px), jnp.asarray(py))[0]
+            * jnp.asarray(grad)))(jnp.asarray(img)))
+        ti = _t(img).requires_grad_(True)
+        val = warp_kernel.warp_bilinear(ti, _t(px), _t(py))[0]
+        (g,) = torch.autograd.grad(val, ti, _t(grad))
+        g = g.numpy()
+        if not grad.any():
+            assert (g.view(np.int32) == 0).all()
+            assert (jgrad.view(np.int32) == 0).all()
+            continue
+        for where in (np.isnan, np.isposinf, np.isneginf):
+            np.testing.assert_array_equal(where(g), where(jgrad))
+        fin = np.isfinite(jgrad)
+        assert 0 < (~fin).sum() < fin.sum()
+        np.testing.assert_allclose(g[fin], jgrad[fin], rtol=0, atol=1e-6)
+
+
+def test_k6_backward_probe_helpers():
+    """scripts/torch_k6_backward_probe.py, whose helpers chip_smoke.py's
+    phase 39 runs: every design it builds by substitution finds its text
+    in csrc/warp_bilinear.cu once, and on the CPU `with_special_values`
+    puts NaN and +Inf at a sky and an off-image pixel, which `compare`
+    finds where the plain adjoint has them."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_k6_backward_probe",
+        os.path.join(root, "scripts", "torch_k6_backward_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    with open(os.path.join(root, "hrt_tpu_torch", "csrc",
+                           "warp_bilinear.cu")) as f:
+        src = f.read()
+    for subs in (*probe.VARIANTS.values(), *probe.ABLATIONS.values()):
+        for old, _ in subs:
+            assert src.count(old) == 1, old
+    rs = np.random.RandomState(9)
+    hs, ws = 20, 24
+    px = _t(rs.uniform(-3, ws + 2, (hs, ws)).astype(np.float32))
+    py = _t(rs.uniform(0, hs - 1, (hs, ws)).astype(np.float32))
+    hit = _t((rs.rand(hs, ws) < 0.7).astype(np.float32))
+    gv = _t(rs.normal(0, 1, (hs, ws, 3)).astype(np.float32))
+    sg, spx, spy, (sky, off) = probe.with_special_values(gv, px, py, hit,
+                                                         hs, ws)
+    assert hit.view(-1)[sky] < 0.5 and not 0 <= spx.view(-1)[off] <= ws - 1
+    row = sg.view(-1, 3)
+    assert torch.isnan(row[[sky, off], 0]).all()
+    assert torch.isposinf(row[[sky, off], 1]).all()
+    cmp = probe.compare(probe.plain_adjoint(sg, spx, spy, hs, ws), sg, spx,
+                        spy, hs, ws)
+    assert cmp["nonfinite_match"] and cmp["rel"] == 0.0
+    assert cmp["nonfinite"] > 0
+
+
 def test_warp_coordinates_get_no_gradient():
     img = torch.rand(8, 9, 3)
     px = torch.rand(4, 5).requires_grad_(True)
