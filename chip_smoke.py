@@ -251,6 +251,24 @@ over the bench frame, whose history fetches run K6.  Phases:
      512x384 frame bit-equal to render_rows', the sharded hits of the
      bench soup equal to the local combine, a data-parallel upscaler
      step on 4 crops against the one-process step
+ 44. the walks' debug builds (HRT_KERNEL_GUARDS, HRT_DEBUG_COUNTERS):
+     K1 guarded on the bench frame's batches over the JAX package's
+     corrupt tables (the root's base: bit 1; a leaf's start: bit 4) and
+     an understated depth (bit 2), each raising through
+     check_pending_guards, then a clean launch in the same process equal
+     to the first; the debug builds of K1 (guards and counters), K3 and
+     K4 (counters) bit-equal to the normal builds on the bench, culled
+     and instanced frames' 512x384 batches, guards silent; K4 any hit's
+     per-ray counts equal visit_counts (the table's order); K1's and K4
+     closest's packet overhead against the plain walk in its order; each
+     debug build in turns with its normal build (CUDA events, 10 calls
+     per sample); `python -m hrt_tpu_torch.render` with
+     HRT_KERNEL_GUARDS=1 in a process of its own (bench, 512x384, 2
+     frames: silent, PNGs equal to the unguarded command's) and in this
+     process (the counters set to 0 just before: 2 guarded K1 launches
+     of each mode); a culled (K3) and an instanced (K4) FrameLoop.step
+     with HRT_DEBUG_COUNTERS=1 equal to the normal step, launching only
+     the counting builds
 
 Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
 through K1 and K2, held off the image diagonals where the box's wall
@@ -283,8 +301,9 @@ Exits non-zero, printing no result, without a CUDA device or when any
 check fails.  The line before the last is the kernels JSON (the six
 kernels on the direct-lighting paths, K6's backward on the trainer's
 history, then K1's two modes and K2 on the path_tracing frame, one
-frame's five launches each, then on the many_lights_256 frame); the
-last is {"ok": true, "device": {...}}.
+frame's five launches each, then on the many_lights_256 frame, then
+the debug builds of K1, K3 and K4, phase 44); the last is {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -1219,7 +1238,8 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
     """Phases 3-9, the bench frame; `baseline` is load_baseline()'s
     library or None.  Returns K1's and K2's times (`times`), launch
     counts over the 32 frames (`launches`), max abs errors (`errs`) and
-    bounds (`bounds`, by frame size: "" for 512x384, "_1080p")."""
+    bounds (`bounds`, by frame size: "" for 512x384, "_1080p"), and the
+    512x384 frame's scene, accel, config, batches and K1 operations."""
     import numpy as np
     import torch
 
@@ -1466,7 +1486,10 @@ def bench_phases(sm: Smoke, dev, baseline=None) -> dict:
                   f"({ops:.4e})", flush=True)
     return {"times": times, "launches": launches, "bounds": bounds,
             "errs": {"k1_closest": k1c_err, "k1_any_hit": k1a_err,
-                     "k2": k2_err}}
+                     "k2": k2_err},
+            "scene": scene, "accel": accel, "cfg": cfg, "prim": prim,
+            "shadow": shadow, "ops": {k: k1_ops[k] for k in
+                                      ("k1_closest", "k1_any_hit")}}
 
 
 def py_hash3(x: int, y: int, z: int) -> int:
@@ -2033,7 +2056,10 @@ def launch_counts() -> dict:
             "k4_any_hit": k4.LAUNCHES["any_hit"],
             "k5": k5.LAUNCHES["closest"] + k5.LAUNCHES["any_hit"],
             "k6": k6.LAUNCHES["warp_bilinear"],
-            "k6_backward": k6.LAUNCHES["warp_bilinear_backward"]}
+            "k6_backward": k6.LAUNCHES["warp_bilinear_backward"],
+            # The walks' debug builds (phase 44): none on a normal path.
+            **{f"{name}_debug": sum(m.DEBUG_LAUNCHES.values())
+               for name, m in (("k1", k1), ("k3", k3), ("k4", k4))}}
 
 
 def reset_all() -> None:
@@ -2044,7 +2070,8 @@ def reset_all() -> None:
     from hrt_tpu_torch.ops import warp_kernel as k6
 
     reset(k1.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES,
-          shade_kernel.LAUNCHES, k6.LAUNCHES)
+          shade_kernel.LAUNCHES, k6.LAUNCHES, k1.DEBUG_LAUNCHES,
+          k3.DEBUG_LAUNCHES, k4.DEBUG_LAUNCHES)
 
 
 def drive_loop(sm: Smoke, label: str, loop, cam, steps: int,
@@ -3497,6 +3524,420 @@ def gloo_phase(sm: Smoke) -> None:
                   flush=True)
 
 
+def counted(mod, table, planes, t_min: float, closest: bool,
+            guards: bool = False):
+    """One launch of a walk's debug build, its counters on (and K1's
+    guards with `guards`) for the call only: (its outputs, its
+    LAST_COUNTERS)."""
+    from hrt_tpu_torch.ops import intersect
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    intersect.DEBUG_COUNTERS, k1.GUARDS = True, guards
+    try:
+        out = mod.trace_kernel(table, *planes, t_min, closest)
+    finally:
+        intersect.DEBUG_COUNTERS, k1.GUARDS = False, False
+    return out, mod.LAST_COUNTERS
+
+
+def same_bits(a, b) -> bool:
+    """Two walks' outputs (tuples of planes, or occlusion masks) equal
+    bit for bit."""
+    import torch
+
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    as_int = lambda x: x.view(torch.int32) if x.is_floating_point() else x
+    return len(a) == len(b) and all(torch.equal(as_int(x), as_int(y))
+                                    for x, y in zip(a, b))
+
+
+def same_hits(k, p):
+    """Rays on which a walk's hits equal another's: the closest ids (and
+    instance ids; t may differ in its last bits, the kernel's triangle
+    test rounding otherwise), or the occlusion."""
+    if not isinstance(k, tuple):
+        return k == p
+    same = k[1] == p[1]
+    if len(k) == 5:
+        same &= k[2] == p[2]
+    return same
+
+
+def counts_equal(sm: Smoke, label: str, cnt: dict, plain: dict, names,
+                 same) -> None:
+    """A counting build's per-ray counts against visit_counts': on the
+    rays whose hits equal the plain walk's (`same`, at least 0.999 of
+    them), every count equal on all but at most 1 in 10,000 rays (a ray
+    whose walk met a triangle within rounding of an edge, which the
+    kernel's division-free test and Möller-Trumbore decide apart, may
+    reach the same hit by another path); the rays that differ are
+    printed."""
+    share = float(same.float().mean())
+    diff = sum((cnt[k].long() != plain[k]) for k in names).bool() & same
+    bad = {k: int((cnt[k].long()[same] != plain[k][same]).sum())
+           for k in names}
+    n_bad, cap = int(diff.sum()), -(-int(same.sum()) // 10000)
+    sm.check(share >= 0.999 and n_bad <= cap,
+             f"{label}: per-ray counts equal visit_counts on "
+             f"{int(same.sum()) - n_bad} of the {int(same.sum())} of "
+             f"{same.numel()} rays whose hits equal the plain walk's "
+             f"({share:.6f}; at most {cap} may differ); rays that differ, by "
+             f"count: {bad}; totals "
+             f"{', '.join(f'{k} {int(cnt[k].sum())}' for k in names)}")
+
+
+def k3_count_phase(sm: Smoke, caccel, sah_c, batches: dict,
+                   t_min: float) -> dict:
+    """Phase 19's K3 visits on the culled frame's batches, from K3's
+    counting build.  `batches`: key -> (planes, closest, the kernel's
+    hits, the plain walk's hits).  The closest batch's plain count
+    (visit_counts, the one kept) checks the build on every ray; the
+    any-hit build is checked on 4093 of its rays.  The SAH tree of the
+    same mask is counted by the build alone.  Returns each batch's
+    operations (K3_OPS_PER_NODE per node, K3_OPS_PER_TEST per triangle
+    test)."""
+    import torch
+
+    from hrt_tpu_torch.ops import traversal_skip as k3
+
+    k3_ops = {}
+    for key, (planes, closest, kern, plain_hits) in batches.items():
+        t0 = time.perf_counter()
+        out, cnt = counted(k3, caccel, planes, t_min, closest)
+        torch.cuda.synchronize()
+        k_s = time.perf_counter() - t0
+        sm.check(same_bits(out, kern), f"K3 {key[3:]}: the counting build's "
+                 "hits equal the normal build's bit for bit")
+        n = planes[0].numel()
+        sub = torch.arange(0, n, 1 if closest else max(1, n // 4093),
+                           device=planes[0].device)[:n if closest else 4093]
+        t0 = time.perf_counter()
+        plain = k3.visit_counts(caccel, *[p[sub] for p in planes], t_min,
+                                closest)
+        p_s = time.perf_counter() - t0
+        pick = lambda h: (tuple(x[sub] for x in h) if closest else h[sub])
+        counts_equal(sm, f"K3 {key[3:]} on {sub.numel()} rays",
+                     {k: cnt[k][sub] for k in k3.COUNTS}, plain, k3.COUNTS,
+                     same_hits(pick(out), pick(plain_hits)))
+        live = int((planes[6] >= 0).sum())
+        tot = {c: int(cnt[c].sum()) for c in k3.COUNTS}
+        k3_ops[key] = (tot["nodes"] * K3_OPS_PER_NODE
+                       + tot["tests"] * K3_OPS_PER_TEST)
+        # A warp steps through the union of its rays' nodes: its steps and
+        # leaf steps against its busiest ray's nodes and leaves.
+        n32 = n // 32 * 32
+        busiest = lambda k: cnt[k][:n32].view(-1, 32).amax(1)
+        busy = busiest("nodes") > 0
+        mean = lambda x: float(x[busy].float().mean())
+        print(f"  K3 {key[3:]} visits per live ray ({live} of {n} live; "
+              f"counting build {k_s:.2f} s, plain count of {sub.numel()} "
+              f"rays {p_s:.2f} s): nodes {tot['nodes'] / max(live, 1):.1f} "
+              f"(max {int(cnt['nodes'].max())}), leaves "
+              f"{tot['leaves'] / max(live, 1):.1f} (max "
+              f"{int(cnt['leaves'].max())}), triangle tests "
+              f"{tot['tests'] / max(live, 1):.1f}; a warp's steps "
+              f"{mean(cnt['warp_nodes'][:n // 32]):.1f} against its busiest "
+              f"ray's {mean(busiest('nodes')):.1f} nodes, leaf steps "
+              f"{mean(cnt['warp_leaves'][:n // 32]):.1f} against "
+              f"{mean(busiest('leaves')):.1f} leaves (mean over "
+              f"{int(busy.sum())} warps with a live ray); "
+              f"{k3_ops[key]:.4e} operations, bound "
+              f"{bound(0, k3_ops[key])[0]:.4f} ms", flush=True)
+        sah = {c: int(v.sum()) for c, v in counted(
+            k3, sah_c, planes, t_min, closest)[1].items()}
+        print(f"    the same rays over the SAH tree of the same mask "
+              f"(phase 15's K1 frame; K3's counting build): nodes "
+              f"{sah['nodes'] / max(live, 1):.1f}, leaves "
+              f"{sah['leaves'] / max(live, 1):.1f}, triangle tests "
+              f"{sah['tests'] / max(live, 1):.1f} per live ray", flush=True)
+    return k3_ops
+
+
+def packet_ratios(sm: Smoke, label: str, mod, cnt: dict, plain: dict,
+                  warp_names) -> None:
+    """A packet walk's counts (K1, K4 closest) against visit_counts' in
+    its order: no lane takes part in more items than its warp's packet
+    holds; printed, each count's lane sum over the plain walk's (the
+    packet overhead; "work": box and triangle tests) and the packet's
+    items per warp."""
+    n = plain[mod.COUNTS[0]].numel()
+    n32 = n // 32 * 32
+    over = {}
+    for k in sorted(set(mod.COUNTS) & set(warp_names)):
+        lanes = cnt[k][:n32].view(-1, 32).amax(1)
+        over[k] = int((lanes > cnt["warp_" + k][:n // 32]).sum())
+    sm.check(not any(over.values()), f"{label}: no lane counts more items "
+             f"than its warp's packet (warps over, by count: {over})")
+    ratios = {k: int(cnt[k].sum()) / max(int(plain[k].sum()), 1)
+              for k in mod.COUNTS}
+    work = lambda c: sum(int(c[k].sum()) for k in mod.COUNTS
+                         if "boxes" in k or k == "tests")
+    ratios["work"] = work(cnt) / max(work(plain), 1)
+    busy = cnt[mod.COUNTS[0]][:n32].view(-1, 32).amax(1) > 0
+    items = {k: float(cnt["warp_" + k][:n // 32][busy].float().mean())
+             for k in warp_names}
+    print(f"  {label}: packet overhead (lane sums over the plain walk's): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ratios.items())
+          + "; packet items per warp with a live ray: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in items.items()), flush=True)
+
+
+def corrupt_table(accel, how: str):
+    """The bench accel with the JAX package's guard-test corruptions
+    (tests/test_wide8.py): the root's base far out of range ("base") or
+    the first live leaf slot's meta past the pool ("leaf"); or its depth
+    understated ("depth")."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hrt_tpu_torch.ops import wide8
+
+    if how == "depth":
+        return dataclasses.replace(accel, w8_depth=0)
+    rec = accel.w8.cpu().numpy().copy()
+    if how == "base":
+        rec[0, 0, 7] = 1 << 14
+    else:
+        metas = rec[:, :, 6::8]
+        bminx = np.ascontiguousarray(rec[:, :, 0::8]).view(np.float32)
+        r_, s_, q_ = [int(a[0]) for a in np.nonzero((metas > 0)
+                                                    & (bminx < 1e30))]
+        rec[r_, s_, q_ * 8 + 6] = 1 << 16
+    w8 = torch.as_tensor(rec, device=accel.w8.device)
+    return dataclasses.replace(accel, w8=w8, w8_rec=wide8.node_records(w8))
+
+
+def guarded_cli(sm: Smoke, dev) -> dict:
+    """`python -m hrt_tpu_torch.render` with HRT_KERNEL_GUARDS=1 on the
+    bench scene at 512x384, 2 frames, in a process of its own: silent,
+    its PNGs equal to the unguarded command's (run in this process);
+    then in this process with the guards on, the counters set to 0 just
+    before: the guarded K1 launches, the same PNGs.  Returns the guarded
+    run's K1 launches."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from hrt_tpu_torch import cli
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    tmp = tempfile.TemporaryDirectory()
+    argv = ["--scene", "bench", "--sky", *_BENCH_ARGS, "--width", "512",
+            "--height", "384", "--frames", "2", "--device", str(dev)]
+    out = {k: os.path.join(tmp.name, f"{k}.png")
+           for k in ("plain", "process", "guarded")}
+    run_cli(argv + ["--out", out["plain"]])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hrt_tpu_torch.render", *argv, "--out",
+         out["process"]], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env={**os.environ, "HRT_KERNEL_GUARDS": "1"})
+    secs = time.perf_counter() - t0
+    k1.GUARDS = True
+    try:
+        _, counts, _, _, _ = run_cli(argv + ["--out", out["guarded"]])
+    finally:
+        k1.GUARDS = False
+    debug = dict(k1.DEBUG_LAUNCHES)
+
+    def pngs(k):
+        return [read_own_png(cli.frame_path(out[k], f, 2)) for f in range(2)]
+
+    ref = pngs("plain")
+    equal = {k: all(np.array_equal(a, b) for a, b in zip(pngs(k), ref))
+             for k in ("process", "guarded") if proc.returncode == 0
+             or k == "guarded"}
+    sm.check(proc.returncode == 0 and "guard violation" not in proc.stderr
+             and equal.get("process", False),
+             f"HRT_KERNEL_GUARDS=1 python -m hrt_tpu_torch.render (bench, "
+             f"512x384, 2 frames, {secs:.1f} s): exit {proc.returncode}, "
+             f"silent, PNGs equal the unguarded command's; "
+             f"{proc.stderr.strip()[-200:] if proc.returncode else ''}")
+    sm.check(debug == {"closest": 2, "any_hit": 2}
+             and counts == {k: {"k1_debug": 4, "k2": 2}.get(k, 0)
+                            for k in counts} and equal["guarded"],
+             f"the guarded command in this process: debug launches {debug}, "
+             f"others {counts}; PNGs equal the unguarded command's")
+    tmp.cleanup()
+    return {"k1_closest": debug["closest"], "k1_any_hit": debug["any_hit"]}
+
+
+def counted_steps(sm: Smoke, loops: dict) -> dict:
+    """One step of each loop (name -> (walk module, FrameLoop, camera))
+    with HRT_DEBUG_COUNTERS on, replaying the frame index of a normal
+    step at the same camera just before it, the counters set to 0 just
+    before: only the walk's counting builds launch (a closest and an any
+    hit a depth), LAST_COUNTERS is this step's, and the frame equals the
+    normal step's bit for bit.  Returns the counting builds' launches
+    by "<name>_closest" / "_any_hit"."""
+    import torch
+
+    from hrt_tpu_torch.ops import intersect
+
+    launches = {}
+    for name, (mod, loop, cam) in loops.items():
+        loop.step(cam)            # settles the culling at this camera
+        frame = loop.frame
+        want = loop.step(cam)
+        loop.frame = frame        # the same frame's seeds again
+        reset_all()
+        intersect.DEBUG_COUNTERS = True
+        try:
+            img = loop.step(cam)
+        finally:
+            intersect.DEBUG_COUNTERS = False
+        torch.cuda.synchronize()
+        cfg = loop.config
+        depth = cfg.max_depth if cfg.indirect else 1
+        got = launch_counts()
+        others = {k: v for k, v in got.items() if k not in (f"{name}_debug",
+                                                            "k2")}
+        n = cfg.width * cfg.height * cfg.spp
+        sm.check(dict(mod.DEBUG_LAUNCHES) == {"closest": depth,
+                                              "any_hit": depth}
+                 and not any(others.values())
+                 and mod.LAST_COUNTERS["tests"].numel() >= n
+                 and torch.equal(img, want),
+                 f"{name} FrameLoop.step with HRT_DEBUG_COUNTERS=1 "
+                 f"({cfg.width}x{cfg.height}, depth {depth}): counting "
+                 f"build launches {dict(mod.DEBUG_LAUNCHES)}, no other walk "
+                 f"({others}); the frame equals the normal step's bit for "
+                 "bit")
+        launches[f"{name}_closest"] = mod.DEBUG_LAUNCHES["closest"]
+        launches[f"{name}_any_hit"] = mod.DEBUG_LAUNCHES["any_hit"]
+    return launches
+
+
+def debug_phases(sm: Smoke, dev, cases: dict, loops: dict, times: dict,
+                 ops: dict) -> list:
+    """Phase 44: the walks' debug builds.  `cases`: "k1", "k3", "k4" ->
+    (table, 512x384 primary planes, shadow planes) of the bench, culled
+    and instanced frames; `loops`: "k3", "k4" -> (culled / instanced
+    FrameLoop, camera); `times`, `ops`: the normal kernels' times and
+    bound operations by kernel key.  Returns the kernels line's entries
+    of the debug builds."""
+    import torch
+
+    from hrt_tpu_torch.ops import traversal_skip as k3
+    from hrt_tpu_torch.ops import traversal_tlas8 as k4
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+
+    phase("phase 44: the walks' debug builds (HRT_KERNEL_GUARDS, "
+          "HRT_DEBUG_COUNTERS): K1 guarded on corrupt tables, the debug "
+          "builds of K1, K3 and K4 against their normal builds, counts, "
+          "times in turns, the guarded render command, counted steps")
+    t_min = 1e-3
+    accel, prim, shadow = cases["k1"]
+    normal = k1.trace_kernel(accel, *prim, t_min, True)
+    for how, bit in (("base", k1.NODE_ID), ("leaf", k1.LEAF_START),
+                     ("depth", k1.STACK_OVERFLOW)):
+        table = corrupt_table(accel, how)
+        masks, msg = [], ""
+        for planes, closest in ((prim, True), (shadow, False)):
+            k1.GUARDS = True
+            try:
+                k1.trace_kernel(table, *planes, t_min, closest)
+            finally:
+                k1.GUARDS = False
+            try:
+                k1.check_pending_guards()
+                masks.append(0)
+            except RuntimeError as e:
+                msg = str(e)
+                masks.append(int(msg.split("mask ")[1].split(":")[0], 16))
+        sm.check(bool((masks[0] | masks[1]) & bit),
+                 f"K1 guarded on a corrupt table ({how}): closest / any hit "
+                 f"raise with mask {masks[0]:#x} / {masks[1]:#x} (bit {bit}); "
+                 f"{msg[:110]}")
+    again = k1.trace_kernel(accel, *prim, t_min, True)
+    torch.cuda.synchronize()
+    sm.check(same_bits(again, normal), "after the corrupt launches a clean "
+             "K1 launch in the same process runs and equals the first bit "
+             "for bit (no sticky CUDA error, no other warp's stack written)")
+
+    entries = []
+    for name, mod in (("k1", k1), ("k3", k3), ("k4", k4)):
+        table, prim, shadow = cases[name]
+        guards = mod is k1
+        for planes, closest in ((prim, True), (shadow, False)):
+            key = f"{name}_{'closest' if closest else 'any_hit'}"
+            label = f"{name.upper()} {'closest' if closest else 'any-hit'}"
+            ref = mod.trace_kernel(table, *planes, t_min, closest)
+            out, cnt = counted(mod, table, planes, t_min, closest, guards)
+            try:
+                k1.check_pending_guards()
+                quiet = True
+            except RuntimeError:
+                quiet = False
+            what = "guards, counters" if guards else "counters"
+            sm.check(same_bits(out, ref) and quiet,
+                     f"{label}: the debug build ({what}) equals the normal "
+                     f"build bit for bit on "
+                     f"{planes[0].numel()} rays; guards silent")
+            if mod is k3:      # counted against visit_counts in phase 19
+                plain_hits = mod.trace_plain(table, *planes, t_min, closest)
+            else:
+                plain = mod.visit_counts(table, *planes, t_min, closest,
+                                         nearest=closest)
+                plain_hits = plain.pop("hits")
+                if mod is k4 and not closest:
+                    counts_equal(sm, label, cnt, plain, mod.COUNTS,
+                                 same_hits(out, plain_hits))
+                else:
+                    packet_ratios(
+                        sm, f"{label} against the plain walk "
+                        f"{'nearest first' if closest else 'in slot order'}",
+                        mod, cnt, plain, mod.WARP_COUNTS[closest]
+                        if mod is k4 else mod.WARP_COUNTS)
+            err = (check_closest(sm, f"{label} debug build vs plain", out,
+                                 plain_hits) if closest else
+                   check_occlusion(sm, f"{label} debug build vs plain", out,
+                                   plain_hits))
+            b, c = in_turns(
+                lambda: mod.trace_kernel(table, *planes, t_min, closest),
+                lambda: counted(mod, table, planes, t_min, closest, guards),
+                calls=10)
+            k1._pending_guards.clear()
+            print(f"  {label} in turns (normal, debug, debug, normal; 10 "
+                  f"calls per sample): {b[0]:.4f}, {c[0]:.4f}, {c[1]:.4f}, "
+                  f"{b[1]:.4f} ms; debug / normal {sum(c) / sum(b):.4f}",
+                  flush=True)
+            # The normal walk's bytes and operations, and the counts (and
+            # guard words) it writes besides.
+            tab = {"k1": lambda: nbytes(table.w8_rec, table.tris),
+                   "k3": lambda: nbytes(table.skip_rec, table.tris),
+                   "k4": lambda: nbytes(table.w8_rec, table.tris,
+                                        table.obj_from_world,
+                                        table.w8_root)}[name]()
+            extra = 4 * sum(v.numel() for v in cnt.values())
+            if guards:
+                extra += 4 * -(-planes[0].numel() // k1.GUARD_BLOCK)
+            hits = (20 if mod is k4 else 16) if closest else 1
+            ms, by = bound(tab + walk_bytes(planes, hits) + extra, ops[key])
+            kernel, source, replaces = {
+                "k1": ("bvh8_trace", K1_SOURCE, K1_REPLACES),
+                "k3": ("skip_trace", K3_SOURCE, K3_REPLACES),
+                "k4": ("tlas8_trace", K4_SOURCE, K4_REPLACES)}[name]
+            entries.append({
+                "name": f"{kernel}_{key[3:]} (debug build: "
+                        f"{'guards, counters' if guards else 'counters'})",
+                "route": "cuda", "source": source, "replaces": replaces,
+                "key": key, "max_abs_err": err,
+                "ms": statistics.mean(c), "normal_ms": statistics.mean(b),
+                "plain_ms": times[key + "_plain"], "bound_ms": ms,
+                "bound_by": by, "library_ms": None})
+    launches = guarded_cli(sm, dev)
+    launches.update(counted_steps(sm, {
+        "k3": (k3, *loops["k3"]), "k4": (k4, *loops["k4"])}))
+    for e in entries:
+        e["launches"] = launches[e.pop("key")]
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -4100,36 +4541,9 @@ def main() -> int:
     rec_ms = time_ms(lambda: k3.skip_records(caccel.nodes, caccel.m_real))
     print(f"  K3 node records from the table (skip_records, at each "
           f"rebuild): {rec_ms:.4f} ms", flush=True)
-    k3_ops = {}
-    for key, planes, closest in (("k3_closest", c_prim, True),
-                                 ("k3_any_hit", c_shadow, False)):
-        cnt = k3.visit_counts(caccel, *planes, g_cfg.t_min, closest)
-        live = int((planes[6] >= 0).sum())
-        tot = {c: int(v.sum()) for c, v in cnt.items()}
-        k3_ops[key] = (tot["nodes"] * K3_OPS_PER_NODE
-                       + tot["tests"] * K3_OPS_PER_TEST)
-        # A warp steps through the union of its rays' leaves: at least
-        # as many steps as its busiest ray.
-        lw = cnt["leaves"][:cnt["leaves"].numel() // 32 * 32].view(-1, 32)
-        lw = lw[cnt["nodes"][:lw.numel()].view(-1, 32).amax(1) > 0]
-        print(f"  K3 {key[3:]} visits per live ray ({live} of "
-              f"{planes[0].numel()} live): nodes "
-              f"{tot['nodes'] / max(live, 1):.1f} (max "
-              f"{int(cnt['nodes'].max())}), leaves "
-              f"{tot['leaves'] / max(live, 1):.1f} (max "
-              f"{int(cnt['leaves'].max())}), triangle tests "
-              f"{tot['tests'] / max(live, 1):.1f}; leaves of a warp's "
-              f"busiest ray {float(lw.amax(1).float().mean()):.1f} (mean "
-              f"over {lw.shape[0]} warps with a live ray); "
-              f"{k3_ops[key]:.4e} operations, bound "
-              f"{bound(0, k3_ops[key])[0]:.4f} ms", flush=True)
-        sah = {c: int(v.sum()) for c, v in k3.visit_counts(
-            sah_c, *planes, g_cfg.t_min, closest).items()}
-        print(f"    the same rays over the SAH tree of the same mask "
-              f"(phase 15's K1 frame): nodes "
-              f"{sah['nodes'] / max(live, 1):.1f}, leaves "
-              f"{sah['leaves'] / max(live, 1):.1f}, triangle tests "
-              f"{sah['tests'] / max(live, 1):.1f} per live ray", flush=True)
+    k3_ops = k3_count_phase(sm, caccel, sah_c, {
+        "k3_closest": (c_prim, True, kc3, pc3),
+        "k3_any_hit": (c_shadow, False, ka3, pa3)}, g_cfg.t_min)
     if not has_baseline(baseline, "hrt_skip_trace"):
         print("  K3 baseline: none (chip_scratch/baseline/ holds no copy)",
               flush=True)
@@ -4232,6 +4646,12 @@ def main() -> int:
     del hist4k
     multi_gpu_phases(sm, dev, p_scene, p_accel)
     gloo_phase(sm)
+    debug_entries = debug_phases(
+        sm, dev, {"k1": (bench["accel"], bench["prim"], bench["shadow"]),
+                  "k3": (caccel, c_prim, c_shadow),
+                  "k4": (tl, g_prim, g_shadow)},
+        {"k3": (cloop, orbit_cam(steps - 1)), "k4": (loop, cam)}, times,
+        {**bench["ops"], **k3_ops, **k4_ops})
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,
@@ -4328,6 +4748,11 @@ def main() -> int:
         # batches' K1 closest, K1 any hit over the 2-sample light-major
         # batch and K2 with L = 2; launches over phase 31's 32 steps.
         *m_entries,
+        # The walks' debug builds (phase 44): launches over the guarded
+        # render command (K1) and a counted FrameLoop step (K3, K4); ms in
+        # turns with the normal build (normal_ms); max_abs_err against
+        # the plain walk; bound: the normal walk's plus the counts written.
+        *debug_entries,
     ]
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} check(s) failed: "

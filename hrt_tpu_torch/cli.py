@@ -12,6 +12,9 @@ versions).  `--upscaler-ckpt` reads an `.npz` of the upscaler's
 flax-keyed parameters (utils/checkpoint.py), `--checkpoint` resumes and
 saves the frame loop's state (FrameLoop.load_state / save_state, the
 JAX package's npz keys), `--debug-nans` raises on a non-finite frame.
+With `HRT_KERNEL_GUARDS=1` the BVH8 walks run guarded and the command
+raises after a frame whose walks recorded an index violation
+(ops/traversal_wide8.check_pending_guards), as the JAX command does.
 
 `--devices N` > 1 renders each frame in N row bands, one process per
 GPU, launched by torchrun:
@@ -33,6 +36,7 @@ import torch
 
 from .config import CONFIGS, RenderConfig, resolve_device
 from .models.camera import Camera, orbit_camera
+from .ops import traversal_wide8
 from .utils.image import tonemap, write_png
 from .utils.logging import FrameStats, build_step, logger, rays_per_frame
 
@@ -221,6 +225,8 @@ def _run(args, mesh, lead: bool):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
+        if traversal_wide8.GUARDS:  # HRT_KERNEL_GUARDS=1
+            traversal_wide8.check_pending_guards()
         if args.debug_nans and not bool(torch.isfinite(img).all()):
             raise FloatingPointError(f"frame {f}: non-finite values")
         stats.add(rays_per_frame(cfg, num_lights), dt)

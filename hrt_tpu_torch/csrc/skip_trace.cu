@@ -47,6 +47,13 @@
 // A warp whose lanes walk apart instead (each lane at its own node) has
 // divergent loads, and its steps mix node tests with leaf loops.
 //
+// The counting build (`COUNT`, launched when the wrapper is given a count
+// buffer: HRT_DEBUG_COUNTERS) is the same walk writing, per ray, the
+// nodes its lane visited, the leaves it entered and its triangle tests
+// (up to the first hit in any-hit mode), which are the per-ray walk's
+// (traversal_skip.visit_counts), and per warp its steps and the steps
+// that ran a leaf.
+//
 // Slab test: walk_common.cuh (shared with K1, K4, K5); the record read
 // and the triangle test: skip_common.cuh (K3's own).
 #include <cuda_runtime.h>
@@ -61,7 +68,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <bool CLOSEST>
+template <bool CLOSEST, bool COUNT>
 __global__ void __launch_bounds__(kThreads, CLOSEST ? 1 : 12)
 skip_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                   const float* __restrict__ oz, const float* __restrict__ dx,
@@ -72,7 +79,8 @@ skip_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
                   int leaf_size, float t_min, float* __restrict__ t_out,
                   int* __restrict__ tri_out, float* __restrict__ u_out,
                   float* __restrict__ v_out,
-                  unsigned char* __restrict__ occ_out) {
+                  unsigned char* __restrict__ occ_out,
+                  int* __restrict__ cnt_out) {
   __shared__ float4 s_tris[kWarps][32 * 3];
   float4* st = s_tris[threadIdx.x / 32];
   const int lane = threadIdx.x & 31;
@@ -85,6 +93,9 @@ skip_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
   int best = -1;
   float bu = 0.0f, bv = 0.0f;
   int cur = (i < n && t >= 0.0f) ? 0 : m_real;  // t_max < 0: dead
+  // The counting build's counts: its lane's, and the warp's steps.
+  [[maybe_unused]] int c_nodes = 0, c_leaves = 0, c_tests = 0;
+  [[maybe_unused]] int w_steps = 0, w_leaves = 0;
   while (true) {
     const int w = __reduce_min_sync(kFull, cur);
     if (w >= m_real) break;
@@ -92,8 +103,14 @@ skip_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
     int code, skip;
     const bool hit =
         hrt::skip_rec_test(rec, w, r, t_min, t, code, skip) && here;
+    if constexpr (COUNT) {
+      ++w_steps;
+      c_nodes += here;
+      c_leaves += hit && code != 0;
+    }
     if (here) cur = (hit && code == 0) ? w + 1 : skip;
     if (code == 0 || !__any_sync(kFull, hit)) continue;
+    if constexpr (COUNT) ++w_leaves;
     // A leaf that some lane hits: its triangles, 32 at a time.
     const int start = code - 1;
     bool testing = hit;
@@ -111,6 +128,7 @@ skip_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
 #pragma unroll (CLOSEST ? 4 : 1)
         for (int k = 0; k < kn; ++k) {
           float th, uh, vh;
+          if constexpr (COUNT) ++c_tests;
           if (hrt::moller_scaled(st[3 * k], st[3 * k + 1], st[3 * k + 2], r,
                                  t_min, t, th, uh, vh)) {
             best = start + k0 + k;
@@ -126,6 +144,20 @@ skip_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
         }
       }
       if (!CLOSEST && !__any_sync(kFull, testing)) break;
+    }
+  }
+  if constexpr (COUNT) {
+    // Rows: nodes, leaves, tests per ray (n each), then steps and leaf
+    // steps per warp.
+    const int nw = (n + 31) / 32, wi = i / 32;
+    if (i < n) {
+      cnt_out[i] = c_nodes;
+      cnt_out[n + i] = c_leaves;
+      cnt_out[2 * n + i] = c_tests;
+    }
+    if (lane == 0 && wi < nw) {
+      cnt_out[3 * n + wi] = w_steps;
+      cnt_out[3 * n + nw + wi] = w_leaves;
     }
   }
   if (i >= n) return;
@@ -144,8 +176,9 @@ skip_trace_kernel(const float* __restrict__ ox, const float* __restrict__ oy,
 // Closest mode writes t (t_max on a miss), tri (leaf-pool id, -1 on a
 // miss), u and v; any-hit mode writes occ (1 where blocked).  The unused
 // outputs may be null.  `rec` is the (m_real, 8) int32 node record table
-// (16-byte aligned), `tris` the (T, 12) float32 pool.  Returns
-// cudaGetLastError() after the launch.
+// (16-byte aligned), `tris` the (T, 12) float32 pool.  With `cnt_out`
+// (int32, 3 n + 2 ceil(n / 32)) the counting build runs and writes its
+// counts there.  Returns cudaGetLastError() after the launch.
 extern "C" int hrt_skip_trace(const float* ox, const float* oy,
                               const float* oz, const float* dx,
                               const float* dy, const float* dz,
@@ -153,7 +186,8 @@ extern "C" int hrt_skip_trace(const float* ox, const float* oy,
                               const float* tris, int m_real, int leaf_size,
                               float t_min, int closest, float* t_out,
                               int* tri_out, float* u_out, float* v_out,
-                              unsigned char* occ_out, void* stream) {
+                              unsigned char* occ_out, int* cnt_out,
+                              void* stream) {
   if (n <= 0) return 0;
   if (m_real < 1 || leaf_size < 1) return cudaErrorInvalidValue;
   if (reinterpret_cast<size_t>(rec) % 16 != 0 ||
@@ -163,14 +197,13 @@ extern "C" int hrt_skip_trace(const float* ox, const float* oy,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int4* r4 = reinterpret_cast<const int4*>(rec);
   const float4* t4 = reinterpret_cast<const float4*>(tris);
-  if (closest) {
-    skip_trace_kernel<true><<<blocks, kThreads, 0, s>>>(
-        ox, oy, oz, dx, dy, dz, tmax, n, r4, t4, m_real, leaf_size, t_min,
-        t_out, tri_out, u_out, v_out, occ_out);
-  } else {
-    skip_trace_kernel<false><<<blocks, kThreads, 0, s>>>(
-        ox, oy, oz, dx, dy, dz, tmax, n, r4, t4, m_real, leaf_size, t_min,
-        t_out, tri_out, u_out, v_out, occ_out);
-  }
+  const bool count = cnt_out != nullptr;
+  auto* kernel = closest ? (count ? skip_trace_kernel<true, true>
+                                  : skip_trace_kernel<true, false>)
+                         : (count ? skip_trace_kernel<false, true>
+                                  : skip_trace_kernel<false, false>);
+  kernel<<<blocks, kThreads, 0, s>>>(ox, oy, oz, dx, dy, dz, tmax, n, r4, t4,
+                                     m_real, leaf_size, t_min, t_out, tri_out,
+                                     u_out, v_out, occ_out, cnt_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,16 @@
 // it, the others step on, and once every live lane is parked or done
 // they all test their leaves in one pass.  The first hit retires a ray.
 //
+// The counting builds (`COUNT`, launched when the wrapper is given a
+// count buffer: HRT_DEBUG_COUNTERS) are the same walks writing, per ray,
+// the work its lane took part in under traversal_tlas8.COUNTS (TLAS and
+// BLAS node visits and the child boxes they test, instances entered,
+// leaves entered, triangle tests), and per warp the closest packet's
+// items (TLAS nodes, instances, BLAS nodes, leaves, restores) or the any
+// hit's loop steps and leaf passes.  The any-hit walk's per-ray counts
+// are the plain walk's (traversal_tlas8.visit_counts in the table's
+// order).
+//
 // A ray with t_max < 0 is dead from the start.  The stack sizes come
 // from the host's bound (ops/tlas.py `stack_bound`, at most 128),
 // templated 64 / 128.  Slab test and instance transform: walk_common.cuh;
@@ -74,8 +84,29 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 // An item or stack entry's target: payload << 2 | kind.
 constexpr int kNode = 0, kLeaf = 1, kInst = 2, kMark = 3;
+// The counting builds' per-ray rows (traversal_tlas8.COUNTS).
+enum { kTlasNodes, kTlasBoxes, kInsts, kBlasNodes, kBlasBoxes, kLeaves,
+       kTests, kRayCounts };
 
-template <int STACK>
+// A counting build's rows: kRayCounts per ray (n each), then `nwc` per
+// warp.
+template <int NWC>
+__device__ __forceinline__ void write_counts(int* __restrict__ cnt_out,
+                                             int n, int i, int lane,
+                                             const int (&c)[kRayCounts],
+                                             const int (&w)[NWC]) {
+  const int nw = (n + 31) / 32, wi = i / 32;
+  if (i < n) {
+#pragma unroll
+    for (int k = 0; k < kRayCounts; ++k) cnt_out[k * n + i] = c[k];
+  }
+  if (lane == 0 && wi < nw) {
+#pragma unroll
+    for (int k = 0; k < NWC; ++k) cnt_out[kRayCounts * n + k * nw + wi] = w[k];
+  }
+}
+
+template <int STACK, bool COUNT>
 __global__ void __launch_bounds__(kThreads)
 tlas8_closest_kernel(const float* __restrict__ ox,
                      const float* __restrict__ oy,
@@ -90,7 +121,8 @@ tlas8_closest_kernel(const float* __restrict__ ox,
                      const int* __restrict__ roots, int tlas_nw,
                      int leaf_size, float t_min, float* __restrict__ t_out,
                      int* __restrict__ tri_out, int* __restrict__ inst_out,
-                     float* __restrict__ u_out, float* __restrict__ v_out) {
+                     float* __restrict__ u_out, float* __restrict__ v_out,
+                     int* __restrict__ cnt_out) {
   // A stack entry: the child's box words 0-5 and (target, lane mask).
   __shared__ int4 s_stack[kWarps][STACK][2];
   __shared__ int4 s_node[kWarps][16];
@@ -115,13 +147,21 @@ tlas8_closest_kernel(const float* __restrict__ ox,
   int kind = kNode, val = 0;
   unsigned mask = __ballot_sync(kFull, i < n && t >= 0.0f);
   int sp = 0, cur_inst = -1;
+  // The counting build's counts: its lane's, and the packet's items
+  // (TLAS nodes, instances, BLAS nodes, leaves, restores).
+  [[maybe_unused]] int cr[kRayCounts] = {}, cw[5] = {};
   while (true) {
     const bool mine = (mask >> lane) & 1u;
     bool pop = true;
     if (kind == kMark) {  // leave the instance
+      if constexpr (COUNT) ++cw[4];
       if (mine) hrt::set_ray(r, wox, woy, woz, wdx, wdy, wdz);
       cur_inst = -1;
     } else if (mask && kind == kInst) {  // enter instance val
+      if constexpr (COUNT) {
+        ++cw[1];
+        cr[kInsts] += mine;
+      }
       if (mine) hrt::enter_instance(r, tf, val, wox, woy, woz, wdx, wdy, wdz);
       cur_inst = val;
       if (lane == 0)
@@ -132,6 +172,10 @@ tlas8_closest_kernel(const float* __restrict__ ox,
       val = __ldg(roots + cur_inst);
       pop = false;
     } else if (mask && kind == kLeaf) {
+      if constexpr (COUNT) {
+        ++cw[3];
+        cr[kLeaves] += mine;
+      }
       for (int k0 = 0; k0 < leaf_size; k0 += 32) {
         const int kn = min(32, leaf_size - k0);
         hrt::stage_tris(st, tris, val + k0, kn, lane);
@@ -139,6 +183,7 @@ tlas8_closest_kernel(const float* __restrict__ ox,
 #pragma unroll 4
           for (int k = 0; k < kn; ++k) {
             float th, uh, vh;
+            if constexpr (COUNT) ++cr[kTests];
             if (hrt::moller_scaled(st[3 * k], st[3 * k + 1], st[3 * k + 2], r,
                                    t_min, t, th, uh, vh)) {
               best = val + k0 + k;
@@ -155,6 +200,12 @@ tlas8_closest_kernel(const float* __restrict__ ox,
       if (lane < 16) sn[lane] = __ldg(rec + 16 * val + lane);
       __syncwarp();
       const bool in_tlas = val < tlas_nw;
+      if constexpr (COUNT) {
+        cw[0] += in_tlas;
+        cw[2] += !in_tlas;
+        cr[kTlasNodes] += mine && in_tlas;
+        cr[kBlasNodes] += mine && !in_tlas;
+      }
       const int first_child = sn[1].w;  // slot 0, word 7
       unsigned m[8], key[8];
       int cnt = 0;
@@ -173,6 +224,10 @@ tlas8_closest_kernel(const float* __restrict__ ox,
         key[c] = __reduce_min_sync(kFull,
                                    hit ? __float_as_uint(tn) : 0xffffffffu);
         cnt += m[c] != 0u;
+        if constexpr (COUNT) {
+          cr[kTlasBoxes] += b.z != 0 && mine && in_tlas;
+          cr[kBlasBoxes] += b.z != 0 && mine && !in_tlas;
+        }
       }
       if (cnt) {
 #pragma unroll
@@ -218,6 +273,7 @@ tlas8_closest_kernel(const float* __restrict__ ox,
                                      r, t_min, t, tn));
     }
   }
+  if constexpr (COUNT) write_counts(cnt_out, n, i, lane, cr, cw);
   if (i >= n) return;
   t_out[i] = t;
   tri_out[i] = best;
@@ -226,7 +282,7 @@ tlas8_closest_kernel(const float* __restrict__ ox,
   v_out[i] = bv;
 }
 
-template <int STACK>
+template <int STACK, bool COUNT>
 __global__ void __launch_bounds__(kThreads)
 tlas8_any_hit_kernel(const float* __restrict__ ox,
                      const float* __restrict__ oy,
@@ -240,8 +296,10 @@ tlas8_any_hit_kernel(const float* __restrict__ ox,
                      const float4* __restrict__ tf,
                      const int* __restrict__ roots, int tlas_nw,
                      int leaf_size, float t_min,
-                     unsigned char* __restrict__ occ_out) {
+                     unsigned char* __restrict__ occ_out,
+                     int* __restrict__ cnt_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  [[maybe_unused]] const int lane = threadIdx.x & 31;
   const int jr = min(i, n - 1);
   const float wox = ox[jr], woy = oy[jr], woz = oz[jr];
   const float wdx = dx[jr], wdy = dy[jr], wdz = dz[jr];
@@ -256,7 +314,11 @@ tlas8_any_hit_kernel(const float* __restrict__ ox,
   int cur_inst = -1;   // instance whose object space r is in, or -1
   int inst_base = 0;   // stack depth at which it was entered
   int parked = -1;     // pool slot of a hit leaf not tested yet
+  // The counting build's counts: its lane's, and the warp's steps and
+  // leaf passes.
+  [[maybe_unused]] int cr[kRayCounts] = {}, cw[2] = {};
   while (__any_sync(kFull, !done)) {
+    if constexpr (COUNT) ++cw[0];
     if (!done && parked < 0) {  // one stack entry
       if (sp == 0) {
         done = true;
@@ -270,6 +332,7 @@ tlas8_any_hit_kernel(const float* __restrict__ ox,
           parked = -e - 1;
         } else if (e < 0) {  // enter instance -(e + 1)
           cur_inst = -e - 1;
+          if constexpr (COUNT) ++cr[kInsts];
           hrt::enter_instance(r, tf, cur_inst, wox, woy, woz, wdx, wdy, wdz);
           inst_base = sp;
           stack[sp++] = (__ldg(roots + cur_inst) << 8) | 1;
@@ -278,12 +341,22 @@ tlas8_any_hit_kernel(const float* __restrict__ ox,
           const int base_e = e >> 8;
           const int low = mask & -mask;
           if (mask ^ low) stack[sp++] = (base_e << 8) | (mask ^ low);
-          const int4* node = rec + 16 * (base_e + __ffs(low) - 1);
+          const int node_id = base_e + __ffs(low) - 1;
+          const int4* node = rec + 16 * node_id;
           const int first_child = __ldg(node + 1).w;  // slot 0, word 7
           int int_mask = 0, leaf_mask = 0;
+          [[maybe_unused]] const bool in_tlas = node_id < tlas_nw;
+          if constexpr (COUNT) {
+            cr[kTlasNodes] += in_tlas;
+            cr[kBlasNodes] += !in_tlas;
+          }
           for (int c = 0; c < 8; ++c) {
             const int4 a = __ldg(node + 2 * c), b = __ldg(node + 2 * c + 1);
             if (b.z == 0) break;  // empties are last
+            if constexpr (COUNT) {
+              cr[kTlasBoxes] += in_tlas;
+              cr[kBlasBoxes] += !in_tlas;
+            }
             if (!hrt::slab_hit(__int_as_float(a.x), __int_as_float(a.y),
                                __int_as_float(a.z), __int_as_float(a.w),
                                __int_as_float(b.x), __int_as_float(b.y), r,
@@ -306,10 +379,14 @@ tlas8_any_hit_kernel(const float* __restrict__ ox,
       }
     }
     // Every live lane parked or done: the parked lanes test their leaves.
-    if (!__any_sync(kFull, !done && parked < 0) && parked >= 0) {
+    const bool pass = !__any_sync(kFull, !done && parked < 0);
+    if constexpr (COUNT) cw[1] += __any_sync(kFull, pass && parked >= 0);
+    if (pass && parked >= 0) {
       const float4* tp = tris + 3 * static_cast<size_t>(parked);
+      if constexpr (COUNT) ++cr[kLeaves];
       for (int k = 0; k < leaf_size; ++k) {
         float th, uh, vh;
+        if constexpr (COUNT) ++cr[kTests];
         if (hrt::moller_scaled(__ldg(tp + 3 * k), __ldg(tp + 3 * k + 1),
                                __ldg(tp + 3 * k + 2), r, t_min, t, th, uh,
                                vh)) {
@@ -320,25 +397,31 @@ tlas8_any_hit_kernel(const float* __restrict__ ox,
       parked = -1;
     }
   }
+  if constexpr (COUNT) write_counts(cnt_out, n, i, lane, cr, cw);
   if (i < n) occ_out[i] = blocked ? 1 : 0;
 }
 
 template <int STACK>
-void launch(bool closest, int blocks, cudaStream_t s, const float* ox,
-            const float* oy, const float* oz, const float* dx,
-            const float* dy, const float* dz, const float* tmax, int n,
-            const int4* rec, const float4* tris, const float4* tf,
-            const int* roots, int tlas_nw, int leaf_size, float t_min,
-            float* t_out, int* tri_out, int* inst_out, float* u_out,
-            float* v_out, unsigned char* occ_out) {
+void launch(bool closest, bool count, int blocks, cudaStream_t s,
+            const float* ox, const float* oy, const float* oz,
+            const float* dx, const float* dy, const float* dz,
+            const float* tmax, int n, const int4* rec, const float4* tris,
+            const float4* tf, const int* roots, int tlas_nw, int leaf_size,
+            float t_min, float* t_out, int* tri_out, int* inst_out,
+            float* u_out, float* v_out, unsigned char* occ_out,
+            int* cnt_out) {
   if (closest) {
-    tlas8_closest_kernel<STACK><<<blocks, kThreads, 0, s>>>(
+    auto* kernel = count ? tlas8_closest_kernel<STACK, true>
+                         : tlas8_closest_kernel<STACK, false>;
+    kernel<<<blocks, kThreads, 0, s>>>(
         ox, oy, oz, dx, dy, dz, tmax, n, rec, tris, tf, roots, tlas_nw,
-        leaf_size, t_min, t_out, tri_out, inst_out, u_out, v_out);
+        leaf_size, t_min, t_out, tri_out, inst_out, u_out, v_out, cnt_out);
   } else {
-    tlas8_any_hit_kernel<STACK><<<blocks, kThreads, 0, s>>>(
-        ox, oy, oz, dx, dy, dz, tmax, n, rec, tris, tf, roots, tlas_nw,
-        leaf_size, t_min, occ_out);
+    auto* kernel = count ? tlas8_any_hit_kernel<STACK, true>
+                         : tlas8_any_hit_kernel<STACK, false>;
+    kernel<<<blocks, kThreads, 0, s>>>(ox, oy, oz, dx, dy, dz, tmax, n, rec,
+                                       tris, tf, roots, tlas_nw, leaf_size,
+                                       t_min, occ_out, cnt_out);
   }
 }
 
@@ -350,8 +433,9 @@ void launch(bool closest, int blocks, cudaStream_t s, const float* ox,
 // the unified table as (nodes, 64) int32 node records (node q's 8 child
 // records of 8 words at 64 q; 16-byte aligned), `tf` the (I, 12) float32
 // obj_from_world rows, `roots` the (I,) BLAS root ids, `stack_size` the
-// host's bound (at most 128).  Returns cudaGetLastError() after the
-// launch.
+// host's bound (at most 128).  With `cnt_out` (int32, 7 n + 5 ceil(n /
+// 32) closest, 7 n + 2 ceil(n / 32) any hit) the counting build runs and
+// writes its counts there.  Returns cudaGetLastError() after the launch.
 extern "C" int hrt_tlas8_trace(const float* ox, const float* oy,
                                const float* oz, const float* dx,
                                const float* dy, const float* dz,
@@ -361,7 +445,8 @@ extern "C" int hrt_tlas8_trace(const float* ox, const float* oy,
                                float t_min, int stack_size, int closest,
                                float* t_out, int* tri_out, int* inst_out,
                                float* u_out, float* v_out,
-                               unsigned char* occ_out, void* stream) {
+                               unsigned char* occ_out, int* cnt_out,
+                               void* stream) {
   if (n <= 0) return 0;
   if (stack_size < 1 || stack_size > 128 || leaf_size < 1)
     return cudaErrorInvalidValue;
@@ -374,14 +459,15 @@ extern "C" int hrt_tlas8_trace(const float* ox, const float* oy,
   const int4* r4 = reinterpret_cast<const int4*>(records);
   const float4* t4 = reinterpret_cast<const float4*>(tris);
   const float4* tf4 = reinterpret_cast<const float4*>(tf);
+  const bool count = cnt_out != nullptr;
   if (stack_size <= 64) {
-    launch<64>(closest != 0, blocks, s, ox, oy, oz, dx, dy, dz, tmax, n, r4,
-               t4, tf4, roots, tlas_nw, leaf_size, t_min, t_out, tri_out,
-               inst_out, u_out, v_out, occ_out);
+    launch<64>(closest != 0, count, blocks, s, ox, oy, oz, dx, dy, dz, tmax,
+               n, r4, t4, tf4, roots, tlas_nw, leaf_size, t_min, t_out,
+               tri_out, inst_out, u_out, v_out, occ_out, cnt_out);
   } else {
-    launch<128>(closest != 0, blocks, s, ox, oy, oz, dx, dy, dz, tmax, n, r4,
-                t4, tf4, roots, tlas_nw, leaf_size, t_min, t_out, tri_out,
-                inst_out, u_out, v_out, occ_out);
+    launch<128>(closest != 0, count, blocks, s, ox, oy, oz, dx, dy, dz, tmax,
+                n, r4, t4, tf4, roots, tlas_nw, leaf_size, t_min, t_out,
+                tri_out, inst_out, u_out, v_out, occ_out, cnt_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

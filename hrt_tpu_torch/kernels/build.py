@@ -130,14 +130,15 @@ def load() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     cdll.hrt_bvh8_trace.restype = i
     cdll.hrt_bvh8_trace.argtypes = [p] * 7 + [i, p, p, i, ctypes.c_float,
-                                              i, i] + [p] * 5 + [p]
+                                              i, i] + [p] * 5 + [i, i, p, p] \
+        + [p]
     cdll.hrt_tlas8_trace.restype = i
     cdll.hrt_tlas8_trace.argtypes = [p] * 7 + [i, p, p, p, p, i, i,
                                                ctypes.c_float, i, i] \
-        + [p] * 6 + [p]
+        + [p] * 7 + [p]
     cdll.hrt_skip_trace.restype = i
     cdll.hrt_skip_trace.argtypes = [p] * 7 + [i, p, p, i, i, ctypes.c_float,
-                                              i] + [p] * 5 + [p]
+                                              i] + [p] * 6 + [p]
     cdll.hrt_tlas_skip_trace.restype = i
     cdll.hrt_tlas_skip_trace.argtypes = [p] * 7 + [i, p, p, p, p, i,
                                                    ctypes.c_float, i, i] \

@@ -1,13 +1,50 @@
 """Ray-triangle intersection and the brute-force tracers (the oracle
-the traversal tests check against), as hrt_tpu/ops/intersect.py.
-Arrays keep the JAX package's (..., 3) layout."""
+the traversal tests check against), as hrt_tpu/ops/intersect.py, and
+the pieces the plain walks share.  Arrays keep the JAX package's
+(..., 3) layout."""
 from __future__ import annotations
+
+import os
 
 import torch
 
 INF = 1e32      # ref: shaders/constants.slang (INFINITE)
 TMIN = 1e-3
 _DET_EPS = 1e-12
+
+# HRT_DEBUG_COUNTERS=1, the JAX package's switch: the walks that count in
+# the JAX package (K1 traversal_wide8, K3 traversal_skip, K4
+# traversal_tlas8) launch their counting builds, or run their plain
+# counting walks, and keep the last walk's counts as their module's
+# LAST_COUNTERS.  Read when imported; the walks read this attribute at
+# each call, so tests may set it.
+DEBUG_COUNTERS = os.environ.get("HRT_DEBUG_COUNTERS", "0") == "1"
+
+
+def zero_counts(planes, names) -> dict:
+    """A plain counting walk's counters: an (N,) int64 zero tensor per
+    name, on the batch's device (planes: its seven ray planes)."""
+    n, dev = planes[0].shape[0], planes[0].device
+    return {k: torch.zeros(n, dtype=torch.int64, device=dev) for k in names}
+
+
+def count_words(n: int, ray_names, warp_names) -> int:
+    """int32 words of a counting build's buffer for n rays: a row of n per
+    ray count, then a row of ceil(n / 32) per warp count."""
+    return len(ray_names) * n + len(warp_names) * -(-n // 32)
+
+
+def unpack_counts(buf: torch.Tensor, n: int, ray_names,
+                  warp_names) -> dict:
+    """A counting build's buffer as LAST_COUNTERS: each ray count's (n,)
+    row under its name, each warp count's (ceil(n / 32),) row (warp w:
+    rays 32 w .. 32 w + 31) under "warp_" + its name; views of `buf`."""
+    nw = -(-n // 32)
+    out = {k: buf[j * n:(j + 1) * n] for j, k in enumerate(ray_names)}
+    base = len(ray_names) * n
+    out.update({f"warp_{k}": buf[base + j * nw:base + (j + 1) * nw]
+                for j, k in enumerate(warp_names)})
+    return out
 
 
 def _cross(a, b):

@@ -24,7 +24,11 @@ the table repacked as an array of structs, cached on the Accel as
 `skip_rec`) and tests triangles without a division until one passes
 (`moller_scaled` is the plain mirror of that test, for the tests).
 `visit_counts` counts a batch's node visits, leaves and triangle tests
-per ray; nothing on the frame path calls it.
+per ray; nothing on the frame path calls it.  Under
+intersect.DEBUG_COUNTERS (HRT_DEBUG_COUNTERS=1) the kernel's counting
+build writes the same counts per ray, and per warp its steps (the union
+of its rays' nodes) and the steps that ran a leaf; the plain walk
+counts as visit_counts; either keeps them as `LAST_COUNTERS`.
 
 `trace` takes the plain version only for CPU tensors; CUDA tensors
 always launch the kernel (and raise if it fails).
@@ -33,11 +37,22 @@ from __future__ import annotations
 
 import torch
 
-from .intersect import (_DET_EPS, _cross, _dot, first_hit_slot, leaf_hits,
-                        safe_inv_dir, slab_hit)
+from . import intersect
+from .intersect import (_DET_EPS, _cross, _dot, leaf_hits,
+                        leaf_test_counts, safe_inv_dir, slab_hit)
 
-# Launches of the CUDA kernel, by mode; the plain version never counts.
+# Launches of the CUDA kernel by mode: of its normal build, and of its
+# counting build; the plain version never counts.
 LAUNCHES = {"closest": 0, "any_hit": 0}
+DEBUG_LAUNCHES = {"closest": 0, "any_hit": 0}
+# Per-ray counters of visit_counts and of the counting build; its
+# per-warp counters (steps, and the steps that ran a leaf).
+COUNTS = ("nodes", "leaves", "tests")
+WARP_COUNTS = ("nodes", "leaves")
+# The last walk's counts under intersect.DEBUG_COUNTERS (None before):
+# COUNTS by name, (N,) int32 each, and from the kernel WARP_COUNTS as
+# "warp_<name>", (ceil(N / 32),) each.
+LAST_COUNTERS: dict | None = None
 
 
 def _check_inputs(accel, planes):
@@ -49,15 +64,25 @@ def _check_inputs(accel, planes):
                              "accel's device")
 
 
+def _keep_counts(counts: dict) -> None:
+    global LAST_COUNTERS
+    LAST_COUNTERS = counts
+
+
 def trace_kernel(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                  find_closest: bool):
-    """Launch csrc/skip_trace.cu on CUDA tensors."""
+    """Launch csrc/skip_trace.cu on CUDA tensors: its counting build when
+    intersect.DEBUG_COUNTERS is set."""
     from ..kernels import build
 
     planes = [p.contiguous() for p in (ox, oy, oz, dx, dy, dz, tmax)]
     _check_inputs(accel, planes)
     n = planes[0].shape[0]
     dev = planes[0].device
+    cnt = None
+    if intersect.DEBUG_COUNTERS:
+        cnt = torch.empty(intersect.count_words(n, COUNTS, WARP_COUNTS),
+                          dtype=torch.int32, device=dev)
     lib = build.load()
     if find_closest:
         t = torch.empty(n, dtype=torch.float32, device=dev)
@@ -74,9 +99,13 @@ def trace_kernel(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
         rc = lib.hrt_skip_trace(
             *[p.data_ptr() for p in planes], n, accel.skip_rec.data_ptr(),
             accel.tris.data_ptr(), accel.m_real, accel.leaf_size,
-            float(t_min), int(find_closest), *outs, stream)
+            float(t_min), int(find_closest), *outs,
+            None if cnt is None else cnt.data_ptr(), stream)
     build.check(rc, "skip_trace")
-    LAUNCHES["closest" if find_closest else "any_hit"] += 1
+    (LAUNCHES if cnt is None else DEBUG_LAUNCHES)[
+        "closest" if find_closest else "any_hit"] += 1
+    if cnt is not None:
+        _keep_counts(intersect.unpack_counts(cnt, n, COUNTS, WARP_COUNTS))
     return (t, tri, u, v) if find_closest else occ
 
 
@@ -129,9 +158,21 @@ def moller_scaled(ray_o, ray_d, v0, e1, e2, t_min, t_max):
 def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                 find_closest: bool):
     """The same walk, vectorised over rays: every live ray advances one
-    node per iteration."""
+    node per iteration.  With intersect.DEBUG_COUNTERS it counts as
+    visit_counts and keeps the counts as LAST_COUNTERS."""
     planes = [p.contiguous() for p in (ox, oy, oz, dx, dy, dz, tmax)]
     _check_inputs(accel, planes)
+    if not intersect.DEBUG_COUNTERS:
+        return _walk(accel, planes, t_min, find_closest)
+    counts = intersect.zero_counts(planes, COUNTS)
+    out = _walk(accel, planes, t_min, find_closest, counts)
+    _keep_counts({k: c.to(torch.int32) for k, c in counts.items()})
+    return out
+
+
+def _walk(accel, planes, t_min: float, find_closest: bool, counts=None):
+    """trace_plain's walk, counting into `counts` (a dict of COUNTS
+    tensors) when given."""
     ox, oy, oz, dx, dy, dz, tmax = planes
     n = ox.shape[0]
     dev = ox.device
@@ -153,11 +194,18 @@ def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                        t_min, t[live])
         nxt = torch.where(hit & (code == 0), cur[live] + 1, nxt)
         leaf = hit & (code > 0)
+        if counts is not None:
+            counts["nodes"][live] += 1
         if bool(leaf.any()):
             rays = live[leaf]
             better, th, ids, uh, vh = leaf_hits(
                 accel.tris, code[leaf] - 1, accel.leaf_size, o[rays],
                 d[rays], t_min, t[rays])
+            if counts is not None:
+                counts["leaves"][rays] += 1
+                counts["tests"][rays] += leaf_test_counts(
+                    accel.tris, accel.leaf_size, rays, code[leaf] - 1,
+                    better, o, d, t_min, t, find_closest)
             rb = rays[better]
             tri[rb] = ids[better]
             if find_closest:
@@ -174,52 +222,16 @@ def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
 
 def visit_counts(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                  find_closest: bool) -> dict:
-    """Per-ray work of the walk on this batch: {"nodes", "leaves",
-    "tests"}, each an (N,) int64 tensor on the batch's device (node
-    visits, leaves entered, Möller-Trumbore tests: K per leaf, and in
-    any-hit mode the retiring leaf's tests up to its first hit, as the
-    kernel stops there).  trace_plain's loop with counters; for
-    measurements only, nothing on the frame path calls it."""
+    """Per-ray work of the walk on this batch: COUNTS, each an (N,)
+    int64 tensor on the batch's device (node visits, leaves entered,
+    Möller-Trumbore tests: K per leaf, and in any-hit mode the retiring
+    leaf's tests up to its first hit, as the kernel stops there).
+    trace_plain's walk with counters; for measurements only, nothing on
+    the frame path calls it."""
     planes = [p.contiguous() for p in (ox, oy, oz, dx, dy, dz, tmax)]
     _check_inputs(accel, planes)
-    ox, oy, oz, dx, dy, dz, tmax = planes
-    n = ox.shape[0]
-    dev = ox.device
-    o = torch.stack([ox, oy, oz], dim=1)
-    d = torch.stack([dx, dy, dz], dim=1)
-    inv = safe_inv_dir(d)
-    oi = o * inv
-    counts = {k: torch.zeros(n, dtype=torch.int64, device=dev)
-              for k in ("nodes", "leaves", "tests")}
-
-    t = tmax.clone()
-    cur = torch.zeros(n, dtype=torch.int64, device=dev)
-    live = torch.nonzero(tmax >= 0).squeeze(1)
-    while live.numel():
-        w = node_words(accel.nodes, cur[live])
-        code, nxt = w[:, 6].long(), w[:, 7].long()
-        hit = slab_hit(w[:, :6].view(torch.float32), inv[live], oi[live],
-                       t_min, t[live])
-        nxt = torch.where(hit & (code == 0), cur[live] + 1, nxt)
-        leaf = hit & (code > 0)
-        counts["nodes"][live] += 1
-        if bool(leaf.any()):
-            rays = live[leaf]
-            better, th, _, _, _ = leaf_hits(
-                accel.tris, code[leaf] - 1, accel.leaf_size, o[rays],
-                d[rays], t_min, t[rays])
-            counts["leaves"][rays] += 1
-            tests = torch.full_like(rays, accel.leaf_size)
-            if find_closest:
-                t[rays[better]] = th[better]
-            elif bool(better.any()):
-                tests[better] = 1 + first_hit_slot(
-                    accel.tris, code[leaf][better] - 1, accel.leaf_size,
-                    o[rays[better]], d[rays[better]], t_min, t[rays[better]])
-                nxt[torch.nonzero(leaf).squeeze(1)[better]] = accel.m_real
-            counts["tests"][rays] += tests
-        cur[live] = nxt
-        live = live[nxt < accel.m_real]
+    counts = intersect.zero_counts(planes, COUNTS)
+    _walk(accel, planes, t_min, find_closest, counts)
     return counts
 
 

@@ -29,7 +29,11 @@ triangles without a division until one passes
 (traversal_skip.moller_scaled mirrors that test for the tests).
 `visit_counts` counts a batch's visits per ray in the plain walk's
 order and nearest first (the closest kernel's order); nothing on the
-frame path calls it.
+frame path calls it.  Under intersect.DEBUG_COUNTERS
+(HRT_DEBUG_COUNTERS=1) the kernels' counting builds write each ray's
+COUNTS (the work its lane took part in: in any-hit mode the plain
+walk's) and each warp's WARP_COUNTS; the plain walk counts as
+visit_counts; either keeps them as `LAST_COUNTERS`.
 
 `trace` takes the plain version only for CPU tensors; CUDA tensors
 always launch the kernel (and raise if it fails).
@@ -38,11 +42,14 @@ from __future__ import annotations
 
 import torch
 
+from . import intersect
 from .intersect import (ActiveRays, RayStacks, leaf_hits, leaf_test_counts,
                         slab_hit, slab_near)
 
-# Launches of the CUDA kernel, by mode; the plain version never counts.
+# Launches of the CUDA kernel by mode: of its normal build, and of its
+# counting build; the plain version never counts.
 LAUNCHES = {"closest": 0, "any_hit": 0}
+DEBUG_LAUNCHES = {"closest": 0, "any_hit": 0}
 # Stack entries the kernels can hold (per ray, or per warp in closest
 # mode); tlas.check_depths refuses tables that need more
 # (tlas.stack_bound).
@@ -60,13 +67,19 @@ def _check_inputs(tl, planes):
 
 def trace_kernel(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                  find_closest: bool):
-    """Launch csrc/tlas8_trace.cu on CUDA tensors."""
+    """Launch csrc/tlas8_trace.cu on CUDA tensors: its counting build
+    when intersect.DEBUG_COUNTERS is set."""
     from ..kernels import build
 
     planes = [p.contiguous() for p in (ox, oy, oz, dx, dy, dz, tmax)]
     _check_inputs(tl, planes)
     n = planes[0].shape[0]
     dev = planes[0].device
+    cnt = None
+    if intersect.DEBUG_COUNTERS:
+        cnt = torch.empty(intersect.count_words(
+            n, COUNTS, WARP_COUNTS[find_closest]), dtype=torch.int32,
+            device=dev)
     tf = tl.obj_from_world.reshape(-1, 12).contiguous()
     roots = tl.w8_root.reshape(-1).contiguous()
     lib = build.load()
@@ -87,9 +100,14 @@ def trace_kernel(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
             *[p.data_ptr() for p in planes], n, tl.w8_rec.data_ptr(),
             tl.tris.data_ptr(), tf.data_ptr(), roots.data_ptr(),
             tl.w8_tlas_nw, tl.leaf_size, float(t_min), tl.stack,
-            int(find_closest), *outs, stream)
+            int(find_closest), *outs, None if cnt is None else cnt.data_ptr(),
+            stream)
     build.check(rc, "tlas8_trace")
-    LAUNCHES["closest" if find_closest else "any_hit"] += 1
+    (LAUNCHES if cnt is None else DEBUG_LAUNCHES)[
+        "closest" if find_closest else "any_hit"] += 1
+    if cnt is not None:
+        _keep_counts(intersect.unpack_counts(cnt, n, COUNTS,
+                                             WARP_COUNTS[find_closest]))
     return (t, tri, inst, u, v) if find_closest else occ
 
 
@@ -98,9 +116,24 @@ def _rank(low):
         + 4 * ((low & 0xF0) != 0).long()
 
 
-# Per-ray counters of visit_counts.
+# Per-ray counters of visit_counts and of the counting builds.
 COUNTS = ("tlas_nodes", "tlas_boxes", "instances", "blas_nodes",
           "blas_boxes", "leaves", "tests")
+# Per-warp counters of the counting builds, by mode: the closest packet's
+# items (restores: instances left); the any hit's loop steps and the
+# steps in which its parked lanes tested their leaves.
+WARP_COUNTS = {True: ("tlas_nodes", "instances", "blas_nodes", "leaves",
+                      "restores"),
+               False: ("steps", "leaf_passes")}
+# The last walk's counts under intersect.DEBUG_COUNTERS (None before):
+# COUNTS by name, (N,) int32 each, and from the kernels the mode's
+# WARP_COUNTS as "warp_<name>", (ceil(N / 32),) each.
+LAST_COUNTERS: dict | None = None
+
+
+def _keep_counts(counts: dict) -> None:
+    global LAST_COUNTERS
+    LAST_COUNTERS = counts
 
 
 def _count_nodes(counts, rays, cur, tlas_nw: int, boxes=None):
@@ -117,10 +150,17 @@ def _count_nodes(counts, rays, cur, tlas_nw: int, boxes=None):
 def trace_plain(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                 find_closest: bool):
     """The same walk as a vectorised PyTorch stack machine: every live
-    ray takes one stack entry per iteration."""
+    ray takes one stack entry per iteration.  With
+    intersect.DEBUG_COUNTERS it counts as visit_counts (the table's
+    order) and keeps the counts as LAST_COUNTERS."""
     planes = [p.contiguous() for p in (ox, oy, oz, dx, dy, dz, tmax)]
     _check_inputs(tl, planes)
-    return _walk(tl, planes, t_min, find_closest)
+    if not intersect.DEBUG_COUNTERS:
+        return _walk(tl, planes, t_min, find_closest)
+    counts = intersect.zero_counts(planes, COUNTS)
+    out = _walk(tl, planes, t_min, find_closest, counts)
+    _keep_counts({k: c.to(torch.int32) for k, c in counts.items()})
+    return out
 
 
 def _walk(tl, planes, t_min: float, find_closest: bool, counts=None):
@@ -196,7 +236,9 @@ def _walk(tl, planes, t_min: float, find_closest: bool, counts=None):
         for j in range(8):
             w = rec[node[:, None] + j * 128 + words]          # (m, 8)
             meta = w[:, 6].long()
-            boxes += ((meta != 0) & alive).long()
+            # A visit tests all its children's boxes before any leaf (as
+            # the kernels), also those after an any-hit ray's retiring leaf.
+            boxes += (meta != 0).long()
             hit = slab_hit(w[:, :6].view(torch.float32), ry.inv[rv],
                            ry.oi[rv], t_min, t[rv]) & (meta != 0) & alive
             int_mask |= torch.where(hit & (meta < 0),
@@ -228,12 +270,15 @@ def _walk(tl, planes, t_min: float, find_closest: bool, counts=None):
         if counts is not None:
             _count_nodes(counts, rv, cur, tl.w8_tlas_nw, boxes)
         # The internal-children entry first, then the instance entries
-        # on top, in slot order: instances are walked before descending.
+        # on top: instances are walked before descending.  Closest hits
+        # take them from the last slot, as the JAX kernel pushes them;
+        # any hits from the first, as the any-hit kernel (the occlusion
+        # is the same in either order, the work not).
         push = (int_mask != 0) & alive
         stack[rv[push], sp[rv[push]]] = (first_child[push] << 8) \
             | int_mask[push]
         sp[rv] += push.long()
-        for j in range(8):
+        for j in (range(8) if find_closest else range(7, -1, -1)):
             p = inst_hit[:, j]
             stack[rv[p], sp[rv[p]]] = -inst_meta[p, j]
             sp[rv] += p.long()
@@ -357,9 +402,7 @@ def visit_counts(tl, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
     only: nothing on the frame path calls it."""
     planes = [p.contiguous() for p in (ox, oy, oz, dx, dy, dz, tmax)]
     _check_inputs(tl, planes)
-    n, dev = planes[0].shape[0], planes[0].device
-    counts = {k: torch.zeros(n, dtype=torch.int64, device=dev)
-              for k in COUNTS}
+    counts = intersect.zero_counts(planes, COUNTS)
     walk = _walk_nearest if nearest else _walk
     counts["hits"] = walk(tl, planes, t_min, find_closest, counts)
     return counts

@@ -23,21 +23,55 @@ occlusion mask.  A ray with t_max < 0 is dead.  `visit_counts` counts a
 batch's visits per ray in the plain walk's order and nearest first (the
 closest kernel's order); nothing on the frame path calls it.
 
+The debug builds, the JAX package's (hrt_tpu/ops/traversal_wide8.py):
+- Guards (`GUARDS`, HRT_KERNEL_GUARDS=1): the kernel's debug build and
+  the plain walk clamp every index they read from the tables and record
+  a violation bitmask per 128-ray block (NODE_ID, STACK_OVERFLOW,
+  LEAF_START); `check_pending_guards()` raises on them.
+- Counters (`intersect.DEBUG_COUNTERS`, HRT_DEBUG_COUNTERS=1): the same
+  debug build writes each ray's COUNTS (the work its lane took part in)
+  and each warp's packet items (WARP_COUNTS), kept as `LAST_COUNTERS`;
+  the plain walk keeps visit_counts' counts there.
+On clean tables both give the normal build's outputs bit for bit.
+
 `trace` takes the plain version only for CPU tensors; CUDA tensors
 always launch the kernel (and raise if it fails).
 """
 from __future__ import annotations
 
+import os
 import types
 
+import numpy as np
 import torch
 
+from . import intersect
 from .intersect import leaf_hits, safe_inv_dir, slab_hit
 
-# Launches of the CUDA kernel, by mode; the plain version never counts.
+# Launches of the CUDA kernel by mode: of its normal build, and of its
+# debug build; the plain version never counts.
 LAUNCHES = {"closest": 0, "any_hit": 0}
-# Per-ray counters of visit_counts.
+DEBUG_LAUNCHES = {"closest": 0, "any_hit": 0}
+# Per-ray counters of visit_counts and of the debug build.
 COUNTS = ("nodes", "boxes", "leaves", "tests")
+# Per-warp counters of the debug build: the packet's node and leaf visits.
+WARP_COUNTS = ("nodes", "leaves")
+# The last walk's counts under intersect.DEBUG_COUNTERS (None before):
+# COUNTS by name, (N,) int32 each, and from the kernel WARP_COUNTS as
+# "warp_<name>", (ceil(N / 32),) each.
+LAST_COUNTERS: dict | None = None
+
+# HRT_KERNEL_GUARDS=1, the JAX package's switch: read when imported; the
+# walks read this attribute at each call, so tests may set it.
+GUARDS = os.environ.get("HRT_KERNEL_GUARDS", "0") == "1"
+# Guard bits (the JAX kernel's): a wide-node id out of range (or a walk
+# longer than the table, which only a link pointing back can make), a
+# stack entry past the walk's stack, a leaf's triangles past the pool.
+NODE_ID, STACK_OVERFLOW, LEAF_START = 1, 2, 4
+# Rays per guard word: the kernel's block.
+GUARD_BLOCK = 128
+# Each guarded walk's (blocks,) int32 words since the last check.
+_pending_guards: list = []
 
 
 def stack_entries(depth: int) -> int:
@@ -63,15 +97,55 @@ def _check_inputs(accel, planes):
                              "accel's device")
 
 
+def check_pending_guards() -> None:
+    """Raise if a guarded walk (GUARDS) recorded an index violation since
+    the last check: RuntimeError naming the ORed mask's bits and the
+    first 8 blocks (of 128 rays) that set one.  Synchronises once, then
+    clears the list; silent when nothing was recorded.  Bit 1: wide-node
+    id out of range; bit 2: traversal stack overflow; bit 4: leaf
+    tri_start out of the triangle pool."""
+    if not _pending_guards:
+        return
+    dev = _pending_guards[0].device
+    words = torch.cat([g.to(dev) for g in _pending_guards]).cpu().numpy()
+    lens = [g.numel() for g in _pending_guards]
+    _pending_guards.clear()
+    bits = int(np.bitwise_or.reduce(words)) if words.size else 0
+    if not bits:
+        return
+    blocks = sorted({int(b) for v in np.split(words, np.cumsum(lens)[:-1])
+                     for b in np.nonzero(v)[0]})
+    raise RuntimeError(
+        f"wide8 kernel guard violation (mask {bits:#x}: "
+        f"{'node-id ' if bits & NODE_ID else ''}"
+        f"{'stack-overflow ' if bits & STACK_OVERFLOW else ''}"
+        f"{'leaf-start ' if bits & LEAF_START else ''}) in blocks "
+        f"{blocks[:8]} — corrupted records or kernel bug; the indices were "
+        "clamped, results are unreliable")
+
+
+def _keep_counts(counts: dict | None) -> None:
+    global LAST_COUNTERS
+    LAST_COUNTERS = counts
+
+
 def trace_kernel(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                  find_closest: bool):
-    """Launch csrc/bvh8_trace.cu on CUDA tensors."""
+    """Launch csrc/bvh8_trace.cu on CUDA tensors: its debug build when
+    GUARDS or intersect.DEBUG_COUNTERS is set."""
     from ..kernels import build
 
     planes = [p.contiguous() for p in (ox, oy, oz, dx, dy, dz, tmax)]
     _check_inputs(accel, planes)
     n = planes[0].shape[0]
     dev = planes[0].device
+    guard = cnt = None
+    if GUARDS:
+        guard = torch.zeros(-(-n // GUARD_BLOCK), dtype=torch.int32,
+                            device=dev)
+    if intersect.DEBUG_COUNTERS:
+        cnt = torch.empty(intersect.count_words(n, COUNTS, WARP_COUNTS),
+                          dtype=torch.int32, device=dev)
     if find_closest:
         # t, tri (int32 bits), u, v: the rows of one allocation.
         out = torch.empty((4, n), dtype=torch.float32, device=dev)
@@ -86,9 +160,17 @@ def trace_kernel(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
             *[p.data_ptr() for p in planes], n, accel.w8_rec.data_ptr(),
             accel.tris.data_ptr(), accel.leaf_size, float(t_min),
             stack_entries(accel.w8_depth), int(find_closest), *outs,
-            build.stream(dev))
+            accel.w8_rec.shape[0], accel.tris.shape[0],
+            None if guard is None else guard.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), build.stream(dev))
     build.check(rc, "bvh8_trace")
-    LAUNCHES["closest" if find_closest else "any_hit"] += 1
+    debug = guard is not None or cnt is not None
+    (DEBUG_LAUNCHES if debug else LAUNCHES)[
+        "closest" if find_closest else "any_hit"] += 1
+    if guard is not None:
+        _pending_guards.append(guard)
+    if cnt is not None:
+        _keep_counts(intersect.unpack_counts(cnt, n, COUNTS, WARP_COUNTS))
     if not find_closest:
         return out
     t, tri, u, v = out.unbind(0)
@@ -98,15 +180,22 @@ def trace_kernel(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
 def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                 find_closest: bool):
     """The same walk as a vectorised PyTorch stack machine: every live
-    ray advances one node visit per iteration."""
+    ray advances one node visit per iteration.  With GUARDS it clamps the
+    node ids, leaf starts and stack slots it uses and records the guard
+    bits per 128-ray block, as the kernel's debug build; with
+    intersect.DEBUG_COUNTERS it keeps visit_counts' counts of the batch
+    as LAST_COUNTERS (not after a guard violation: the counting walk
+    reads the tables unguarded)."""
     planes = [p.contiguous() for p in (ox, oy, oz, dx, dy, dz, tmax)]
     _check_inputs(accel, planes)
+    guards = GUARDS
     ox, oy, oz, dx, dy, dz, tmax = planes
     n = ox.shape[0]
     dev = ox.device
     rec = accel.w8.reshape(-1)
     tris = accel.tris
     k = accel.leaf_size
+    n_nodes, n_tris = rec.numel() // 64, tris.shape[0]
     o = torch.stack([ox, oy, oz], dim=1)
     d = torch.stack([dx, dy, dz], dim=1)
     inv = safe_inv_dir(d)
@@ -121,9 +210,22 @@ def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
     stack[:, 0] = 1
     sp = (tmax >= 0).to(torch.int64)
     words = torch.arange(8, device=dev)
+    if guards:  # each ray's guard bits and node visits
+        bad = torch.zeros(n, dtype=torch.int32, device=dev)
+        visits = torch.zeros(n, dtype=torch.int64, device=dev)
 
     live = torch.nonzero(sp > 0).squeeze(1)
     while live.numel():
+        if guards:
+            # A ray that has visited as many nodes as the table holds
+            # follows a link that points back: its walk ends.
+            back = visits[live] >= n_nodes
+            bad[live[back]] |= NODE_ID
+            sp[live[back]] = 0
+            live = live[~back]
+            if not live.numel():
+                break
+            visits[live] += 1
         s = sp[live] - 1
         e = stack[live, s]
         mask = e & 255
@@ -136,6 +238,10 @@ def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
         stack[live[keep], s[keep]] = (b[keep] << 8) | rem[keep]
         sp[live] = s + keep.long()
         cur = b + r
+        if guards:
+            out = (cur < 0) | (cur >= n_nodes)
+            bad[live[out]] |= NODE_ID
+            cur = cur.clamp(0, n_nodes - 1)
         node = (cur >> 4) * 1024 + (cur & 15) * 8
         first_child = rec[node + 7].long()
         int_mask = torch.zeros_like(cur)
@@ -151,8 +257,12 @@ def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
             if not bool(leaf.any()):
                 continue
             rays = live[leaf]
+            start = meta[leaf] - 1
+            if guards:
+                bad[rays[start + k > n_tris]] |= LEAF_START
+                start = start.clamp(max=n_tris - k)
             better, th, ids, uh, vh = leaf_hits(
-                tris, meta[leaf] - 1, k, o[rays], d[rays], t_min, t[rays])
+                tris, start, k, o[rays], d[rays], t_min, t[rays])
             rb = rays[better]
             tri[rb] = ids[better]
             if find_closest:
@@ -162,11 +272,31 @@ def trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
                 dead[torch.nonzero(leaf).squeeze(1)[better]] = True
                 alive &= ~dead
         push = (int_mask != 0) & alive
+        if guards:
+            # No room: the entry overwrites the top one.
+            full = push & (sp[live] >= stack.shape[1])
+            bad[live[full]] |= STACK_OVERFLOW
+            sp[live[full]] = stack.shape[1] - 1
         stack[live[push], sp[live[push]]] = (first_child[push] << 8) \
             | int_mask[push]
         sp[live] += push.long()
         sp[live[~alive]] = 0
         live = torch.nonzero(sp > 0).squeeze(1)
+    violated = False
+    if guards:
+        blk = torch.zeros(-(-n // GUARD_BLOCK) * GUARD_BLOCK,
+                          dtype=torch.int32, device=dev)
+        blk[:n] = bad
+        blk = blk.view(-1, GUARD_BLOCK)
+        _pending_guards.append(sum(
+            ((blk & bit) != 0).any(1).to(torch.int32) * bit
+            for bit in (NODE_ID, STACK_OVERFLOW, LEAF_START)))
+        violated = bool(bad.any())
+    if intersect.DEBUG_COUNTERS:
+        _keep_counts(None if violated else {
+            key: c.to(torch.int32) for key, c in visit_counts(
+                accel, *planes, t_min, find_closest).items()
+            if key != "hits"})
     if find_closest:
         return t, tri, u, v
     return tri >= 0

@@ -1078,3 +1078,156 @@ def test_sharded_combine_matches_whole_soup(cuda):
     hit = same & (tri >= 0)
     assert hit.float().mean().item() > 0.3
     torch.testing.assert_close(t[hit], wt[hit], rtol=1e-5, atol=0)
+
+
+def corrupt_w8(rec: np.ndarray, how: str) -> np.ndarray:
+    """The JAX package's guard-test corruptions (tests/test_wide8.py) of
+    an (R, 8, 128) BVH8 record table, on a copy: the root's base far out
+    of range ("base", bit 1), the first live leaf slot's meta past the
+    pool ("leaf", bit 4), or the leaf_base word of that node that only
+    JAX's pack mode reads ("pack": the port's walks never read it)."""
+    rec = rec.copy()
+    if how == "base":
+        rec[0, 0, 7] = 1 << 14
+        return rec
+    metas = rec[:, :, 6::8]
+    bminx = np.ascontiguousarray(rec[:, :, 0::8]).view(np.float32)
+    live = (metas > 0) & (bminx < 1e30)
+    r_, s_, q_ = [int(a[0]) for a in np.nonzero(live)]
+    if how == "pack":
+        rec[r_, 1, q_ * 8 + 7] = 1 << 24
+    else:
+        rec[r_, s_, q_ * 8 + 6] = 1 << 16
+    return rec
+
+
+@pytest.fixture
+def debug_off(monkeypatch):
+    """The debug builds off, no pending guard words before or after."""
+    from hrt_tpu_torch.ops import intersect
+
+    monkeypatch.setattr(traversal_wide8, "GUARDS", False)
+    monkeypatch.setattr(intersect, "DEBUG_COUNTERS", False)
+    traversal_wide8._pending_guards.clear()
+    yield monkeypatch
+    traversal_wide8._pending_guards.clear()
+
+
+@pytest.mark.parametrize("how", ["base", "leaf", "depth"])
+def test_k1_guards_raise_and_the_context_survives(cuda, debug_off, how):
+    """The guarded K1 on a corrupt table (the root's base, a leaf's
+    start, a w8_depth below the tree's) records the JAX kernel's bit for
+    it in both modes and raises through check_pending_guards; the next
+    normal launch in the process still runs and equals its plain walk
+    (no sticky CUDA error, no other warp's stack overwritten)."""
+    import dataclasses
+
+    scene = bench_scene().build(cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=8)
+    if how == "depth":
+        bad = dataclasses.replace(accel, w8_depth=0)
+    else:
+        w8 = torch.as_tensor(corrupt_w8(accel.w8.cpu().numpy(), how),
+                             device=cuda)
+        bad = dataclasses.replace(accel, w8=w8,
+                                  w8_rec=wide8.node_records(w8))
+    o, d = _rays(3, 4093, cuda)
+    bit = {"base": traversal_wide8.NODE_ID, "leaf": traversal_wide8.LEAF_START,
+           "depth": traversal_wide8.STACK_OVERFLOW}[how]
+    debug_off.setattr(traversal_wide8, "GUARDS", True)
+    for closest in (True, False):
+        tmax = torch.full((4093,), 1e32 if closest else 5.0, device=cuda)
+        planes = (*o.T.contiguous(), *d.T.contiguous(), tmax)
+        mode = "closest" if closest else "any_hit"
+        before = traversal_wide8.DEBUG_LAUNCHES[mode]
+        traversal_wide8.trace_kernel(bad, *planes, 1e-3, closest)
+        assert traversal_wide8.DEBUG_LAUNCHES[mode] == before + 1
+        with pytest.raises(RuntimeError, match="guard violation") as err:
+            traversal_wide8.check_pending_guards()
+        mask = int(str(err.value).split("mask ")[1].split(":")[0], 16)
+        assert mask & bit, str(err.value)
+    torch.cuda.synchronize()
+    debug_off.setattr(traversal_wide8, "GUARDS", False)
+    planes = (*o.T.contiguous(), *d.T.contiguous(),
+              torch.full((4093,), 1e32, device=cuda))
+    k = traversal_wide8.trace_kernel(accel, *planes, 1e-3, True)
+    p = traversal_wide8.trace_plain(accel, *planes, 1e-3, True)
+    torch.cuda.synchronize()
+    assert (k[1] == p[1]).float().mean().item() >= 0.999
+
+
+def _debug_case(cuda, walk: str, closest: bool):
+    """(module, table, planes) of a walk with a debug build: K1 on the
+    bench scene's 8-triangle SAH tree, K3 on its LBVH, K4 on the test_tlas
+    scene; 4093 rays (a partial last warp), every 13th dead."""
+    from hrt_tpu_torch.ops import traversal_skip
+
+    if walk == "k4":
+        mod = traversal_tlas8
+        table = tlas.build_two_level_flat(_instanced_scene(), 8, device=cuda)
+    else:
+        scene = bench_scene().build(cuda)
+        mod = traversal_wide8 if walk == "k1" else traversal_skip
+        table = (lbvh.build_bvh_sah(scene, leaf_size=8) if walk == "k1"
+                 else lbvh.build_bvh(scene, 32))
+    o, d = _rays(11, 4093, cuda)
+    tmax = torch.full((4093,), 1e32 if closest else 4.0, device=cuda)
+    tmax[::13] = -1.0
+    return mod, table, (*o.T.contiguous(), *d.T.contiguous(), tmax)
+
+
+@pytest.mark.parametrize("closest", [True, False])
+@pytest.mark.parametrize("walk", ["k1", "k3", "k4"])
+def test_debug_builds_equal_the_normal_builds(cuda, debug_off, walk,
+                                              closest):
+    """With counters on (and K1's guards), each walk launches its debug
+    build once: its outputs equal the normal build's bit for bit, no
+    guard fires, and LAST_COUNTERS holds this launch's counts.  K3 and
+    K4's any hit walk a ray per lane in the plain walk's order: their
+    per-ray counts equal visit_counts on the rays whose hits equal the
+    plain walk's, all but at most 1 in 10,000 of them (a ray that met a
+    triangle within rounding of an edge, which the kernel's
+    division-free test and Möller-Trumbore decide apart, may reach the
+    same hit by another path).  K1 and K4's closest packets: no lane
+    counts more node and leaf visits than its warp's packet items, and
+    the lanes test at least as many boxes and triangles as the plain
+    walks of their rays in the kernel's order, in sum."""
+    from hrt_tpu_torch.ops import intersect
+
+    mod, table, planes = _debug_case(cuda, walk, closest)
+    mode = "closest" if closest else "any_hit"
+    want = mod.trace_kernel(table, *planes, 1e-3, closest)
+    debug_off.setattr(intersect, "DEBUG_COUNTERS", True)
+    if walk == "k1":
+        debug_off.setattr(traversal_wide8, "GUARDS", True)
+    before = (mod.LAUNCHES[mode], mod.DEBUG_LAUNCHES[mode])
+    got = mod.trace_kernel(table, *planes, 1e-3, closest)
+    torch.cuda.synchronize()
+    assert (mod.LAUNCHES[mode], mod.DEBUG_LAUNCHES[mode]) \
+        == (before[0], before[1] + 1)
+    traversal_wide8.check_pending_guards()
+    outs = zip(got, want) if closest else [(got, want)]
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in outs)
+    cnt = mod.LAST_COUNTERS
+    n, nw = planes[0].numel(), -(-planes[0].numel() // 32)
+    warp_names = mod.WARP_COUNTS[closest] if walk == "k4" \
+        else mod.WARP_COUNTS
+    assert all(cnt[k].shape == (n,) and (cnt[k][::13] == 0).all()
+               for k in mod.COUNTS)
+    assert all(cnt["warp_" + k].shape == (nw,) for k in warp_names)
+    plain = mod.visit_counts(table, *planes, 1e-3, closest,
+                             **({} if walk == "k3" else {"nearest": closest}))
+    plain.pop("hits", None)
+    if walk == "k3" or (walk == "k4" and not closest):
+        p = mod.trace_plain(table, *planes, 1e-3, closest)
+        same = got[1] == p[1] if closest else got == p
+        assert same.float().mean().item() >= 0.999
+        diff = sum(cnt[k].long() != plain[k] for k in mod.COUNTS).bool()
+        assert int((diff & same).sum()) <= -(-int(same.sum()) // 10000)
+        return
+    lane_max = lambda k: cnt[k][:n // 32 * 32].view(-1, 32).amax(1)
+    for k in set(mod.COUNTS) & set(warp_names):
+        assert (lane_max(k) <= cnt["warp_" + k][:n // 32]).all(), k
+    work = lambda c: sum(int(c[k].sum()) for k in mod.COUNTS
+                         if "boxes" in k or k == "tests")
+    assert work(cnt) >= work(plain) > 0

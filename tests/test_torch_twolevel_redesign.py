@@ -220,8 +220,10 @@ def _k4_children(tl, node):
 
 def _k4_table_order(tl, ray):
     """K4's walk of one ray in the plain walk's order: a node's children
-    in slot order, leaves tested as met, then its instances from the
-    last slot (the top of the stack), then its internal children in rank
+    in slot order (every box tested, also after an any-hit ray's
+    retiring leaf), leaves tested as met, then its instances (closest:
+    from the last slot, the top of the JAX kernel's stack; any hit: from
+    the first, as the any-hit kernel), then its internal children in rank
     order, depth first."""
     def visit(node) -> bool:
         in_tlas = node < tl.w8_tlas_nw
@@ -229,10 +231,10 @@ def _k4_table_order(tl, ray):
         ray.c[key + "_nodes"] += 1
         boxes, metas, first = _k4_children(tl, node)
         inner, insts = [], []
+        ray.c[key + "_boxes"] += (metas + [0]).index(0)
         for j, meta in enumerate(metas):
             if meta == 0:
                 break
-            ray.c[key + "_boxes"] += 1
             hit, _ = _slab(boxes[j], ray.o, ray.d, ray.t)
             if not hit:
                 continue
@@ -242,7 +244,7 @@ def _k4_table_order(tl, ray):
                 insts.append(meta - 1)
             elif ray.leaf(tl, meta - 1):
                 return True
-        for inst in reversed(insts):
+        for inst in (reversed(insts) if ray.closest else insts):
             ray.enter(tl, inst)
             blocked = visit(int(tl.w8_root[inst, 0]))
             ray.leave()
