@@ -269,6 +269,19 @@ over the bench frame, whose history fetches run K6.  Phases:
      of each mode); a culled (K3) and an instanced (K4) FrameLoop.step
      with HRT_DEBUG_COUNTERS=1 equal to the normal step, launching only
      the counting builds
+ 45. the measuring entry points in this process through their
+     `main(argv)`, their standard output captured and parsed, the launch
+     counters set to 0 just before each and read just after:
+     `python -m hrt_tpu_torch.bench` (one line, value > 0, no
+     vs_baseline, 160 K1 closest, K1 any-hit and K2 launches; the last
+     batch's last frame vs its plain replay, PSNR > 45); `bench_full`
+     over its seven configurations, one `--only` run each into one
+     `--out` file (a device ms per frame on every line; each
+     configuration's walk and K2, K6 for animated_4k_upscaled, no other
+     walk); `profile_frame` on bench (4 frames) and path1080 (2): K1
+     and K2 among the top 40 device ops, 0 < busy <= 1, the Chrome
+     trace written; `bench_bigscene --sub 8` (2.62M triangles, past
+     MAX_WIDE_NODES: K3): brute-force ids on >= 0.999 of 1,024 rays
 
 Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
 through K1 and K2, held off the image diagonals where the box's wall
@@ -1861,37 +1874,23 @@ def animated_phase(sm: Smoke, dev) -> dict:
 
 
 def busy_share(fn) -> None:
-    """The card's busy share of one fn() call (torch.profiler, once): the
-    device kernels' summed time over the call's host-clock time, with
-    the ten kernels that took most."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """The card's busy share of one fn() call (utils/profiling: the
+    union of the device activity over the call's host-clock time under
+    the profiler, after a warm-up call), with the ten ops that took
+    most.  Raises when the profile shows no device activity."""
+    from hrt_tpu_torch.utils import profiling
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev_ms, n_kern, rows = 0.0, 0, []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_ms += t
-            n_kern += e.count
-            rows.append((t, e.count, e.key))
-    if not rows:
-        print("  busy share: not measured (the profile shows no device "
-              "time)", flush=True)
-        return
-    print(f"  busy share of one call: {dev_ms:.4f} ms of device kernels "
-          f"({n_kern} launches) in {wall:.4f} ms under the profiler = "
-          f"{dev_ms / wall:.4f}", flush=True)
-    for t, c, k in sorted(rows, reverse=True)[:10]:
-        print(f"    {t:.4f} ms, {c} calls: {k[:90]}", flush=True)
+    prof, wall = profiling.profile_calls(fn, 1)
+    dev_ms, ops = profiling.device_op_totals(prof)
+    busy = profiling.busy_share(prof, wall)
+    n_kern = sum(c for _, c in ops.values())
+    print(f"  busy share of one call: {dev_ms:.4f} ms of device activity "
+          f"({n_kern} launches) in {wall:.4f} ms under the profiler; busy "
+          f"(union) {busy:.4f}, summed {dev_ms / wall:.4f}", flush=True)
+    rows = sorted(((t, c, k) for k, (t, c) in ops.items()), reverse=True)
+    for t, c, k in rows[:10]:
+        print(f"    {t:.4f} ms, {c} calls: {profiling.op_label(k)[:90]}",
+              flush=True)
 
 
 def path_times(sm: Smoke, dev, scene, accel, pt: dict, anim: dict) -> dict:
@@ -2281,23 +2280,12 @@ def scene_file_phases(sm: Smoke, dev) -> dict:
 
 
 def profiled_device_ms(fn) -> float:
-    """The device kernels' summed time of one fn() call under
-    torch.profiler (after a warm-up call); nan when the profile shows no
-    device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """The device ms of one fn() call under torch.profiler, after a
+    warm-up call (utils/profiling.device_ms_per_call; raises when the
+    profile shows no device activity)."""
+    from hrt_tpu_torch.utils.profiling import device_ms_per_call
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ms = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    return ms if ms > 0 else float("nan")
+    return device_ms_per_call(fn, calls=1)
 
 
 def materials_times(sm: Smoke, dev, ml: dict, sf: dict) -> list:
@@ -3938,6 +3926,157 @@ def debug_phases(sm: Smoke, dev, cases: dict, loops: dict, times: dict,
     return entries
 
 
+# The kernels each bench_full configuration must launch (phase 45), and
+# the walks it must not: every configuration runs with culling off.
+BENCH_FULL_KERNELS = {
+    "primary_800x600": ("k1_closest", "k1_any_hit", "k2"),
+    "whitted_800x600": ("k1_closest", "k1_any_hit", "k2"),
+    "mesh_bvh_800x600": ("k1_closest", "k1_any_hit", "k2"),
+    "path_tracing_1080p": ("k1_closest", "k1_any_hit", "k2"),
+    "animated_4k_upscaled": ("k1_closest", "k1_any_hit", "k2", "k6"),
+    "instanced_tlas_512x384": ("k4_closest", "k4_any_hit", "k2"),
+    "many_lights_256_512x384": ("k1_closest", "k1_any_hit", "k2"),
+}
+WALKS = ("k1_closest", "k1_any_hit", "k3", "k4_closest", "k4_any_hit", "k5")
+BIGSCENE_SUB = 8
+
+
+def run_entry(fn, argv: list) -> tuple:
+    """fn(argv) with its standard output captured (the smoke's own last
+    lines stay its own): (fn's result, the JSON objects it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(argv)
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith("{")]
+    return out, lines
+
+
+def want_kernels(sm: Smoke, label: str, counts: dict, want) -> None:
+    """Each kernel in `want` launched, no other walk launched."""
+    sm.check(all(counts[k] > 0 for k in want)
+             and all(counts[k] == 0 for k in WALKS if k not in want),
+             f"{label}: launches {', '.join(f'{k} {counts[k]}' for k in want)}"
+             f" and no other walk "
+             f"({ {k: v for k, v in counts.items() if v} })")
+
+
+def entry_points_phase(sm: Smoke, dev, smi: str) -> dict:
+    """Phase 45: the measuring entry points (`python -m
+    hrt_tpu_torch.bench`, `.bench_full`, `.profile_frame`,
+    `.bench_bigscene`) in this process, through their `main(argv)`, each
+    with the launch counters set to 0 just before and read just after.
+    Returns their records."""
+    import tempfile
+
+    import torch
+
+    from hrt_tpu_torch import (bench, bench_bigscene, bench_full,
+                               profile_frame, renderer)
+
+    phase("phase 45: the measuring entry points in process: bench, "
+          "bench_full (7 configurations), profile_frame (bench, path1080), "
+          f"bench_bigscene --sub {BIGSCENE_SUB}")
+    tmp = tempfile.TemporaryDirectory()
+    keys = {"metric", "value", "unit", "vs_baseline", "median", "batch_ms",
+            "batch_event_ms", "device"}
+
+    reset_all()
+    res, lines = run_entry(bench.main, [])
+    counts = launch_counts()
+    rec = res["record"]
+    print(f"  bench: {json.dumps(rec)}", flush=True)
+    sm.check(len(lines) == 1 and lines[0] == rec and keys <= set(rec)
+             and rec["value"] > 0 and rec["vs_baseline"] is None
+             and rec["device"] == smi,
+             f"bench: one line with {sorted(keys)}, value "
+             f"{rec['value']:.2f} Mray/s > 0, no vs_baseline, device "
+             f"{rec['device']!r}")
+    frames = 32 * 5
+    sm.check(all(counts[k] == frames for k in ("k1_closest", "k1_any_hit",
+                                                 "k2")),
+             f"bench: {frames} K1 closest, K1 any-hit and K2 launches "
+             f"({counts['k1_closest']}, {counts['k1_any_hit']}, "
+             f"{counts['k2']})")
+    want_kernels(sm, "bench", counts, ("k1_closest", "k1_any_hit", "k2"))
+    last = res["frame0"] + res["frames"].shape[0] - 1
+    ref = renderer.render_frames(res["scene"], res["accel"], res["cams"],
+                                 last, 1, res["config"], plain=True)[0]
+    p = psnr4(res["frames"][-1], ref)
+    sm.check(p > 45.0, f"bench: frame {last} vs its plain replay PSNR "
+             f"{p:.2f}")
+    del res, ref
+
+    out = os.path.join(tmp.name, "bench_full_torch.json")
+    full = {}
+    for name, want in BENCH_FULL_KERNELS.items():
+        reset_all()
+        recs, lines = run_entry(bench_full.main, ["--only", name, "--out",
+                                                  out])
+        counts = launch_counts()
+        r = recs[0]
+        full[name] = r
+        print(f"  bench_full: {json.dumps(r)}", flush=True)
+        sm.check(len(recs) == 1 and lines == recs and r["config"] == name
+                 and r["device_ms_per_frame"] is not None
+                 and r["device_ms_per_frame"] > 0 and r["ms_per_frame"] > 0
+                 and r["device"] == smi,
+                 f"bench_full {name}: one line, {r['ms_per_frame']:.4f} "
+                 f"ms/frame, device {r['device_ms_per_frame']:.4f} ms/frame")
+        want_kernels(sm, f"bench_full {name}", counts, want)
+    with open(out) as f:
+        written = json.load(f)
+    sm.check([r["config"] for r in written] == list(BENCH_FULL_KERNELS),
+             f"bench_full: --out holds the {len(written)} configurations")
+
+    prof = {}
+    for cfg, n in (("bench", 4), ("path1080", 2)):
+        reset_all()
+        r, _ = run_entry(profile_frame.main, [
+            "--cfg", cfg, "--frames", str(n), "--top", "40",
+            "--dir", os.path.join(tmp.name, f"trace_{cfg}")])
+        counts = launch_counts()
+        prof[cfg] = r
+        ops = [o["op"] for o in r["top"]]
+        print(f"  profile_frame {cfg}: device {r['device_ms_per_frame']:.4f} "
+              f"ms/frame, wall {r['wall_ms_per_frame']:.4f}, busy "
+              f"{r['busy']:.4f}, {r['launches_per_frame']:.1f} launches/"
+              f"frame, stages {r['stages']}", flush=True)
+        for o in r["top"][:12]:
+            print(f"    {o['ms_per_frame']:.4f} ms/frame "
+                  f"{o['launches_per_frame']:.1f}/frame "
+                  f"{100 * o['share']:.1f}%: {o['op'][:80]}", flush=True)
+        sm.check(any(o.startswith("hrt_bvh8_trace:") for o in ops)
+                 and any(o.startswith("hrt_brdf_light_major:") for o in ops)
+                 and 0.0 < r["busy"] <= 1.0
+                 and os.path.getsize(os.path.join(
+                     tmp.name, f"trace_{cfg}", "trace.json")) > 0,
+                 f"profile_frame {cfg}: K1 and K2 among the top 40 ops, "
+                 f"busy {r['busy']:.4f} in (0, 1], trace written")
+        want_kernels(sm, f"profile_frame {cfg}", counts,
+                     ("k1_closest", "k1_any_hit", "k2"))
+
+    reset_all()
+    big, _ = run_entry(bench_bigscene.main, ["--sub", str(BIGSCENE_SUB)])
+    counts = launch_counts()
+    print(f"  bench_bigscene: {json.dumps(big)}", flush=True)
+    walk = {"K1": ("k1_closest",), "K3": ("k3",)}[big["route"]]
+    sm.check(big["oracle_tri_match"] >= 0.999 and big["oracle_hits"] > 0
+             and big["value"] > 0,
+             f"bench_bigscene: route {big['route']}, "
+             f"{big['tris']} triangles, oracle ids {big['oracle_tri_match']}"
+             f" on {big['oracle_rays']} rays ({big['oracle_hits']} hit), "
+             f"{big['value']:.2f} Mray/s")
+    want_kernels(sm, "bench_bigscene", counts, walk)
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"bench": rec, "bench_full": full, "profile": prof,
+            "bigscene": big}
+
+
 def main() -> int:
     import torch
 
@@ -4652,6 +4791,7 @@ def main() -> int:
                   "k4": (tl, g_prim, g_shadow)},
         {"k3": (cloop, orbit_cam(steps - 1)), "k4": (loop, cam)}, times,
         {**bench["ops"], **k3_ops, **k4_ops})
+    entry_points_phase(sm, dev, smi)
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,

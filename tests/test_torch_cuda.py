@@ -1231,3 +1231,45 @@ def test_debug_builds_equal_the_normal_builds(cuda, debug_off, walk,
     work = lambda c: sum(int(c[k].sum()) for k in mod.COUNTS
                          if "boxes" in k or k == "tests")
     assert work(cnt) >= work(plain) > 0
+
+
+def _profile_frame_setup(cuda):
+    cfg = RenderConfig(width=256, height=192, max_depth=1, sky=True)
+    scene = bench_scene().build(cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, cuda)
+    return scene, accel, cams, cfg
+
+
+def test_device_ms_per_call_times_k1(cuda):
+    """The profiler sees the ctypes launch of K1 (no CPU op parent) and
+    gives its device time."""
+    from hrt_tpu_torch.utils import profiling
+
+    scene, accel, cams, cfg = _profile_frame_setup(cuda)
+    o, d = renderer.primary_rays(cams, cfg.height, 0, cfg)
+    planes = (*o, *d, torch.full_like(o.x, 1e32))
+    ms = profiling.device_ms_per_call(
+        lambda: traversal_wide8.trace_kernel(accel, *planes, 1e-3, True),
+        calls=4, device=cuda)
+    assert 0.0 < ms < 50.0
+
+
+def test_device_op_totals_name_the_port_kernels(cuda):
+    """A profiled bench frame: K1's and K2's symbols among the device
+    ops, labelled by their C entries; the busy share is a union in
+    (0, 1]."""
+    from hrt_tpu_torch.utils import profiling
+
+    scene, accel, cams, cfg = _profile_frame_setup(cuda)
+    prof, wall = profiling.profile_calls(
+        lambda: renderer.render_frames(scene, accel, cams, 0, 1, cfg), 2,
+        cuda)
+    total, ops = profiling.device_op_totals(prof)
+    labels = [(profiling.op_label(k), c) for k, (_, c) in ops.items()]
+    k1 = [(k, c) for k, c in labels if k.startswith("hrt_bvh8_trace:")]
+    k2 = [c for k, c in labels if k.startswith("hrt_brdf_light_major:")]
+    # Closest and any hit, one launch each a frame: two instantiations.
+    assert len(k1) == 2 and [c for _, c in k1] == [2, 2]
+    assert sum(k2) == 2
+    assert 0.0 < total and 0.0 < profiling.busy_share(prof, wall) <= 1.0
