@@ -96,8 +96,11 @@ over the bench frame, whose history fetches run K6.  Phases:
      moving-camera post frame at both of its shapes (SVGF's history,
      1920x1080 C=10; the temporal upscaler's, 3840x2160 C=3): validity
      identical, values within rel err 1e-5 (of the taps' absolute
-     weighted sum) and finite; both vs grid_sample (float64, corner
-     convention, border padding) at in-bounds pixels
+     weighted sum), finite and equal bit for bit; both vs grid_sample
+     (float64, corner convention, border padding) at in-bounds pixels;
+     K6 bit-equal to the plain version on coordinates at its tap
+     boundaries (integers and 1 ulp either side, k6_boundary_inputs)
+     for C in {1, 3, 10}, contiguous and channels-first
  21. the post FrameLoop (SVGF + the temporal 2x upscaler with the
      committed trained weights): 8 steps at 512x384 -> 1024x768 along
      the bench camera moving each step; the launch counters must show per
@@ -282,6 +285,18 @@ over the bench frame, whose history fetches run K6.  Phases:
      and K2 among the top 40 device ops, 0 < busy <= 1, the Chrome
      trace written; `bench_bigscene --sub 8` (2.62M triangles, past
      MAX_WIDE_NODES: K3): brute-force ids on >= 0.999 of 1,024 rays
+ 46. the array-form API at full width on the bench frame (512x384, its
+     196,608 primary rays as (N, 3) arrays and its light-major shadow
+     batch), the launch counters set to 0 just before each call group
+     and read just after: render_frame (one K1 closest, K1 any-hit and
+     K2 launch) bit-equal to render_frames(..., 1)[0] and PSNR > 45
+     against its plain replay; trace_closest / trace_any,
+     closest_hit_bvh / any_hit_bvh and traversal_skip.closest_hit /
+     any_hit, each bit-equal to its _p form, through K1 on the bench
+     accel and K3 on the same accel without its BVH8 table, the
+     dispatches' ids against their plain replay on >= 0.99999 of rays;
+     trace_any_p on the instanced grid's TwoLevelFlat through K4 (one
+     launch) against its plain replay
 
 Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
 through K1 and K2, held off the image diagonals where the box's wall
@@ -501,8 +516,8 @@ def load_baseline():
     bvh8_trace.cu and K2 brdf_light_major.cu, beside the headers they
     include), built like the package's kernels into chip_scratch/_build/,
     with the entry points they had at f3a1248 (hrt_skip_trace over the
-    (Mp/128, 8, 128) skip-link table, hrt_warp_bilinear over a contiguous
-    image, hrt_tlas8_trace over the (R, 8, 128) BVH8 table,
+    (Mp/128, 8, 128) skip-link table, hrt_warp_bilinear over an image
+    read through its strides, hrt_tlas8_trace over the (R, 8, 128) BVH8 table,
     hrt_tlas_skip_trace over the (R, 8, 128) two-level skip-link table)
     or at 6f624a9 (hrt_bvh8_trace over the (R, 8, 128) BVH8 table,
     hrt_brdf_light_major over 18 stacked per-ray planes and 3 stacked
@@ -541,7 +556,7 @@ def load_baseline():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     argtypes = {
         "hrt_skip_trace": [p] * 7 + [i, p, p, i, i, f, i] + [p] * 5 + [p],
-        "hrt_warp_bilinear": [p, i, i, i, p, p, i, p, p, p],
+        "hrt_warp_bilinear": [p, i, i, i, i, i, i, p, p, i, p, p, p],
         "hrt_tlas8_trace": [p] * 7 + [i, p, p, p, p, i, i, f, i, i]
         + [p] * 6 + [p],
         "hrt_tlas_skip_trace": [p] * 7 + [i, p, p, p, p, p, i, i, f, i]
@@ -670,17 +685,17 @@ def baseline_k2(lib, mat, n, view, l_lm, relevant_lm, num_lights: int):
 
 
 def baseline_k6(lib, img, px, py):
-    """The baseline K6 as its wrapper ran it: on a contiguous copy of
-    the image."""
+    """The baseline K6 as its wrapper ran it: the image read through its
+    strides."""
     import torch
 
-    img, px, py = img.contiguous(), px.contiguous(), py.contiguous()
+    px, py = px.contiguous(), py.contiguous()
     hs, ws, c = img.shape
     val = torch.empty((*px.shape, c), device=img.device)
     valid = torch.empty(px.shape, dtype=torch.bool, device=img.device)
-    rc = lib.hrt_warp_bilinear(img.data_ptr(), hs, ws, c, px.data_ptr(),
-                               py.data_ptr(), px.numel(), val.data_ptr(),
-                               valid.data_ptr(),
+    rc = lib.hrt_warp_bilinear(img.data_ptr(), hs, ws, c, *img.stride(),
+                               px.data_ptr(), py.data_ptr(), px.numel(),
+                               val.data_ptr(), valid.data_ptr(),
                                torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"baseline warp_bilinear: CUDA error {rc}")
@@ -967,19 +982,19 @@ def reset(*counters) -> None:
             c[key] = 0
 
 
-def check_closest(sm: Smoke, label: str, k, p,
-                  min_hits: float = 0.3) -> float:
+def check_closest(sm: Smoke, label: str, k, p, min_hits: float = 0.3,
+                  min_share: float = 0.999) -> float:
     """Closest hits of a kernel `k` against another walk `p`, as tuples
     (t, tri, u, v) or (t, tri, inst, u, v): ids (and instance ids) agree
-    on >= 0.999 of rays, more than `min_hits` of the rays hit, and t
-    within rel err 1e-4 where they agree.  Returns the max abs t error
+    on >= `min_share` of rays, more than `min_hits` of the rays hit, and
+    t within rel err 1e-4 where they agree.  Returns the max abs t error
     there."""
     same = k[1] == p[1]
     if len(k) == 5:
         same &= k[2] == p[2]
     hit = same & (k[1] >= 0)
     share, hits = float(same.float().mean()), float(hit.float().mean())
-    sm.check(share >= 0.999 and hits > min_hits,
+    sm.check(share >= min_share and hits > min_hits,
              f"{label}: closest ids agree on {share:.6f} of "
              f"{k[1].numel()} rays ({hits:.3f} hit)")
     if not bool(hit.any()):
@@ -992,12 +1007,14 @@ def check_closest(sm: Smoke, label: str, k, p,
     return err
 
 
-def check_occlusion(sm: Smoke, label: str, k, p) -> float:
-    """Occlusion masks agree on >= 0.999 of rays; returns the max abs
-    difference (0 or 1)."""
+def check_occlusion(sm: Smoke, label: str, k, p,
+                    min_share: float = 0.999) -> float:
+    """Occlusion masks agree on >= `min_share` of rays; returns the max
+    abs difference (0 or 1)."""
     agree = float((k == p).float().mean())
-    sm.check(agree >= 0.999, f"{label}: occlusion agrees on {agree:.6f} of "
-             f"{k.numel()} rays ({float(p.float().mean()):.3f} occluded)")
+    sm.check(agree >= min_share, f"{label}: occlusion agrees on "
+             f"{agree:.6f} of {k.numel()} rays "
+             f"({float(p.float().mean()):.3f} occluded)")
     return float((k.float() - p.float()).abs().max())
 
 
@@ -1069,6 +1086,34 @@ def run_post_loop(dev, cfg, steps: int, replay: int | None = None):
     return deltas, totals, peak, img, ref, loop
 
 
+def k6_boundary_inputs(dev, c: int, layout: str):
+    """A (67, 91, c) image (channels-first in memory for layout "chw")
+    and a 96x128 grid of coordinates on K6's tap boundaries: each an
+    integer from -1 to the edge + 1, that integer 1 ulp up or down, or
+    a random point, per axis."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(40 + c)
+    hs, ws, ho, wo = 67, 91, 96, 128
+
+    def coords(n):
+        k = rs.randint(-1, n + 1, (ho, wo)).astype(np.float32)
+        kind = rs.randint(0, 4, (ho, wo))
+        up = np.nextafter(k, np.float32(np.inf))
+        down = np.nextafter(k, np.float32(-np.inf))
+        rand = (k + rs.uniform(0, 1, (ho, wo))).astype(np.float32)
+        return torch.as_tensor(np.select(
+            [kind == 0, kind == 1, kind == 2], [k, up, down], rand)
+            .astype(np.float32), device=dev)
+
+    src = rs.uniform(-2, 2, (c, hs, ws)).astype(np.float32)
+    img = torch.as_tensor(src, device=dev).permute(1, 2, 0)
+    if layout == "hwc":
+        img = img.contiguous()
+    return img, coords(ws), coords(hs)
+
+
 def post_phases(sm: Smoke, dev, baseline=None) -> tuple:
     """Phases 20-23, the post frame; `baseline` is load_baseline()'s
     library or None.  Returns K6's entry of the kernels line (its ms,
@@ -1125,6 +1170,8 @@ def post_phases(sm: Smoke, dev, baseline=None) -> tuple:
         sm.check(rel <= 1e-5 and bool(torch.isfinite(kv).all()),
                  f"{label}: rel err {rel:.3g} at in-bounds pixels (max abs "
                  f"{err:.3g}), finite everywhere")
+        sm.check(same_bits(kv, pv), f"{label}: values equal to the plain "
+                 f"version's bit for bit on all {kv.numel()} floats")
         # grid_sample's normalized coordinates, in float64 for the check
         # (in float32 their rounding moves a tap by ~1e-6 px, which the
         # moments' steep edges turn into errors far above 1e-5).
@@ -1141,6 +1188,15 @@ def post_phases(sm: Smoke, dev, baseline=None) -> tuple:
         sm.check(rel_gs <= 1e-5, f"{label}: vs grid_sample (float64) rel "
                  f"err {rel_gs:.3g} at in-bounds pixels")
         del kv, pv, scale, gs
+
+    for c, layout in ((1, "hwc"), (3, "chw"), (10, "hwc")):
+        img, px, py = k6_boundary_inputs(dev, c, layout)
+        kv, kvalid = k6.warp_bilinear_kernel(img, px, py)
+        pv, pvalid = k6.warp_bilinear_plain(img, px, py)
+        sm.check(same_bits((kv, kvalid), (pv, pvalid)),
+                 f"tap-boundary coordinates (integers and 1 ulp either "
+                 f"side), C={c} {layout}: values and validity equal to "
+                 f"the plain version's bit for bit on {kv.numel()} floats")
 
     results = {}
     for ph, (w, h, steps) in ((21, (512, 384, 8)), (22, (1920, 1080, 4))):
@@ -2289,14 +2345,14 @@ def profiled_device_ms(fn) -> float:
 
 
 def materials_times(sm: Smoke, dev, ml: dict, sf: dict) -> list:
-    """Phase 35: ms/frame (CUDA events, median of 7 steps) and Mray/s of
+    """Phase 35: ms/frame (CUDA events, median of 3 steps) and Mray/s of
     every configuration of phases 31-34, counted twice: traced rays
     (pixels x (1 + S) per depth, S the shadow rays a ray traces: the
     light samples, or every light) and bench.py's equivalent queries
     (pixels x (1 + L) per depth, bench.py:36-43); the device ms of light
     sampling (the tree's descent against the scan) and of texture
     sampling (torch.profiler); the tree's and the scan's 256-light
-    frames in alternating pairs; the busy share of the many-light
+    frames in 6 alternating pairs; the busy share of the many-light
     frames; K1 and K2 on the many_lights_256 frame's batches against
     their plain versions and bounds.  Returns the kernels line's entries
     for them."""
@@ -2310,7 +2366,7 @@ def materials_times(sm: Smoke, dev, ml: dict, sf: dict) -> list:
     from hrt_tpu_torch.ops import traversal_wide8 as k1
 
     phase("phase 35: many-light, studio and colonnade times (CUDA events, "
-          "median of 7; kernels 10 calls per sample)")
+          "median of 3 for frames, else of 7; kernels 10 calls per sample)")
     for runs, cam in ((ml, Camera(**BENCH_CAM)), (sf, Camera(**STUDIO_CAM))):
         for label, r in runs.items():
             loop = r["loop"]
@@ -2320,7 +2376,7 @@ def materials_times(sm: Smoke, dev, ml: dict, sf: dict) -> list:
                  and nl > cfg.light_samples else nl)
             d = cfg.max_depth if cfg.indirect else 1
             px = cfg.width * cfg.height * cfg.spp
-            ms = time_ms(lambda: loop.step(cam))
+            ms = time_ms(lambda: loop.step(cam), reps=3)
             print(f"  {label} {cfg.width}x{cfg.height}: {ms:.4f} ms/frame; "
                   f"traced rays {px * (1 + s) * d} = "
                   f"{px * (1 + s) * d / ms / 1e3:.2f} Mray/s; equivalent "
@@ -2335,14 +2391,15 @@ def materials_times(sm: Smoke, dev, ml: dict, sf: dict) -> list:
              for k in ("many_lights_256 bvh", "many_lights_256 auto (scan)")}
     tree, scan = steps.values()
     t, c = [], []
-    for p in range(10):
+    pairs = 6
+    for p in range(pairs):
         for fn in ((tree, scan) if p % 2 == 0 else (scan, tree)):
             (t if fn is tree else c).append(time_ms(fn, reps=1))
-    print(f"  many_lights_256 at 512x384, 10 pairs alternating: median tree "
-          f"{statistics.median(t):.4f} ms/frame, scan "
+    print(f"  many_lights_256 at 512x384, {pairs} pairs alternating: median "
+          f"tree {statistics.median(t):.4f} ms/frame, scan "
           f"{statistics.median(c):.4f} (tree / scan "
           f"{statistics.median(t) / statistics.median(c):.4f}); tree faster "
-          f"in {sum(a < b for a, b in zip(t, c))} of 10", flush=True)
+          f"in {sum(a < b for a, b in zip(t, c))} of {pairs}", flush=True)
     for label, r in ml.items():
         loop, b = r["loop"], r["batch"]
         sh = b["hits"]
@@ -4077,6 +4134,122 @@ def entry_points_phase(sm: Smoke, dev, smi: str) -> dict:
             "bigscene": big}
 
 
+def array_api_phase(sm: Smoke, dev, bench: dict, tl, g_shadow) -> None:
+    """Phase 46: the JAX package's array-form API on the card at full
+    width, on the bench frame's scene, accel (K1) and 512x384 config,
+    the same accel without its BVH8 table (K3) and the instanced grid's
+    TwoLevelFlat (K4)."""
+    import dataclasses
+
+    import torch
+
+    from hrt_tpu_torch import renderer
+    from hrt_tpu_torch.models import camera
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.ops import shade_kernel, traversal
+    from hrt_tpu_torch.ops import traversal_skip as k3
+    from hrt_tpu_torch.ops import traversal_tlas8 as k4
+    from hrt_tpu_torch.ops import traversal_wide8 as k1
+    from hrt_tpu_torch.ops.intersect import INF
+    from hrt_tpu_torch.ops.v3 import V3
+
+    scene, accel, cfg = bench["scene"], bench["accel"], bench["cfg"]
+    phase(f"phase 46: the array-form API at {cfg.width}x{cfg.height}: "
+          "render_frame, the trace dispatches, closest_hit_bvh and "
+          "traversal_skip's entry points through K1, K3 and K4")
+    counters = {"k1": k1.LAUNCHES, "k3": k3.LAUNCHES, "k4": k4.LAUNCHES,
+                "k2": shade_kernel.LAUNCHES}
+    counts = lambda: {f"{n}_{m}": c for n, t in counters.items()
+                      for m, c in t.items()}
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, dev)
+
+    reset(*counters.values())
+    img = renderer.render_frame(scene, accel, cams, 0, cfg)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts().items() if v}
+    sm.check(got == {"k1_closest": 1, "k1_any_hit": 1,
+                     "k2_brdf_light_major": 1},
+             f"render_frame: launches {got}")
+    ref = renderer.render_frames(scene, accel, cams, 0, 1, cfg)[0]
+    sm.check(tuple(img.shape) == (cfg.height, cfg.width, 3)
+             and img.device == ref.device and same_bits(img, ref),
+             f"render_frame {tuple(img.shape)} equals render_frames(..., 0, "
+             "1)[0] bit for bit")
+    p = psnr4(img, renderer.render_frame(scene, accel, cams, 0, cfg,
+                                         plain=True))
+    sm.check(p > 45.0, f"render_frame vs its plain replay PSNR {p:.2f}")
+
+    o, d = camera.primary_rays(*cams, cfg.width, cfg.height)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    n = o.shape[0]
+    planes = lambda a: V3(*a.T.contiguous())
+    sh = bench["shadow"]
+    so, sd, reach = torch.stack(sh[0:3], 1), torch.stack(sh[3:6], 1), sh[6]
+    print(f"  {n} primary rays (N, 3), {so.shape[0]} light-major shadow "
+          "rays", flush=True)
+    accel3 = dataclasses.replace(accel, w8=None, w8_rec=None, w8_depth=0)
+    t_min = cfg.t_min
+    for kname, acc, walk in (("K1", accel, "k1"), ("K3", accel3, "k3")):
+        calls = {
+            "trace_closest": (
+                lambda: renderer.trace_closest(scene, acc, o, d, t_min, INF,
+                                               cfg),
+                lambda: renderer.trace_closest_p(scene, acc, planes(o),
+                                                 planes(d), t_min, INF, cfg)),
+            "closest_hit_bvh": (
+                lambda: traversal.closest_hit_bvh(scene, acc, o, d, t_min,
+                                                  INF),
+                lambda: traversal.closest_hit_bvh_p(
+                    scene, acc, planes(o), planes(d), t_min, INF)),
+            "traversal_skip.closest_hit": (
+                lambda: k3.closest_hit(scene, acc, o, d, t_min, INF),
+                lambda: k3.closest_hit_p(scene, acc, planes(o), planes(d),
+                                         t_min, INF)),
+            "trace_any": (
+                lambda: renderer.trace_any(scene, acc, so, sd, t_min, reach,
+                                           cfg),
+                lambda: renderer.trace_any_p(scene, acc, planes(so),
+                                             planes(sd), t_min, reach, cfg)),
+            "any_hit_bvh": (
+                lambda: traversal.any_hit_bvh(scene, acc, so, sd, t_min,
+                                              reach),
+                lambda: traversal.any_hit_bvh_p(
+                    scene, acc, planes(so), planes(sd), t_min, reach)),
+            "traversal_skip.any_hit": (
+                lambda: k3.any_hit(scene, acc, so, sd, t_min, reach),
+                lambda: k3.any_hit_p(scene, acc, planes(so), planes(sd),
+                                     t_min, reach))}
+        reset(*counters.values())
+        res = {name: (arr(), pl()) for name, (arr, pl) in calls.items()}
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        sm.check(got == {f"{walk}_closest": 6, f"{walk}_any_hit": 6},
+                 f"{kname}: the 12 array and planar calls launched {got}")
+        for name, (arr, pl) in res.items():
+            sm.check(same_bits(arr, pl), f"{kname} {name}: equal to its _p "
+                     "form bit for bit")
+        check_closest(sm, f"{kname} trace_closest vs its plain replay",
+                      res["trace_closest"][0], renderer.trace_closest(
+                          scene, acc, o, d, t_min, INF, cfg, plain=True),
+                      min_share=0.99999)
+        check_occlusion(sm, f"{kname} trace_any vs its plain replay",
+                        res["trace_any"][0], renderer.trace_any(
+                            scene, acc, so, sd, t_min, reach, cfg,
+                            plain=True), min_share=0.99999)
+        del res
+
+    gso, gsd, greach = V3(*g_shadow[0:3]), V3(*g_shadow[3:6]), g_shadow[6]
+    reset(*counters.values())
+    occ = renderer.trace_any_p(None, tl, gso, gsd, t_min, greach, cfg)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts().items() if v}
+    sm.check(got == {"k4_any_hit": 1},
+             f"K4 trace_any_p on the instanced TwoLevelFlat: launches {got}")
+    check_occlusion(sm, "K4 trace_any_p vs its plain replay", occ,
+                    renderer.trace_any_p(None, tl, gso, gsd, t_min, greach,
+                                         cfg, plain=True), min_share=0.99999)
+
+
 def main() -> int:
     import torch
 
@@ -4792,6 +4965,7 @@ def main() -> int:
         {"k3": (cloop, orbit_cam(steps - 1)), "k4": (loop, cam)}, times,
         {**bench["ops"], **k3_ops, **k4_ops})
     entry_points_phase(sm, dev, smi)
+    array_api_phase(sm, dev, bench, tl, g_shadow)
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,

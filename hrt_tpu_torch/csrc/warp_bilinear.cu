@@ -12,7 +12,9 @@
 // clamped corner (clip(floor(py), 0, Hs-1), clip(floor(px), 0, Ws-1))
 // and its right, lower and diagonal neighbours, each edge-clamped as
 // `_shift` clamps them; weights from the unclamped fractions; the four
-// products summed in `_bilinear`'s order; valid = 0 <= px <= Ws-1 and
+// products summed in `_bilinear`'s order, each operation rounded on its
+// own (`tap_sum`), so that the result equals the plain version's bit
+// for bit; valid = 0 <= px <= Ws-1 and
 // 0 <= py <= Hs-1.  Out-of-bounds pixels keep the clamped taps' value,
 // as `_bilinear` does (SVGF reads it before it masks).
 //
@@ -133,6 +135,21 @@ __device__ __forceinline__ void bilinear_taps(float x, float y, int hs,
                    yd * sy + xi * sx, yd * sy + xr * sx);
 }
 
+// The weighted sum of the four taps at src + o.{x,y,z,w}, rounded as
+// the plain version (ops/warp_kernel.py `warp_bilinear_plain`) rounds
+// it: each product, then ((p00 + p10) + p01) + p11, one rounding an
+// operation.  The intrinsics keep nvcc from contracting a product and
+// an add into an FMA, which rounds once and so differs in the last bit
+// from the plain version; the recurrent fine-tune carries such bits
+// through 16 frames into its gradients.
+__device__ __forceinline__ float tap_sum(const float* src, int4 o,
+                                         float4 w) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(__ldg(src + o.x), w.x),
+                                       __fmul_rn(__ldg(src + o.y), w.y)),
+                             __fmul_rn(__ldg(src + o.z), w.z)),
+                   __fmul_rn(__ldg(src + o.w), w.w));
+}
+
 // img is read at y * sy + x * sx + k * sc (strides in floats).
 __global__ void __launch_bounds__(kThreads)
 warp_bilinear_kernel(const float* __restrict__ img, int hs, int ws, int c,
@@ -168,9 +185,7 @@ warp_bilinear_kernel(const float* __restrict__ img, int hs, int ws, int c,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (e + j < m) {
-        const float* src = img + k * sc;
-        r[j] = __ldg(src + o.x) * w.x + __ldg(src + o.y) * w.y +
-               __ldg(src + o.z) * w.z + __ldg(src + o.w) * w.w;
+        r[j] = tap_sum(img + k * sc, o, w);
       }
       if (++k == c) {  // the next float is the next pixel's channel 0
         k = 0;

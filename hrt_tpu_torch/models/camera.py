@@ -91,3 +91,41 @@ def primary_rays_from_px_p(origin, basis, tan_half_fovy, aspect,
     ones = torch.ones_like(px)
     origins = V3(origin[0] * ones, origin[1] * ones, origin[2] * ones)
     return origins, dirs
+
+
+def _pixel_grid(origin, width: int, height: int, jitter, y0, rows):
+    """The (rows, width) pixel-coordinate planes of rows [y0, y0 + rows),
+    plus the jitter planes (jx, jy) when given."""
+    rows = height if rows is None else rows
+    dev = origin.device
+    px = torch.arange(width, dtype=torch.float32, device=dev)[None, :] \
+        .expand(rows, width)
+    py = (torch.as_tensor(y0, dtype=torch.float32, device=dev)
+          + torch.arange(rows, dtype=torch.float32, device=dev))[:, None] \
+        .expand(rows, width)
+    if jitter is not None:
+        px = px + jitter[0]
+        py = py + jitter[1]
+    return px, py
+
+
+def primary_rays(origin, basis, tan_half_fovy, aspect, width: int,
+                 height: int, jitter=None, y0=0, rows: int | None = None):
+    """Camera rays of rows [y0, y0 + rows) (all rows by default) through
+    the pixels' integer corners, offset by `jitter` ((rows, width, 2),
+    x then y) when given -> (origins, directions), each (rows, width,
+    3).  The array form of primary_rays_p."""
+    if jitter is not None:
+        jitter = (jitter[..., 0], jitter[..., 1])
+    o, d = primary_rays_p(origin, basis, tan_half_fovy, aspect, width,
+                          height, jitter, y0, rows)
+    return o.to_array(), d.to_array()
+
+
+def primary_rays_p(origin, basis, tan_half_fovy, aspect, width: int,
+                   height: int, jitter=None, y0=0, rows: int | None = None):
+    """primary_rays as V3s of (rows, width) planes; `jitter` is a (jx,
+    jy) pair of planes."""
+    px, py = _pixel_grid(origin, width, height, jitter, y0, rows)
+    return primary_rays_from_px_p(origin, basis, tan_half_fovy, aspect,
+                                  width, height, px, py)

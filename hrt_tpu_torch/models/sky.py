@@ -9,8 +9,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.math3d import normalize
 from ..ops.v3 import V3
 
+# The JAX package's table width constant (its 20 leading columns; the
+# table itself is SKY_W_FULL wide, glow size and light radiance last).
+SKY_W = 20
 SKY_COLOR = slice(0, 3)
 HORIZON_COLOR = slice(3, 6)
 GROUND_COLOR = slice(6, 9)
@@ -44,18 +48,13 @@ def default_sky() -> np.ndarray:
     return s
 
 
-def _normalize3(a: torch.Tensor) -> torch.Tensor:
-    return a * torch.reciprocal(torch.sqrt(torch.clamp(
-        torch.sum(a * a), min=1e-8)))
-
-
 def eval_sky_p(sky: torch.Tensor, d: V3, enabled: bool = True) -> V3:
     """Sky radiance for a V3 of unit directions."""
     if not enabled:
         z = torch.zeros_like(d.x)
         return V3(z, z, z)
-    up = _normalize3(sky[UP_DIRECTION])
-    sun = _normalize3(sky[SUN_DIRECTION])
+    up = normalize(sky[UP_DIRECTION])
+    sun = normalize(sky[SUN_DIRECTION])
     elev = d.x * up[0] + d.y * up[1] + d.z * up[2]
     horizon_size = torch.clamp(sky[HORIZON_SIZE], min=1e-3)
     t_sky = torch.clamp(elev / horizon_size, 0.0, 1.0)
@@ -77,3 +76,14 @@ def eval_sky_p(sky: torch.Tensor, d: V3, enabled: bool = True) -> V3:
     above = (elev > -horizon_size).to(torch.float32)
     sun_term = (disc + glow) * above
     return base * sky[BRIGHTNESS] + sun_term
+
+
+def eval_sky(sky: torch.Tensor, directions: torch.Tensor,
+             enabled: bool = True) -> torch.Tensor:
+    """Sky radiance for unit directions (..., 3) -> (..., 3); zeros of
+    the directions' shape when not enabled.  The array form of
+    eval_sky_p."""
+    if not enabled:
+        return torch.zeros(directions.shape, dtype=torch.float32,
+                           device=directions.device)
+    return eval_sky_p(sky, V3.from_array(directions)).to_array()

@@ -32,6 +32,14 @@ def gtr1(ndoth, a):
     return torch.where(a >= 1.0, ONE_OVER_PI, val)
 
 
+def gtr2(ndoth, a):
+    """Normalized isotropic GTR2 / GGX (the JAX package's correct form;
+    the reference's unused GTR2 lacks the square on the denominator)."""
+    a2 = a * a
+    d = 1.0 + (a2 - 1.0) * ndoth * ndoth
+    return a2 / (PI * d * d)
+
+
 def gtr2_anisotropic(ndoth, hdotx, hdoty, ax, ay):
     s = (hdotx / ax) ** 2 + (hdoty / ay) ** 2 + ndoth * ndoth
     return 1.0 / (PI * ax * ay * s * s)
@@ -125,3 +133,13 @@ def brdf_p(mat: MatP, n: V3, v: V3, l: V3, frame=None) -> V3:
            * (1.0 - mat.metallic) + specular + clearcoat)
     visible = (ndotl > 0.0) & (ndotv > 0.0)
     return v3.where(visible, out, 0.0)
+
+
+def brdf(mat, n, v, l, frame=None):
+    """brdf_p on arrays: `mat` (..., MAT_W) gathered material rows,
+    n / v / l (..., 3), `frame` an optional (tangent, bitangent) pair of
+    (..., 3) arrays.  Returns (..., 3)."""
+    fr = None if frame is None else tuple(map(V3.from_array, frame))
+    out = brdf_p(MatP.from_rows_t(torch.movedim(mat, -1, 0)), V3.from_array(n),
+                 V3.from_array(v), V3.from_array(l), frame=fr)
+    return out.to_array()

@@ -8,6 +8,8 @@ import os
 
 import torch
 
+from .math3d import cross
+
 INF = 1e32      # ref: shaders/constants.slang (INFINITE)
 TMIN = 1e-3
 _DET_EPS = 1e-12
@@ -47,13 +49,6 @@ def unpack_counts(buf: torch.Tensor, n: int, ray_names,
     return out
 
 
-def _cross(a, b):
-    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
-    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
-    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
-                        ax * by - ay * bx], dim=-1)
-
-
 def _dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] \
         + a[..., 2] * b[..., 2]
@@ -63,18 +58,29 @@ def moller_trumbore(ray_o, ray_d, v0, e1, e2, t_min, t_max):
     """Batched Möller-Trumbore over broadcast (..., 3) arguments.
     Returns (hit, t, u, v).  Degenerate (zero-padded) triangles never
     hit.  No culling: the reference traces without backface flags."""
-    pvec = _cross(ray_d, e2)
+    pvec = cross(ray_d, e2)
     det = _dot(e1, pvec)
     ok = torch.abs(det) > _DET_EPS
     inv_det = torch.where(ok, 1.0 / det, 0.0)
     tvec = ray_o - v0
     u = _dot(tvec, pvec) * inv_det
-    qvec = _cross(tvec, e1)
+    qvec = cross(tvec, e1)
     v = _dot(ray_d, qvec) * inv_det
     t = _dot(e2, qvec) * inv_det
     hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) \
         & (t > t_min) & (t < t_max)
     return hit, t, u, v
+
+
+def ray_aabb(ray_o, inv_d, box_min, box_max, t_min, t_max):
+    """Branch-free slab test over broadcast (..., 3) arguments; inv_d is
+    1 / ray_d (+-inf where a component is 0 is fine); t_min and t_max
+    are numbers or tensors that broadcast.  Returns (hit, t_entry)."""
+    t0 = (box_min - ray_o) * inv_d
+    t1 = (box_max - ray_o) * inv_d
+    entry = torch.clamp(torch.amax(torch.minimum(t0, t1), dim=-1), min=t_min)
+    exit_ = torch.clamp(torch.amin(torch.maximum(t0, t1), dim=-1), max=t_max)
+    return entry <= exit_, entry
 
 
 def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
@@ -83,6 +89,15 @@ def safe_inv_dir(d: torch.Tensor) -> torch.Tensor:
     safe = torch.where(torch.abs(d) < tiny,
                        torch.where(d < 0, -tiny, tiny), d)
     return 1.0 / safe
+
+
+def pick_chunk(t_total: int, want: int) -> int:
+    """The largest of `want`, 1024, 512, ..., 1 that is at most `want`
+    and divides `t_total`."""
+    for c in (want, 1024, 512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if c <= want and t_total % c == 0:
+            return c
+    return 1
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""Importance samplers for bounce directions (hrt_tpu/ops/sampling.py,
-its planar cores): the cosine-weighted hemisphere and the Dupuy-Benyoub
+"""Importance samplers for bounce directions (hrt_tpu/ops/sampling.py):
+the cosine-weighted hemisphere and the Dupuy-Benyoub
 spherical-cap GGX-VNDF sampler with anisotropic roughness and its G2/G1
-weight (ref: shaders/sampler.slang:23-93).  Plain torch on planes; the
-bounce loop of renderer.trace_paths runs them on the card as they are.
+weight (ref: shaders/sampler.slang:23-93).  Plain torch: the planar
+cores (`_p`, on V3 planes), which the bounce loop of
+renderer.trace_paths runs on the card as they are, and the JAX
+package's (..., 3)-array signatures, which wrap them.
 """
 from __future__ import annotations
 
@@ -90,3 +92,36 @@ def ggx_vndf_spherical_cap_p(mat: MatP, v_world: V3, n_world: V3, u0, u1,
     wi = wm * (2.0 * v3.dot(wo, wm)) - wo
     weight = torch.where(wi.z > 0.0, _vndf_ratio_p(mat, wo, wi), 0.0)
     return v3.to_world(wi, n_world, frame), weight
+
+
+# ---------------------------------------------------------------------------
+# Array forms: (..., 3) vectors and (..., MAT_W) material rows, the JAX
+# package's signatures over the planar cores above.
+# ---------------------------------------------------------------------------
+
+def _mat_rows(mat) -> MatP:
+    return MatP.from_rows_t(torch.movedim(mat, -1, 0))
+
+
+def cosine_hemisphere(u0, u1):
+    """cosine_hemisphere_p with the direction as (..., 3)."""
+    d, pdf = cosine_hemisphere_p(u0, u1)
+    return d.to_array(), pdf
+
+
+def anisotropic_from_material(mat):
+    """(ax, ay) of material rows (..., MAT_W)."""
+    return _aniso_p(_mat_rows(mat))
+
+
+def ggx_vndf_pdf_ratio(mat, wo, wi):
+    """G2/G1 of material rows and local-frame wo / wi (..., 3)."""
+    return _vndf_ratio_p(_mat_rows(mat), V3.from_array(wo), V3.from_array(wi))
+
+
+def ggx_vndf_spherical_cap(mat, v_world, n_world, u0, u1):
+    """ggx_vndf_spherical_cap_p on material rows and (..., 3) vectors:
+    the world direction (..., 3) and its weight."""
+    wi, weight = ggx_vndf_spherical_cap_p(
+        _mat_rows(mat), V3.from_array(v_world), V3.from_array(n_world), u0, u1)
+    return wi.to_array(), weight

@@ -1,5 +1,8 @@
 """Closest-hit and occlusion queries over an Accel, with the JAX
-package's planar signatures (hrt_tpu/ops/traversal.py).
+package's signatures (hrt_tpu/ops/traversal.py): the planar `_p` forms
+(rays as V3s of (N,) planes) and the array forms (rays (N, 3)), which
+wrap them.  The JAX package's `use_pallas` switch has no counterpart:
+every form walks the accel's tables.
 
 The walk follows the accel's tables, as the JAX package routes them: an
 Accel with a BVH8 table goes to K1 (ops/traversal_wide8.py), one without
@@ -47,3 +50,18 @@ def any_hit_bvh_p(scene, accel, o: V3, d: V3, t_min, t_max,
     """Occlusion of the segments (t_min, t_max): bool (N,)."""
     return _walk(accel, plain)(accel, *_planes(o, d, t_max),
                                float(t_min), False)
+
+
+def closest_hit_bvh(scene, accel, o, d, t_min, t_max,
+                    sorted_ids: bool = False, plain: bool = False):
+    """closest_hit_bvh_p on (N, 3) rays."""
+    return closest_hit_bvh_p(scene, accel, V3.from_array(o),
+                             V3.from_array(d), t_min, t_max,
+                             sorted_ids=sorted_ids, plain=plain)
+
+
+def any_hit_bvh(scene, accel, o, d, t_min, t_max,
+                plain: bool = False) -> torch.Tensor:
+    """any_hit_bvh_p on (N, 3) rays."""
+    return any_hit_bvh_p(scene, accel, V3.from_array(o), V3.from_array(d),
+                         t_min, t_max, plain=plain)

@@ -32,14 +32,21 @@ counts as visit_counts; either keeps them as `LAST_COUNTERS`.
 
 `trace` takes the plain version only for CPU tensors; CUDA tensors
 always launch the kernel (and raise if it fails).
+
+`closest_hit`, `any_hit`, `closest_hit_p` and `any_hit_p` are the JAX
+module's scene-level entry points: like it, they walk an accel with a
+BVH8 table by K1 (ops/traversal_wide8.py) and any other by K3, as
+ops/traversal.py routes them (they call it; `plain=True` replays the
+walk through the plain versions).
 """
 from __future__ import annotations
 
 import torch
 
 from . import intersect
-from .intersect import (_DET_EPS, _cross, _dot, leaf_hits,
-                        leaf_test_counts, safe_inv_dir, slab_hit)
+from .intersect import (_DET_EPS, _dot, leaf_hits, leaf_test_counts,
+                        safe_inv_dir, slab_hit)
+from .math3d import cross
 
 # Launches of the CUDA kernel by mode: of its normal build, and of its
 # counting build; the plain version never counts.
@@ -136,11 +143,11 @@ def moller_scaled(ray_o, ray_d, v0, e1, e2, t_min, t_max):
     1 / det, held to `moller_trumbore`'s conditions.  Returns (hit, t,
     u, v).  Only the tests call it: the plain walk keeps
     `moller_trumbore`."""
-    pvec = _cross(ray_d, e2)
+    pvec = cross(ray_d, e2)
     det = _dot(e1, pvec)
     tvec = ray_o - v0
     uu = _dot(tvec, pvec)
-    qvec = _cross(tvec, e1)
+    qvec = cross(tvec, e1)
     vv = _dot(ray_d, qvec)
     tt = _dot(e2, qvec)
     adet = torch.abs(det)
@@ -246,3 +253,38 @@ def trace(accel, ox, oy, oz, dx, dy, dz, tmax, t_min: float,
         raise ValueError(f"no skip-link walk for device {ox.device}")
     return trace_plain(accel, ox, oy, oz, dx, dy, dz, tmax, t_min,
                        find_closest)
+
+
+def closest_hit_p(scene, accel, o, d, t_min, t_max,
+                  sorted_ids: bool = False, plain: bool = False):
+    """(t, tri, u, v) of the closest hits of V3 rays: K1 on an accel with
+    a BVH8 table, else K3; original ids unless `sorted_ids`."""
+    from . import traversal
+
+    return traversal.closest_hit_bvh_p(scene, accel, o, d, t_min, t_max,
+                                       sorted_ids=sorted_ids, plain=plain)
+
+
+def any_hit_p(scene, accel, o, d, t_min, t_max, plain: bool = False):
+    """Occlusion of V3 rays' segments: bool (N,)."""
+    from . import traversal
+
+    return traversal.any_hit_bvh_p(scene, accel, o, d, t_min, t_max,
+                                   plain=plain)
+
+
+def closest_hit(scene, accel, o, d, t_min, t_max, sorted_ids: bool = False,
+                plain: bool = False):
+    """closest_hit_p on (N, 3) rays."""
+    from . import traversal
+
+    return traversal.closest_hit_bvh(scene, accel, o, d, t_min, t_max,
+                                     sorted_ids=sorted_ids, plain=plain)
+
+
+def any_hit(scene, accel, o, d, t_min, t_max, plain: bool = False):
+    """any_hit_p on (N, 3) rays."""
+    from . import traversal
+
+    return traversal.any_hit_bvh(scene, accel, o, d, t_min, t_max,
+                                 plain=plain)

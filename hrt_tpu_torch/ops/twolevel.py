@@ -26,7 +26,7 @@ import torch
 from ..config import resolve_device
 from ..models.scene import PAD, Scene, SceneData
 from . import lbvh, traversal_skip
-from .intersect import INF, safe_inv_dir, to_object_space
+from .intersect import INF, ray_aabb, safe_inv_dir, to_object_space
 from .math3d import normalize
 
 _ATTRS = ("nrm0", "nrm1", "nrm2", "uv0", "uv1", "uv2")
@@ -131,17 +131,6 @@ def build_two_level(scene: Scene, leaf_size: int = 8,
         blas=tuple(blas), **stacked)
 
 
-def _ray_aabb(o, inv_d, bmin, bmax, t_min: float, t_max):
-    """The JAX package's slab test of rays (N, 3) against one box:
-    whether the entry, clamped to t_min, is at most the exit, clamped to
-    t_max (N,)."""
-    t0 = (bmin - o) * inv_d
-    t1 = (bmax - o) * inv_d
-    entry = torch.clamp(torch.minimum(t0, t1).amax(dim=-1), min=t_min)
-    exit_ = torch.minimum(torch.maximum(t0, t1).amin(dim=-1), t_max)
-    return entry <= exit_
-
-
 def trace_two_level(accel: TwoLevelAccel, o: torch.Tensor, d: torch.Tensor,
                     t_max=INF, t_min: float = 1e-3, find_closest: bool = True,
                     plain: bool = False):
@@ -168,8 +157,8 @@ def trace_two_level(accel: TwoLevelAccel, o: torch.Tensor, d: torch.Tensor,
     walk = traversal_skip.trace_plain if plain else traversal_skip.trace
     mesh_of = accel.inst_mesh.tolist()
     for idx, mesh_id in enumerate(mesh_of):
-        hit_box = _ray_aabb(o, inv_d, accel.inst_bmin[idx],
-                            accel.inst_bmax[idx], t_min, best_t)
+        hit_box = ray_aabb(o, inv_d, accel.inst_bmin[idx],
+                           accel.inst_bmax[idx], t_min, best_t)[0]
         if not find_closest:
             hit_box = hit_box & (best_inst < 0)
         oo, od = to_object_space(accel.obj_from_world[idx].reshape(1, 12),

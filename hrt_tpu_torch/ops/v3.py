@@ -51,6 +51,11 @@ class V3(NamedTuple):
     def __neg__(self):
         return V3(-self.x, -self.y, -self.z)
 
+    @staticmethod
+    def from_array(a: torch.Tensor) -> "V3":
+        """(..., 3) -> V3 of (...,) planes (views of `a`)."""
+        return V3(a[..., 0], a[..., 1], a[..., 2])
+
     def to_array(self) -> torch.Tensor:
         """V3 -> (..., 3)."""
         return torch.stack(torch.broadcast_tensors(self.x, self.y, self.z),

@@ -11,7 +11,10 @@ the work out for coalesced access: a block per tile of 128 output
 pixels computes their taps and weights once into shared memory, then
 its threads run over the tile's contiguous (pixel, channel) output
 floats, four each, with 16-byte stores; it reads the image through its
-strides, so a channels-first history is not copied first.
+strides, so a channels-first history is not copied first.  Its tap sum
+and its adjoint's products round each operation as the plain version
+does (no FMA contraction), so its forward equals `warp_bilinear_plain`
+bit for bit on the card.
 
 Contract: warp an (Hs, Ws, C) float32 image to the (Ho, Wo) grid of
 float source coordinates (px, py), corner convention (pixel (i, j)'s

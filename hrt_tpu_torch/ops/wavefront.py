@@ -1,5 +1,7 @@
 """The sorted bounce wavefront's key (hrt_tpu/ops/wavefront.py
-`bounce_sort_key_p`), bit for bit.  The JAX module's block layouts
+`bounce_sort_key_p`) and the direction-octant key
+(`direction_order_key`, `direction_order_key_p`), bit for bit.  The JAX
+module's block layouts
 (`to_blocks`, `walk_block_*`) arrange rays for the TPU's packet tiles
 and have no counterpart here: the port sorts the wavefront by this key
 with one torch.sort and index gathers (renderer.trace_paths).
@@ -42,3 +44,16 @@ def bounce_sort_key_p(o: V3, d: V3) -> torch.Tensor:
             if level < b:
                 out = (out << 1) | ((v >> level) & 1)
     return out
+
+
+def direction_order_key(d: torch.Tensor) -> torch.Tensor:
+    """float32 sort key of directions (N, 3) clustering rays by octant,
+    then by 4 dy + dz."""
+    return direction_order_key_p(V3(d[:, 0], d[:, 1], d[:, 2]))
+
+
+def direction_order_key_p(d: V3) -> torch.Tensor:
+    """direction_order_key of a V3 of planes."""
+    octant = ((d.x > 0).to(torch.int32) | ((d.y > 0).to(torch.int32) << 1)
+              | ((d.z > 0).to(torch.int32) << 2))
+    return octant.to(torch.float32) * 16.0 + (d.y * 4.0 + d.z)

@@ -35,6 +35,11 @@ tensors are on, which is how a reference frame is rendered on the card.
 `trace_paths` and `render_rows` also return the first hit's G-buffer
 when asked (`want_gbuffer`), for the post stages (ops/denoise.py,
 models/upscaler.py).
+
+The JAX module's dispatches keep their names and argument order:
+`trace_closest_p` / `trace_any_p`, through which every trace of the
+frame goes, their (N, 3)-array forms `trace_closest` / `trace_any`,
+`interpolate_hit`, and `render_frame`, one frame of `render_frames`.
 """
 from __future__ import annotations
 
@@ -49,8 +54,8 @@ from .models.materials import BASE_COLOR_TEX, ROUGHNESS_MIN, MatP
 from .models.scene import Scene, SceneData
 from .models.sky import eval_sky_p
 from .models.textures import sample_texture_p
-from .ops import (intersect, lbvh, lightbvh, pbr, rng, sampling, shade_kernel,
-                  tlas, traversal, v3, wavefront)
+from .ops import (intersect, lbvh, lightbvh, math3d, pbr, rng, sampling,
+                  shade_kernel, tlas, traversal, v3, wavefront)
 from .ops.disney import schlick_weight
 from .ops.intersect import INF
 from .ops.lbvh import ATTR_MAT, Accel
@@ -86,11 +91,11 @@ def _brute_force(config: RenderConfig, accel) -> bool:
                              and not isinstance(accel, TwoLevelFlat))
 
 
-def _brute_blocks(scene: SceneData, o: V3, d: V3, t_max,
+def _brute_blocks(scene: SceneData, o: V3, d: V3, t_min, t_max,
                   config: RenderConfig, closest: bool):
     """The brute-force walk over BRUTE_BLOCK-ray blocks, the triangles
     `min(tri_chunk, T)` at a time: (t, tri (original id), u, v) of the
-    closest hits, or the occlusion mask."""
+    closest hits within (t_min, t_max), or the occlusion mask."""
     ro, rd = o.to_array(), d.to_array()
     n = ro.shape[0]
     tmax = torch.broadcast_to(torch.as_tensor(
@@ -99,12 +104,75 @@ def _brute_blocks(scene: SceneData, o: V3, d: V3, t_max,
             else intersect.any_hit_bruteforce)
     chunk = min(config.tri_chunk, scene.num_triangles)
     outs = [walk(ro[s:s + BRUTE_BLOCK], rd[s:s + BRUTE_BLOCK],
-                 scene.tri_v0, scene.tri_e1, scene.tri_e2, config.t_min,
+                 scene.tri_v0, scene.tri_e1, scene.tri_e2, t_min,
                  tmax[s:s + BRUTE_BLOCK], chunk=chunk)
             for s in range(0, n, BRUTE_BLOCK)]
     if closest:
         return tuple(torch.cat(parts) for parts in zip(*outs))
     return torch.cat(outs)
+
+
+def trace_closest_p(scene: SceneData, accel, o: V3, d: V3, t_min, t_max,
+                    config: RenderConfig, sorted_ids: bool = False,
+                    plain: bool = False):
+    """Closest hits within (t_min, t_max) of V3 rays, routed as every
+    trace of the frame: a TwoLevelFlat to its walk (K4 or K5:
+    tlas.closest_hit_tlas, returning (t, tri, inst, u, v) with global
+    pool ids); brute force with no accel or traversal="bruteforce"
+    ((t, tri, u, v), original ids whatever `sorted_ids`); else the
+    accel's walk (K1 or K3: traversal.closest_hit_bvh_p, leaf-pool ids
+    with `sorted_ids`, else original ids).  `plain=True` runs the walks'
+    plain versions on any device."""
+    if isinstance(accel, TwoLevelFlat):
+        return tlas.closest_hit_tlas(accel, o, d, t_min, t_max, plain=plain)
+    if _brute_force(config, accel):
+        return _brute_blocks(scene, o, d, t_min, t_max, config, True)
+    return traversal.closest_hit_bvh_p(scene, accel, o, d, t_min, t_max,
+                                       sorted_ids=sorted_ids, plain=plain)
+
+
+def trace_closest(scene: SceneData, accel, o, d, t_min, t_max,
+                  config: RenderConfig, sorted_ids: bool = False,
+                  plain: bool = False):
+    """trace_closest_p on (N, 3) rays."""
+    return trace_closest_p(scene, accel, V3.from_array(o), V3.from_array(d),
+                           t_min, t_max, config, sorted_ids=sorted_ids,
+                           plain=plain)
+
+
+def trace_any_p(scene: SceneData, accel, o: V3, d: V3, t_min, t_max,
+                config: RenderConfig, plain: bool = False) -> torch.Tensor:
+    """Occlusion of V3 rays' segments (t_min, t_max), bool (N,), routed
+    as trace_closest_p routes: a TwoLevelFlat's walk (K4 or K5), brute
+    force, else the accel's walk (K1 or K3)."""
+    if isinstance(accel, TwoLevelFlat):
+        return tlas.any_hit_tlas(accel, o, d, t_min, t_max, plain=plain)
+    if _brute_force(config, accel):
+        return _brute_blocks(scene, o, d, t_min, t_max, config, False)
+    return traversal.any_hit_bvh_p(scene, accel, o, d, t_min, t_max,
+                                   plain=plain)
+
+
+def trace_any(scene: SceneData, accel, o, d, t_min, t_max,
+              config: RenderConfig, plain: bool = False) -> torch.Tensor:
+    """trace_any_p on (N, 3) rays."""
+    return trace_any_p(scene, accel, V3.from_array(o), V3.from_array(d),
+                       t_min, t_max, config, plain=plain)
+
+
+def interpolate_hit(scene: SceneData, tri_idx, u, v):
+    """The hits' unit interpolated normal (N, 3), uv (N, 2) and material
+    id (N,) int32, by original triangle id, from one gather of the
+    scene's packed (T, 16) attribute rows."""
+    attr = torch.cat([scene.nrm0, scene.nrm1, scene.nrm2, scene.uv0,
+                      scene.uv1, scene.uv2,
+                      scene.tri_mat[:, None].to(torch.float32)], dim=1)
+    rows = attr[tri_idx.clamp(min=0).long()]
+    w = (1.0 - u - v)[..., None]
+    wu, wv = u[..., None], v[..., None]
+    normal = w * rows[:, 0:3] + wu * rows[:, 3:6] + wv * rows[:, 6:9]
+    uv = w * rows[:, 9:11] + wu * rows[:, 11:13] + wv * rows[:, 13:15]
+    return math3d.normalize(normal), uv, rows[:, 15].to(torch.int32)
 
 
 def _scene_attr_table(scene: SceneData) -> torch.Tensor:
@@ -305,16 +373,8 @@ def direct_lighting_p(scene: SceneData, accel, mat: MatP, rows, n: V3,
         return _zero3(n.x), seed
     lb, seed = nee_light_batch(scene, n, world_pos, config, ray_mask, seed)
     f_lm = _brdf_lm(config, mat, rows, n, view, lb, plain)
-    if isinstance(accel, TwoLevelFlat):
-        occluded = tlas.any_hit_tlas(accel, lb.origin, lb.l, config.t_min,
-                                     lb.t_max, plain=plain)
-    elif _brute_force(config, accel):
-        occluded = _brute_blocks(scene, lb.origin, lb.l, lb.t_max, config,
-                                 False)
-    else:
-        occluded = traversal.any_hit_bvh_p(scene, accel, lb.origin, lb.l,
-                                           config.t_min, lb.t_max,
-                                           plain=plain)
+    occluded = trace_any_p(scene, accel, lb.origin, lb.l, config.t_min,
+                           lb.t_max, config, plain=plain)
     nr = n.x.shape[0]
     out = _zero3(n.x)
     for i in range(len(lb.color)):
@@ -353,20 +413,17 @@ def surface_hits(scene: SceneData, accel, o: V3, d: V3,
     original id from _scene_attr_table.  In a textured scene
     the base color is multiplied by the hit material's texture at the
     hit's UV (1 where the material has none)."""
+    hits = trace_closest_p(scene, accel, o, d, config.t_min, t_max, config,
+                           sorted_ids=True, plain=plain)
     if isinstance(accel, TwoLevelFlat):
-        t, tri, inst, u, v = tlas.closest_hit_tlas(
-            accel, o, d, config.t_min, t_max, plain=plain)
+        t, tri, inst, u, v = hits
         nrm, mat, rows, (tu, tv) = tlas.shade_attrs_tlas(
             accel, scene.materials, tri, inst, u, v)
-    elif _brute_force(config, accel):
-        t, tri, u, v = _brute_blocks(scene, o, d, t_max, config, True)
-        nrm, mat, rows, (tu, tv) = _shade_attrs_p(_scene_attr_table(scene),
-                                                  tri, u, v)
     else:
-        t, tri, u, v = traversal.closest_hit_bvh_p(
-            scene, accel, o, d, config.t_min, t_max, sorted_ids=True,
-            plain=plain)
-        nrm, mat, rows, (tu, tv) = _shade_attrs_p(accel.attr, tri, u, v)
+        t, tri, u, v = hits
+        tab = (_scene_attr_table(scene) if _brute_force(config, accel)
+               else accel.attr)
+        nrm, mat, rows, (tu, tv) = _shade_attrs_p(tab, tri, u, v)
     if scene.textures is not None and scene.textures.shape[0] > 0:
         tex = sample_texture_p(scene.textures,
                                rows[:, BASE_COLOR_TEX].to(torch.int32),
@@ -660,6 +717,14 @@ def render_frames(scene: SceneData, accel, cam: CameraArrays,
         for i in range(k)])
 
 
+def render_frame(scene: SceneData, accel, cam: CameraArrays, frame: int,
+                 config: RenderConfig, plain: bool = False) -> torch.Tensor:
+    """Render frame `frame` -> (H, W, 3) linear radiance on the scene's
+    device: render_frames(..., frame, 1, config)[0]."""
+    return render_frames(scene, accel, cam, frame, 1, config,
+                         plain=plain)[0]
+
+
 def render(scene_obj, cam: Camera, config: RenderConfig, accel=None,
            frame: int = 0, plain: bool = False, device=None):
     """Host entry: build the scene if needed and render frame `frame` ->
@@ -675,5 +740,5 @@ def render(scene_obj, cam: Camera, config: RenderConfig, accel=None,
     scene = (scene_obj.build(device) if isinstance(scene_obj, Scene)
              else scene_obj)
     cams = camera_arrays(cam, config, device)
-    img = render_frames(scene, accel, cams, frame, 1, config, plain=plain)
-    return img[0].cpu().numpy()
+    return render_frame(scene, accel, cams, frame, config,
+                        plain=plain).cpu().numpy()

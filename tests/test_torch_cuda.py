@@ -201,6 +201,24 @@ def test_kernel_frame_matches_plain_frame(cuda):
                 ref[0].clamp(0, 4).cpu().numpy(), peak=4.0) > 45.0
 
 
+def test_render_frame_is_render_frames_first_frame(cuda):
+    """render_frame (the array-form entry point) on the card: K1 and K2
+    once each, and the frame equal to render_frames(..., 1)[0] bit for
+    bit."""
+    cfg = RenderConfig(width=128, height=96, max_depth=1, sky=True)
+    scene = bench_scene().build(cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, cuda)
+    before = (dict(traversal_wide8.LAUNCHES), dict(shade_kernel.LAUNCHES))
+    img = renderer.render_frame(scene, accel, cams, 3, cfg)
+    assert traversal_wide8.LAUNCHES == {
+        m: c + 1 for m, c in before[0].items()}
+    assert shade_kernel.LAUNCHES == {m: c + 1 for m, c in before[1].items()}
+    ref = renderer.render_frames(scene, accel, cams, 3, 1, cfg)[0]
+    assert img.shape == (96, 128, 3) and img.device.type == "cuda"
+    assert torch.equal(img.view(torch.int32), ref.view(torch.int32))
+
+
 def _instanced_scene():
     """Four transformed instances of two meshes (the JAX package's
     test_tlas scene)."""
@@ -522,8 +540,9 @@ def test_two_level_kernels_match_plain_after_refit(cuda, route, leaf,
 def test_warp_kernel_matches_plain(cuda):
     """K6 at a shape that is no multiple of the block (a 37x53x10 source,
     a 41x67 grid), coordinates in and out of bounds and some at +-1e10:
-    validity identical; values within rel 1e-5 of the taps' absolute
-    weighted sum (nvcc contracts the sum into FMAs) and finite."""
+    validity identical; values finite and equal to the plain version's
+    bit for bit (so within rel 1e-5 of the taps' absolute weighted
+    sum)."""
     from hrt_tpu_torch.ops import warp_kernel
 
     rs = np.random.RandomState(11)
@@ -546,6 +565,7 @@ def test_warp_kernel_matches_plain(cuda):
     assert 0.3 < kvalid.float().mean().item() < 0.95
     assert torch.isfinite(kv).all()
     assert ((kv - pv).abs() <= 1e-5 * scale).all()
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
 
 
 @pytest.mark.parametrize("layout", ["hwc", "chw"])
@@ -555,7 +575,8 @@ def test_warp_kernel_tiles_match_plain(cuda, c, layout):
     the last tile and its last 16-byte store are partial) for each
     channel count, from a contiguous image and from a channels-first
     view (read through its strides): validity identical, values within
-    rel 1e-5 of the taps' absolute weighted sum, finite."""
+    rel 1e-5 of the taps' absolute weighted sum, finite, and equal to
+    the plain version's bit for bit."""
     from hrt_tpu_torch.ops import warp_kernel
 
     rs = np.random.RandomState(13 + c)
@@ -584,6 +605,45 @@ def test_warp_kernel_tiles_match_plain(cuda, c, layout):
     assert 0.3 < kvalid.float().mean().item() < 0.95
     assert torch.isfinite(kv).all()
     assert ((kv - pv).abs() <= 1e-5 * scale).all()
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+
+
+def _tap_boundary_coords(rs, n: int, shape):
+    """Coordinates on K6's tap boundaries along an axis of n pixels: an
+    integer from -1 to n, that integer 1 ulp up or 1 ulp down, or a
+    random point above it, a quarter each."""
+    k = rs.randint(-1, n + 1, shape).astype(np.float32)
+    kind = rs.randint(0, 4, shape)
+    up = np.nextafter(k, np.float32(np.inf))
+    down = np.nextafter(k, np.float32(-np.inf))
+    rand = (k + rs.uniform(0, 1, shape)).astype(np.float32)
+    return np.select([kind == 0, kind == 1, kind == 2], [k, up, down],
+                     rand).astype(np.float32)
+
+
+@pytest.mark.parametrize("layout", ["hwc", "chw"])
+@pytest.mark.parametrize("c", [1, 3, 10])
+def test_warp_kernel_bit_equal_to_plain_at_tap_boundaries(cuda, c, layout):
+    """K6's forward equals warp_bilinear_plain bit for bit where the
+    coordinates sit exactly on a tap boundary (integers, the edges and
+    one past them) or within 1 ulp of one: the kernel rounds each
+    product and each add of the tap sum as the plain version does."""
+    from hrt_tpu_torch.ops import warp_kernel
+
+    rs = np.random.RandomState(50 + c)
+    hs, ws, ho, wo = 45, 61, 70, 83
+    src = rs.uniform(-2, 2, (c, hs, ws)).astype(np.float32)
+    img = torch.as_tensor(src, device=cuda).permute(1, 2, 0)
+    if layout == "hwc":
+        img = img.contiguous()
+    px = torch.as_tensor(_tap_boundary_coords(rs, ws, (ho, wo)), device=cuda)
+    py = torch.as_tensor(_tap_boundary_coords(rs, hs, (ho, wo)), device=cuda)
+    assert (px == torch.floor(px)).float().mean().item() > 0.2
+    kv, kvalid = warp_kernel.warp_bilinear(img, px, py)
+    pv, pvalid = warp_kernel.warp_bilinear_plain(img, px, py)
+    torch.cuda.synchronize()
+    assert torch.equal(kvalid, pvalid)
+    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
 
 
 def _post_cam(f: int) -> Camera:
