@@ -126,7 +126,7 @@ over the bench frame, whose history fetches run K6.  Phases:
      every ray, both vs brute force on 4093 rays spread over the batch
      (retired lanes among them), K1's visits per live ray in both orders,
      K2 vs its plain version
- 26. path_tracing through FrameLoop at 1920x1080, depth 5, sorted: 8
+ 26. path_tracing through FrameLoop at 1920x1080, depth 5, sorted: 4
      steps; the launch counters must show 5 K1 closest, 5 K1 any-hit and
      5 K2 launches a step and no K3; 2 steps replayed with the plain
      versions (PSNR > 45); frame 1 sorted vs unsorted within rtol 1e-4 /
@@ -140,7 +140,7 @@ over the bench frame, whose history fetches run K6.  Phases:
      walk; each walk vs its plain version on 4093 rays of its depth-1
      batch and of that batch's shadow rays
  29. animated_4k: the path_tracing frame at depth 3, 1920x1080, sorted,
-     then SVGF and the temporal 2x upscaler (3840x2160), 4 steps along
+     then SVGF and the temporal 2x upscaler (3840x2160), 2 steps along
      the moving camera; per step 3 K1 closest, 3 K1 any-hit, 3 K2 and 2
      K6 launches; step 1 vs its plain replay (PSNR > 45); peak memory
  30. times (CUDA events, median of 7): ms/frame and Mray/s (bench.py's
@@ -152,7 +152,7 @@ over the bench frame, whose history fetches run K6.  Phases:
      sort's own time (key, torch.sort, the gathers);
      the card's busy share of one 1080p path_tracing step
      (torch.profiler, once)
- 31. many lights through FrameLoop, 32 steps each at 512x384 with 2
+ 31. many lights through FrameLoop, 16 steps each at 512x384 with 2
      light samples a ray: bench_full's many_lights_256_512x384 (256
      point lights over a sphere field, light_sampler="bvh": the light
      tree's descent), the same with "auto" (at 256 lights the flat CDF
@@ -297,6 +297,18 @@ over the bench frame, whose history fetches run K6.  Phases:
      dispatches' ids against their plain replay on >= 0.99999 of rays;
      trace_any_p on the instanced grid's TwoLevelFlat through K4 (one
      launch) against its plain replay
+ 47. the captured frame programs (hrt_tpu_torch/graphs.py) against the
+     same bodies op by op (graphs.disable()), in turns: the bench
+     render_frames x32 at 512x384, bench_full's seven configurations
+     through FrameLoop (3 steps each; instanced_tlas_512x384 animated
+     through set_instance_transform, its refits written into the
+     captured tables), the culled orbit across its LBVH rebuilds (a
+     capture a rebuild), one brute-force frame; each captured frame and
+     the loop's state bit-equal to the op-by-op one, launches per frame
+     equal, every returned frame unchanged after the next call; wall ms
+     per frame of both (host clock after a synchronise), device ms of
+     both (profiler), capture ms, the graph's node count, peak bytes
+     and the number of captures
 
 Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
 through K1 and K2, held off the image diagonals where the box's wall
@@ -335,6 +347,7 @@ the debug builds of K1, K3 and K4, phase 44); the last is {"ok": true,
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1733,7 +1746,7 @@ def bounce_phase(sm: Smoke, dev, scene, accel) -> None:
 
 def path_loop_phase(sm: Smoke, dev) -> dict:
     """Phase 26: the path_tracing config through FrameLoop at 1920x1080,
-    depth 5, sorted: 8 steps through the kernels, 2 replayed with the
+    depth 5, sorted: 4 steps through the kernels, 2 replayed with the
     plain versions, the same frame unsorted.  Returns the launch totals
     and the loop."""
     import dataclasses
@@ -1750,8 +1763,10 @@ def path_loop_phase(sm: Smoke, dev) -> dict:
 
     cfg = dataclasses.replace(CONFIGS["path_tracing"], width=PT_FULL[0],
                               height=PT_FULL[1], sort_bounces=True)
+    steps = 4
     phase(f"phase 26: path_tracing through FrameLoop at {cfg.width}x"
-          f"{cfg.height}, depth {cfg.max_depth}, sorted, 8 steps; 2 replayed "
+          f"{cfg.height}, depth {cfg.max_depth}, sorted, {steps} steps; 2 "
+          "replayed "
           "with the plain versions; the frame unsorted")
     cam = Camera(**BENCH_CAM)
 
@@ -1766,7 +1781,7 @@ def path_loop_phase(sm: Smoke, dev) -> dict:
     torch.cuda.synchronize()
     reset(k1.LAUNCHES, k3.LAUNCHES, shade_kernel.LAUNCHES)
     deltas, imgs = [], []
-    for f in range(8):
+    for f in range(steps):
         before = counts()
         imgs.append(loop.step(cam))
         deltas.append({k: v - before[k] for k, v in counts().items()})
@@ -1774,11 +1789,12 @@ def path_loop_phase(sm: Smoke, dev) -> dict:
     totals = counts()
     d = cfg.max_depth
     want = {"k1_closest": d, "k1_any_hit": d, "k2": d, "k3": 0}
-    sm.check(all(x == want for x in deltas) and loop.frame == 8,
-             f"launches per step {deltas[-1]} on all 8 steps, totals {totals}")
+    sm.check(all(x == want for x in deltas) and loop.frame == steps,
+             f"launches per step {deltas[-1]} on all {steps} steps, totals "
+             f"{totals}")
     sm.check(all(bool(torch.isfinite(x).all()) for x in imgs)
              and tuple(imgs[-1].shape) == (cfg.height, cfg.width, 3),
-             f"8 accumulated frames {tuple(imgs[-1].shape)} finite")
+             f"{steps} accumulated frames {tuple(imgs[-1].shape)} finite")
     for f in range(2):
         ref = ref_loop.step(cam, plain=True)
     p = psnr4(imgs[1], ref)
@@ -1900,7 +1916,7 @@ def route_phase(sm: Smoke, dev, routes: dict) -> None:
 
 def animated_phase(sm: Smoke, dev) -> dict:
     """Phase 29: animated_4k (the path_tracing frame at depth 3, SVGF and
-    the temporal 2x upscaler, 1080p -> 4K), 4 steps along post_cam; the
+    the temporal 2x upscaler, 1080p -> 4K), 2 steps along post_cam; the
     first replayed with the plain versions.  Returns the kernel loop and
     its launch totals."""
     import dataclasses
@@ -1912,13 +1928,15 @@ def animated_phase(sm: Smoke, dev) -> dict:
     w, h = PT_FULL
     cfg = dataclasses.replace(CONFIGS["animated_4k"], width=w, height=h,
                               sort_bounces=True, upscale_mode="temporal")
+    steps = 2
     phase(f"phase 29: animated_4k, {w}x{h} depth 3 -> SVGF -> the temporal "
-          f"2x upscaler -> {2 * w}x{2 * h}, 4 steps along the moving camera")
-    deltas, totals, peak, img, ref, loop = run_post_loop(dev, cfg, 4,
+          f"2x upscaler -> {2 * w}x{2 * h}, {steps} steps along the moving "
+          "camera")
+    deltas, totals, peak, img, ref, loop = run_post_loop(dev, cfg, steps,
                                                          replay=1)
     want = {"k6": 2, "k1_closest": 3, "k1_any_hit": 3, "k2": 3, "k3": 0}
     sm.check(all(d == want for d in deltas), f"launches per step "
-             f"{deltas[-1]} on all 4 steps, totals {totals}")
+             f"{deltas[-1]} on all {steps} steps, totals {totals}")
     sm.check(tuple(img.shape) == (2 * h, 2 * w, 3)
              and bool(torch.isfinite(img).all()),
              f"frame {tuple(img.shape)} finite")
@@ -1926,7 +1944,7 @@ def animated_phase(sm: Smoke, dev) -> dict:
     sm.check(p > 45.0, f"step 1 vs the plain replay PSNR {p:.2f}")
     print(f"  peak memory of the kernel loop: {peak / 2**30:.3f} GiB",
           flush=True)
-    return {"loop": loop, "totals": totals, "steps": 4}
+    return {"loop": loop, "totals": totals, "steps": steps}
 
 
 def busy_share(fn) -> None:
@@ -2224,7 +2242,7 @@ def many_lights_phases(sm: Smoke, dev) -> dict:
     """Phases 31-32: bench_full's many_lights_256_512x384 (the light tree,
     light_sampler="bvh"), the same scene with "auto" (the flat CDF scan
     at 256 lights) and many_lights_scene(1024) with "auto" (the tree)
-    through FrameLoop, 32 steps each at 512x384; one 1920x1080 frame of
+    through FrameLoop, 16 steps each at 512x384; one 1920x1080 frame of
     the first."""
     import dataclasses
 
@@ -2234,7 +2252,7 @@ def many_lights_phases(sm: Smoke, dev) -> dict:
     from hrt_tpu_torch.models.scene import many_lights_scene
     from hrt_tpu_torch.ops import traversal_wide8 as k1
 
-    steps = 32
+    steps = 16
     base = RenderConfig(width=512, height=384, max_depth=1, sky=True,
                         light_samples=2, light_sampler="bvh",
                         traversal="pallas")
@@ -2352,7 +2370,7 @@ def materials_times(sm: Smoke, dev, ml: dict, sf: dict) -> list:
     (pixels x (1 + L) per depth, bench.py:36-43); the device ms of light
     sampling (the tree's descent against the scan) and of texture
     sampling (torch.profiler); the tree's and the scan's 256-light
-    frames in 6 alternating pairs; the busy share of the many-light
+    frames in 4 alternating pairs; the busy share of the many-light
     frames; K1 and K2 on the many_lights_256 frame's batches against
     their plain versions and bounds.  Returns the kernels line's entries
     for them."""
@@ -2391,7 +2409,7 @@ def materials_times(sm: Smoke, dev, ml: dict, sf: dict) -> list:
              for k in ("many_lights_256 bvh", "many_lights_256 auto (scan)")}
     tree, scan = steps.values()
     t, c = [], []
-    pairs = 6
+    pairs = 4
     for p in range(pairs):
         for fn in ((tree, scan) if p % 2 == 0 else (scan, tree)):
             (t if fn is tree else c).append(time_ms(fn, reps=1))
@@ -4250,6 +4268,225 @@ def array_api_phase(sm: Smoke, dev, bench: dict, tl, g_shadow) -> None:
                                          cfg, plain=True), min_share=0.99999)
 
 
+def measured(fn, eager: bool = False):
+    """fn() once, op by op inside graphs.disable() with `eager`: (its
+    result, host-clock ms up to a synchronise, the launches it made (the
+    counters read just before and just after), its peak allocated bytes
+    above what was held before it)."""
+    import torch
+
+    from hrt_tpu_torch import graphs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with graphs.disable() if eager else contextlib.nullcontext():
+        out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v - before[k] for k, v in launch_counts().items()
+                if v != before[k]}
+    return out, ms, launches, torch.cuda.max_memory_allocated() - held
+
+
+def loop_state(loop) -> list:
+    """A FrameLoop's cross-frame tensors."""
+    return [*loop.dn_state, loop.accum,
+            *([] if loop.up_history is None else [loop.up_history])]
+
+
+def graph_turns(sm: Smoke, label: str, run, frames: int, per: int = 1,
+                prepare=None) -> dict:
+    """`frames` frames of an op-by-op run and a captured one, in turns
+    (eager first on even frames, the graph first on odd ones): run(i,
+    eager) renders frame i and returns (the frame, the state to compare);
+    prepare(i), if given, runs before frame i on both sides.  Checks each
+    captured frame and state bit-equal to the op-by-op ones, the launches
+    equal, and every frame the graph returned unchanged after the later
+    calls.  Returns the wall ms per frame (`per` frames a call) of both
+    over frames 1.. (the graph's replays), the first captured call's ms,
+    both peaks."""
+    res = {"eager": [], "graph": [], "peak_eager": 0, "peak_graph": 0}
+    kept = []
+    for i in range(frames):
+        if prepare is not None:
+            prepare(i)
+        outs = {}
+        for side in (("eager", "graph") if i % 2 == 0 else
+                     ("graph", "eager")):
+            (img, state), ms, launches, peak = measured(
+                lambda: run(i, side == "eager"), eager=side == "eager")
+            outs[side] = (img, state, launches)
+            if i == 0 and side == "graph":
+                res["first_graph_ms"] = ms
+            else:
+                res[side].append(ms / per)
+            res[f"peak_{side}"] = max(res[f"peak_{side}"], peak)
+        (ei, es, el), (gi, gs, gl) = outs["eager"], outs["graph"]
+        sm.check(same_bits(gi, ei) and same_bits(tuple(gs), tuple(es))
+                 and gl == el,
+                 f"{label} frame {i}: captured frame and state bit-equal "
+                 f"to op by op, launches {gl}")
+        kept.append((gi, gi.clone()))
+    sm.check(all(same_bits(a, b) for a, b in kept),
+             f"{label}: the {len(kept)} captured frames unchanged after "
+             "the later calls")
+    return res
+
+
+def frame_graph_phase(sm: Smoke, dev) -> dict:
+    """Phase 47: the captured frame programs against the same bodies op
+    by op.  Returns per case its wall and device ms, capture ms, node
+    count, peaks and captures."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from hrt_tpu_torch import bench as tbench
+    from hrt_tpu_torch import bench_full, graphs, renderer
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models.camera import orbit_camera
+    from hrt_tpu_torch.models.scene import bench_scene, instance_grid_scene
+    from hrt_tpu_torch.ops import lbvh
+
+    phase("phase 47: the captured frame programs vs the same bodies op by "
+          "op (graphs.disable()), in turns")
+    out = {}
+    clock = [time.perf_counter()]
+
+    def report(name: str, res: dict, prog, dev_ms: tuple, captures: int):
+        g = prog.last.graph
+        med = lambda xs: statistics.median(xs) if xs else float("nan")
+        rec = {"wall_eager_ms": med(res["eager"]),
+               "wall_graph_ms": med(res["graph"]),
+               "device_eager_ms": dev_ms[0], "device_graph_ms": dev_ms[1],
+               "capture_ms": g.capture_ms, "nodes": g.nodes,
+               "first_graph_call_ms": res["first_graph_ms"],
+               "peak_eager_bytes": res["peak_eager"],
+               "peak_graph_bytes": res["peak_graph"], "captures": captures}
+        out[name] = rec
+        print(f"  {name}: wall ms/frame eager {rec['wall_eager_ms']:.4f} "
+              f"graph {rec['wall_graph_ms']:.4f} (turns: eager "
+              f"{[round(x, 4) for x in res['eager']]}, graph "
+              f"{[round(x, 4) for x in res['graph']]}); device ms/frame "
+              f"eager {dev_ms[0]:.4f} graph {dev_ms[1]:.4f}; capture "
+              f"{g.capture_ms:.1f} ms, {g.nodes} nodes, first captured call "
+              f"{res['first_graph_ms']:.1f} ms; peak bytes eager "
+              f"{res['peak_eager']} graph {res['peak_graph']}; "
+              f"{captures} capture(s); {time.perf_counter() - clock[0]:.1f} "
+              "s", flush=True)
+        clock[0] = time.perf_counter()
+
+    def device_ms(eager_fn, graph_fn, per: int = 1):
+        """Device ms per frame op by op and captured (profiler)."""
+        with graphs.disable():
+            e = profiled_device_ms(eager_fn) / per
+        return e, profiled_device_ms(graph_fn) / per
+
+    # The bench frame: render_frames x32, frame0 = 32 i.
+    cfg = tbench.bench_config()
+    scene = bench_scene().build(dev)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=tbench.LEAF_SIZE)
+    cams = renderer.camera_arrays(tbench.BENCH_CAMERA, cfg, dev)
+    progs = renderer.FRAME_PROGRAMS
+    k = 32
+    caps = progs.captures
+    res = graph_turns(sm, "bench render_frames x32", lambda i, eager: (
+        renderer.render_frames(scene, accel, cams, 32 * i, k, cfg), []),
+        4, per=k)
+    frames32 = lambda: renderer.render_frames(scene, accel, cams, 0, k, cfg)
+    dev_ms = device_ms(frames32, frames32, per=k)
+    report("bench_x32", res, progs, dev_ms, progs.captures - caps)
+    sm.check(progs.captures - caps == 1, "bench: one capture")
+
+    # bench_full's configurations through FrameLoop.
+    for bc in bench_full.configs():
+        loops = {side: FrameLoop(bc.scene(), bc.config, cull_threshold_px=0.0,
+                                 two_level=bc.two_level, device=dev)
+                 for side in ("eager", "graph")}
+        home = [i.position for i in loops["graph"].scene_obj.instances]
+
+        def move(i, loops=loops, home=home, bc=bc):
+            if not bc.two_level:
+                return
+            idx = 1 + (8 * i) % (len(home) - 1)
+            x, y, z = home[idx]
+            for lp in loops.values():
+                lp.set_instance_transform(idx, position=(x, y - 0.4, z),
+                                          rotation=(0.1 * i, 0.2 * i, 0.0))
+
+        def step(i, eager, loops=loops, bc=bc):
+            lp = loops["eager" if eager else "graph"]
+            return lp.step(bc.camera), loop_state(lp)
+
+        res = graph_turns(sm, bc.name, step, 3, prepare=move)
+        dev_ms = device_ms(lambda: loops["eager"].step(bc.camera),
+                           lambda: loops["graph"].step(bc.camera))
+        gl = loops["graph"]
+        report(bc.name, res, gl.program, dev_ms, gl.captures)
+        sm.check(gl.captures == 1, f"{bc.name}: {gl.captures} capture(s)")
+        del loops, gl
+
+    # The culled orbit: the first step rebuilds before its trace, and the
+    # orbit rebuilds again; each rebuilt accel captures once.
+    c_cfg = tbench.bench_config()
+    loops = {side: FrameLoop(instance_grid_scene(), c_cfg, device=dev)
+             for side in ("eager", "graph")}
+    cam = lambda i: orbit_camera(0.15 * i, radius=4.0, height=-1.0)
+    accels = []
+
+    def cstep(i, eager):
+        lp = loops["eager" if eager else "graph"]
+        img = lp.step(cam(i))
+        if not eager:
+            accels.append(lp.accel)
+        return img, loop_state(lp)
+
+    res = graph_turns(sm, "culled orbit", cstep, 3)
+    gl = loops["graph"]
+    distinct = len({id(a) for a in accels})
+    dev_ms = (float("nan"), float("nan"))
+    report("culled_orbit", res, gl.program, dev_ms, gl.captures)
+    sm.check(gl.rebuilds >= 2 and gl.captures == distinct
+             == gl.rebuilds and loops["eager"].rebuilds == gl.rebuilds,
+             f"culled orbit: {gl.rebuilds} rebuilds, {gl.captures} captures "
+             f"({distinct} accels traced)")
+    del loops, gl, accels
+
+    # One brute-force frame (no accel: every trace tests every triangle):
+    # bench_full's mesh_bvh_800x600 (the Cornell box) by brute force.
+    mb = next(b for b in bench_full.configs() if b.name == "mesh_bvh_800x600")
+    b_cfg = dataclasses.replace(mb.config, traversal="bruteforce")
+    b_scene = mb.scene().build(dev)
+    b_cams = renderer.camera_arrays(mb.camera, b_cfg, dev)
+    brute = lambda i=0: renderer.render_frames(b_scene, None, b_cams, i, 1,
+                                               b_cfg)
+    caps = progs.captures
+    res = graph_turns(sm, "brute force (mesh_bvh_800x600)",
+                      lambda i, eager: (brute(i), []), 3)
+    dev_ms = device_ms(brute, brute)
+    report("bruteforce", res, progs, dev_ms, progs.captures - caps)
+    sm.check(progs.captures - caps == 1, "brute force: one capture")
+
+    # A capture that fails raises (a host sync inside the body).
+    def bad(x, frame):
+        return x * float(x.sum())
+
+    try:
+        graphs.Programs(1)("bad", bad, (torch.ones(4, device=dev), 0), dev)
+        raised = False
+    except RuntimeError as e:
+        raised = True
+        print(f"  a host sync in a captured body: RuntimeError "
+              f"({str(e).splitlines()[0][:100]})", flush=True)
+    torch.cuda.synchronize()
+    sm.check(raised, "a capture with a host sync in its body raises")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4966,6 +5203,7 @@ def main() -> int:
         {**bench["ops"], **k3_ops, **k4_ops})
     entry_points_phase(sm, dev, smi)
     array_api_phase(sm, dev, bench, tl, g_shadow)
+    frame_graph_phase(sm, dev)
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,
@@ -5048,7 +5286,7 @@ def main() -> int:
          "source": K6_SOURCE, "replaces": K6_REPLACES, **k6_bwd},
         # The path_tracing frame (1080p, depth 5, sorted): one frame's five
         # launches of each, every depth's batch; launches over phase 26's
-        # 8 steps.
+        # 4 steps.
         {"name": "bvh8_trace_closest (path_tracing frame)", "route": "cuda",
          "source": K1_SOURCE, "replaces": K1_REPLACES,
          "launches": pt["totals"]["k1_closest"], **p_times["closest"]},
@@ -5060,7 +5298,7 @@ def main() -> int:
          "launches": pt["totals"]["k2"], **p_times["k2"]},
         # The many_lights_256 frame by the tree (512x384, 2 samples): its
         # batches' K1 closest, K1 any hit over the 2-sample light-major
-        # batch and K2 with L = 2; launches over phase 31's 32 steps.
+        # batch and K2 with L = 2; launches over phase 31's 16 steps.
         *m_entries,
         # The walks' debug builds (phase 44): launches over the guarded
         # render command (K1) and a counted FrameLoop step (K3, K4); ms in

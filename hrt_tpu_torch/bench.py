@@ -5,8 +5,10 @@
 The bench scene (models/scene.bench_scene) under a binned-SAH tree with
 32-triangle leaves and its BVH8 records, at 512x384, max_depth=1, sky
 on: `renderer.render_frames` renders `--iters` frames a call, once to
-warm up, then `--batches` times, each batch timed by the host clock
-after a synchronise and by CUDA events around it.  The value is
+warm up (on the card this call also captures the k frames' CUDA graph,
+and the capture's ms and node count are printed on a line of their
+own), then `--batches` times, each batch a replay timed by the host
+clock after a synchronise and by CUDA events around it.  The value is
 bench.py's: the rays a frame is credited with (utils/logging.
 rays_per_frame) over the best batch's seconds per frame.
 
@@ -29,7 +31,8 @@ from .config import RenderConfig, resolve_device
 from .models.camera import Camera
 from .models.scene import bench_scene
 from .ops import lbvh
-from .renderer import camera_arrays, render_frames
+from .graphs import capture_line
+from .renderer import FRAME_PROGRAMS, camera_arrays, render_frames
 from .utils.logging import rays_per_frame
 from .utils.profiling import device_name, timed_call
 
@@ -67,7 +70,10 @@ def main(argv=None) -> dict:
     k = args.iters
 
     timed_call(lambda: render_frames(scene, accel, cams, 0, k, cfg),
-               dev)                                          # warm-up
+               dev)                              # warm-up and capture
+    line = capture_line(f"render_frames x{k}", FRAME_PROGRAMS)
+    if line:
+        print(line, flush=True)
     host_ms, event_ms = [], []
     frame0 = 0
     for b in range(args.batches):

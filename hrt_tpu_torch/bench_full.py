@@ -7,8 +7,10 @@ FrameLoop, one JSON line each.
 Each configuration is the JAX script's: the same scene, camera,
 RenderConfig and `two_level`, through `FrameLoop(scene, cfg,
 cull_threshold_px=0.0, two_level=...)`.  `time_loop` warms the loop up
-with one step, then takes the best of 3 batches of 4 steps by the host
-clock after a synchronise, and the device ms of one step from a
+with one step (on the card it also captures the loop's frame program;
+its capture ms and node count are printed on a line before the
+configuration's JSON line), then takes the best of 3 batches of 4 steps
+(replays) by the host clock after a synchronise, and the device ms of one step from a
 profile of 4 steps (utils/profiling.
 device_ms_per_call, which raises rather than leave the number out).  On
 the CPU (`--device cpu`, the plain versions) no device time exists and
@@ -39,6 +41,7 @@ import torch
 
 from .config import RenderConfig, resolve_device
 from .frameloop import FrameLoop
+from .graphs import capture_line
 from .models.camera import Camera
 from .models.scene import (Scene, bench_scene, instance_grid_scene,
                            many_lights_scene)
@@ -139,6 +142,9 @@ def run_config(bc: BenchConfig, dev, resolution=None,
         loop = FrameLoop(bc.scene(), cfg, cull_threshold_px=0.0,
                          two_level=bc.two_level, device=dev)
     dt, dev_ms, shape = time_loop(loop, bc.camera)
+    line = capture_line(bc.name, loop.program)
+    if line:
+        print(line, flush=True)
     stats = frame_stats(cfg, loop.scene.lights.shape[0], dt)
     rays = stats["rays"]
     peak = device_memory_stats(dev).get("peak_bytes_in_use")

@@ -35,6 +35,7 @@ import time
 import torch
 
 from .config import CONFIGS, RenderConfig, resolve_device
+from .graphs import capture_line
 from .models.camera import Camera, orbit_camera
 from .ops import traversal_wide8
 from .utils.image import tonemap, write_png
@@ -235,6 +236,9 @@ def _run(args, mesh, lead: bool):
             write_png(out, tonemap(img.cpu().numpy(), gamma=args.gamma))
             logger.info("frame %d -> %s (%.1f ms)", f, out, dt * 1e3)
 
+    line = capture_line("FrameLoop.step", loop.program)
+    if line and lead:
+        print(line, flush=True)
     if args.checkpoint and lead:
         loop.save_state(args.checkpoint)
         logger.info("saved frame-loop state to %s", args.checkpoint)

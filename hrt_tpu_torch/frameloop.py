@@ -36,12 +36,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from . import graphs
 from .config import RenderConfig, require_slice, resolve_device
 from .models import upscaler
 from .models.camera import Camera
 from .models.instance import MeshInstance
 from .models.scene import Scene, SceneData
-from .ops import culling, denoise, lbvh, tlas
+from .ops import culling, denoise, lbvh, rng, tlas
 from .parallel import tiles
 from .renderer import camera_arrays, render_rows
 from .utils.interop import upscaler_from_numpy
@@ -57,15 +58,19 @@ def wants_gbuffer(config: RenderConfig, up_history) -> bool:
     return config.denoise or _temporal_up(config, up_history)
 
 
-def post_stages(img, gbuffer, prev_cams, dn_state, accum, frame: int,
+def post_stages(img, gbuffer, prev_cams, dn_state, accum, frame,
                 config: RenderConfig, net, up_history, plain: bool = False):
-    """accumulate -> denoise -> upscale on one (H, W, 3) frame.  Returns
-    (output image, new denoise state, new accumulation buffer, new
-    upscaler history).  `plain=True` routes the K6 warps to their plain
-    version on whatever device the tensors are on."""
+    """accumulate -> denoise -> upscale on one (H, W, 3) frame of index
+    `frame` (an int or a 0-d integer tensor, rng.as_frame: the frame
+    count and the temporal gate are taken on the device, as the JAX
+    package's `_post_stages`).  Returns (output image, new denoise
+    state, new accumulation buffer, new upscaler history).  `plain=True`
+    routes the K6 warps to their plain version on whatever device the
+    tensors are on."""
     w, h = config.width, config.height
+    frame = rng.as_frame(frame, img.device)
     if config.accumulate:
-        n = float(min(frame, 10000))
+        n = torch.clamp(frame, max=10000).to(torch.float32)
         accum = (accum * n + img) / (n + 1.0)
         img = accum
 
@@ -82,8 +87,9 @@ def post_stages(img, gbuffer, prev_cams, dn_state, accum, frame: int,
             # zero and prev_cams == cams, so hit pixels would reproject
             # "valid" onto black.  Gate validity by frame > 0, as the JAX
             # package does.
-            if frame == 0:
-                hist[..., 3] = 0.0
+            hist = torch.cat([hist[..., :3],
+                              torch.where(frame > 0, hist[..., 3:4], 0.0)],
+                             dim=-1)
             img = upscaler.upscale_temporal(net, img, hist)
             up_history = img
         else:
@@ -93,11 +99,12 @@ def post_stages(img, gbuffer, prev_cams, dn_state, accum, frame: int,
 
 
 def frame_program(scene: SceneData, accel, cams, prev_cams, dn_state, accum,
-                  frame: int, config: RenderConfig, net=None,
+                  frame, config: RenderConfig, net=None,
                   up_history=None, plain: bool = False):
-    """One frame: render_rows over the whole frame, then post_stages.
-    Returns (output image, new denoise state, new accumulation buffer,
-    new upscaler history)."""
+    """One frame: render_rows over the whole frame, then post_stages;
+    `frame` an int or a 0-d integer tensor.  Returns (output image, new
+    denoise state, new accumulation buffer, new upscaler history).
+    FrameLoop.step runs it on the card as a captured CUDA graph."""
     want_gb = wants_gbuffer(config, up_history)
     out = render_rows(scene, accel, cams, 0, config.height, config,
                       plain=plain, want_gbuffer=want_gb, frame=frame)
@@ -186,7 +193,15 @@ class FrameLoop:
                                             self.device))
             if temporal:
                 self.up_history = self._zeros(2 * cfg.height, 2 * cfg.width)
+        # The loop's captured frame program: one graph at a time, keyed by
+        # the config, the shapes, the scene, the accel and the net.
+        self.program = graphs.Programs(1)
         self.reset_history()
+
+    @property
+    def captures(self) -> int:
+        """Frame programs this loop has captured on the card."""
+        return self.program.captures
 
     def _zeros(self, h: int, w: int, c: int = 3) -> torch.Tensor:
         return torch.zeros((h, w, c), dtype=torch.float32,
@@ -209,6 +224,7 @@ class FrameLoop:
             return
         self.config = dataclasses.replace(self.config, width=width,
                                           height=height)
+        self.program.clear()
         self.prev_cams = None
         if self.up_history is not None:
             self.up_history = self._zeros(2 * height, 2 * width)
@@ -217,7 +233,10 @@ class FrameLoop:
     def set_instance_transform(self, idx: int, position=None,
                                rotation=None, scale=None) -> None:
         """Animate one instance (two-level mode): update its TRS and
-        refit the TLAS; no BLAS is rebuilt."""
+        refit the TLAS in place (tlas.refit_two_level's `in_place`: the
+        TLAS rows and the instance matrices are written into the accel's
+        own tensors, so the captured frame program reads the refitted
+        tables and is not captured again); no BLAS is rebuilt."""
         if not self.two_level:
             raise ValueError("instance animation needs two_level=True")
         cur = self.scene_obj.instances[idx]
@@ -230,7 +249,8 @@ class FrameLoop:
         for mats, m in zip(self._mats, (new.transform, new.inverse_transform,
                                         new.normal_matrix)):
             mats[idx] = m
-        self.accel = tlas.refit_two_level(self.accel, *self._mats)
+        self.accel = tlas.refit_two_level(self.accel, *self._mats,
+                                          in_place=True)
 
     def _maybe_cull(self, cams) -> None:
         if (self.accel is None or self.cull_threshold_px <= 0
@@ -250,20 +270,41 @@ class FrameLoop:
 
     def step(self, camera: Camera, plain: bool = False) -> torch.Tensor:
         """Render the next frame; returns the final (possibly upscaled)
-        (H, W, 3) image on the loop's device.  `plain=True` renders and
-        post-processes it with the plain versions of the kernels, on the
-        loop's device (a reference loop on the card)."""
+        (H, W, 3) image on the loop's device, a tensor of its own.  On
+        the card the frame is the loop's captured frame program
+        (graphs.Programs): captured at the first step of a config, shape,
+        scene, accel and net, replayed after, the camera arrays, the
+        frame index and the cross-frame state copied in and out.  Culling
+        and its rebuild stay outside it (a rebuild changes the accel's
+        shapes, and the next step captures again).  `plain=True` renders
+        and post-processes it op by op with the plain versions of the
+        kernels, on the loop's device (a reference loop on the card); a
+        loop over a `mesh` runs the tiled frame op by op."""
         cfg = self.config
         cams = camera_arrays(camera, cfg, self.device)
         if self.prev_cams is None:
             self.prev_cams = cams
         self._maybe_cull(cams)
-        args = (self.scene, self.accel, cams, self.prev_cams, self.dn_state,
-                self.accum, self.frame, cfg)
-        kw = dict(net=self.net, up_history=self.up_history, plain=plain)
-        img, self.dn_state, self.accum, self.up_history = (
-            frame_program(*args, **kw) if self.mesh is None else
-            tiles.frame_program_tiled(*args, self.mesh, **kw))
+        if self.mesh is None:
+            scene, accel, net = self.scene, self.accel, self.net
+
+            def body(cams, prev_cams, dn_state, accum, up_history, frame):
+                return frame_program(scene, accel, cams, prev_cams,
+                                     dn_state, accum, frame, cfg, net=net,
+                                     up_history=up_history, plain=plain)
+
+            key = ("frame_program", cfg, graphs.signature(scene),
+                   graphs.signature(accel), graphs.signature(net))
+            out = self.program(
+                key, body, (cams, self.prev_cams, self.dn_state, self.accum,
+                            self.up_history, self.frame),
+                self.device, eager=plain)
+        else:
+            out = tiles.frame_program_tiled(
+                self.scene, self.accel, cams, self.prev_cams, self.dn_state,
+                self.accum, self.frame, cfg, self.mesh, net=self.net,
+                up_history=self.up_history, plain=plain)
+        img, self.dn_state, self.accum, self.up_history = out
         self.prev_cams = cams
         self.frame += 1
         return img

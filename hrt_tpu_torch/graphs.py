@@ -1,0 +1,331 @@
+"""Frame programs captured as CUDA graphs: the port's counterpart of the
+JAX package's `jax.jit` frame programs (hrt_tpu/renderer.py
+`render_frames`, hrt_tpu/frameloop.py `frame_program`).
+
+A jit program is compiled once per static config and shape, then
+dispatched once per call.  Here a frame body is captured once per key
+into a `torch.cuda.CUDAGraph` and replayed afterwards, so a frame's
+hundreds to thousands of kernel launches leave the host as one graph
+launch.  `Programs` is a bounded cache of captured bodies:
+
+- The key is what the body reads as it was captured: the caller's key
+  (the config and whatever else is static), the pytree structure of the
+  arguments, each argument tensor's shape, dtype and device, and, for
+  the tensors the body closes over (scene, accel, net), their addresses
+  (`signature`).  A new key captures again; the least recently used
+  program is dropped past the cache's size, and its memory pool with it.
+- The first call of a key runs the body once op by op under
+  `torch.no_grad()` (the warm-up: it loads CUDA's lazily loaded kernels
+  and creates cuDNN's handles, and its result is the call's result),
+  then captures the body on a side stream into the memory pool that
+  every capture on the device shares (`_pool`).
+  Nothing of autograd is recorded: the upscaler's parameters require
+  gradients, and the body runs without them.
+- Every later call copies its arguments into the graph's static input
+  tensors (`copy_` on the device; a Python int, the frame index, by
+  `fill_`, which needs no host copy), replays the graph, and returns
+  fresh copies of the outputs: a replay overwrites the pool, so nothing
+  returned aliases it, and a frame kept from one call stays as it was
+  after the next.
+- One pool for every graph of a device: a graph's intermediates are dead
+  once its outputs are copied out, so another capture may reuse their
+  memory, and the graphs together hold the largest frame's memory, not
+  the sum of all of theirs.  This holds because the replays run on one
+  stream, one after another, and nothing a body makes outlives its
+  replay but its outputs, which stay allocated.
+- The kernel wrappers' launch counters (`LAUNCHES` of K1 to K6) count
+  launches on the card, replayed or not: the counters' change during a
+  capture (host code that ran once, launching nothing) is taken back
+  and added again at every replay.
+- A capture or a replay that fails raises.  Nothing retries op by op.
+
+A frame runs op by op (the body called directly, under no_grad) on CPU
+tensors, inside `disable()` (the counterpart of `jax.disable_jit()`,
+which the checks use to hold a graph against the same body op by op),
+under the walks' debug builds (`HRT_KERNEL_GUARDS`,
+`HRT_DEBUG_COUNTERS`: they keep host state per launch), and where the
+caller says so: `plain=True` (the plain versions of the kernels on the
+card) and a loop over a `mesh` (the tiled frame gathers its bands
+across ranks).  Nothing else runs op by op.
+
+`constant` holds the small host constants that the frame's code puts on
+the device (a copy from pageable host memory cannot be captured).
+"""
+from __future__ import annotations
+
+import collections
+import contextlib
+import ctypes
+import dataclasses
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+from torch import nn
+from torch.utils import _pytree as pytree
+
+_disabled = 0
+_constants: dict = {}
+_pools: dict = {}
+
+
+@contextlib.contextmanager
+def disable():
+    """Run every frame body op by op inside the block (nesting allowed)."""
+    global _disabled
+    _disabled += 1
+    try:
+        yield
+    finally:
+        _disabled -= 1
+
+
+def _debug_builds() -> bool:
+    from .ops import intersect, traversal_wide8
+
+    return bool(traversal_wide8.GUARDS or intersect.DEBUG_COUNTERS)
+
+
+def launch_counters() -> list[dict]:
+    """The kernel wrappers' launch counters, K1 to K6."""
+    from .ops import (shade_kernel, traversal_skip, traversal_tlas8,
+                      traversal_tlas_skip, traversal_wide8, warp_kernel)
+
+    return [m.LAUNCHES for m in (traversal_wide8, shade_kernel,
+                                 traversal_skip, traversal_tlas8,
+                                 traversal_tlas_skip, warp_kernel)]
+
+
+def constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """`values` (a number or a tuple of them) as a tensor on `device`,
+    copied from the host once per process and kept: code on the frame
+    path takes its constants from here, since a copy from pageable host
+    memory cannot be captured.  Read-only."""
+    key = (values, dtype, torch.device(device))
+    t = _constants.get(key)
+    if t is None:
+        t = _constants[key] = torch.tensor(values, dtype=dtype,
+                                           device=device)
+    return t
+
+
+def signature(obj) -> Any:
+    """What a captured body reads of `obj`, as a hashable value: each
+    tensor's shape, dtype, device and address, through NamedTuples,
+    dataclasses, tuples, lists and modules (their parameters and
+    buffers); numbers, strings and None as they are; a numpy array (host
+    data, which no graph reads) by its shape and dtype."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    if isinstance(obj, torch.Tensor):
+        return ("tensor", tuple(obj.shape), obj.dtype, obj.device,
+                obj.data_ptr(), obj.stride())
+    if isinstance(obj, np.ndarray):
+        return ("ndarray", obj.shape, obj.dtype.str)
+    if isinstance(obj, nn.Module):
+        return (type(obj).__name__,) + tuple(
+            (k, signature(v)) for k, v in obj.state_dict(
+                keep_vars=True).items())
+    if dataclasses.is_dataclass(obj):
+        return (type(obj).__name__,) + tuple(
+            signature(getattr(obj, f.name))
+            for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return (type(obj).__name__,) + tuple(signature(v) for v in obj)
+    raise TypeError(f"no capture signature for {type(obj).__name__}")
+
+
+def _node_count(graph: torch.cuda.CUDAGraph) -> int:
+    """The captured graph's node count (the driver's cuGraphGetNodes)."""
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA driver error {rc}")
+    return n.value
+
+
+def _pool(device: torch.device) -> tuple:
+    """(device index, the memory pool that every capture on it
+    shares)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if index not in _pools:
+        _pools[index] = torch.cuda.graph_pool_handle()
+    return index, _pools[index]
+
+
+class CudaGraph:
+    """A body captured on the card: `outputs` are the graph's static
+    output tensors, which `replay()` overwrites.  `capture_ms` is the
+    host time of the capture and instantiation, `nodes` the graph's node
+    count."""
+
+    device_type = "cuda"
+
+    def __init__(self, body: Callable, args, device: torch.device):
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        stream = torch.cuda.Stream(device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        index, pool = _pool(device)
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+            try:
+                self.outputs = body(*args)
+            except BaseException:
+                # End the invalidated capture and the allocator's routing of
+                # this stream's allocations into the pool, which
+                # capture_end leaves on when the capture failed.  The pool
+                # still counts as recording after that (torch refuses to
+                # capture into it again), so later captures take a new
+                # one; the graphs already in it replay as before.  Then
+                # raise the body's error.
+                with contextlib.suppress(RuntimeError):
+                    self.graph.capture_end()
+                with contextlib.suppress(RuntimeError):
+                    torch._C._cuda_endAllocateToPool(index, pool)
+                _pools.pop(index, None)
+                raise
+            self.graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.nodes = _node_count(self.graph)
+        self.graph.instantiate()
+        torch.cuda.synchronize(device)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class Program:
+    """One body captured for one key: its static inputs, the flattened
+    outputs' structure, and the launches one replay makes (per counter,
+    per key).  `first` is the warm-up's result, fresh tensors."""
+
+    def __init__(self, body: Callable, flat: list, spec, device,
+                 capture=CudaGraph):
+        self.static = [None if x is None else _as_tensor(x, device).clone()
+                       for x in flat]
+        args = pytree.tree_unflatten(self.static, spec)
+        with torch.no_grad():
+            self.first = pytree.tree_map(_fresh, body(*args))
+        counters = launch_counters()
+        before = [dict(c) for c in counters]
+        try:
+            with torch.no_grad():
+                self.graph = capture(body, args, device)
+        finally:
+            self.launches = [{k: c[k] - b[k] for k in c}
+                             for c, b in zip(counters, before)]
+            for c, b in zip(counters, before):
+                c.update(b)
+        self.out_flat, self.out_spec = pytree.tree_flatten(
+            self.graph.outputs)
+
+    def __call__(self, flat: list):
+        """Copy the call's arguments into the static inputs, replay, and
+        return copies of the outputs."""
+        for s, x in zip(self.static, flat):
+            if isinstance(x, torch.Tensor):
+                s.copy_(x)
+            elif x is not None:
+                s.fill_(x)
+        self.graph.replay()
+        for c, d in zip(launch_counters(), self.launches):
+            for k, v in d.items():
+                c[k] += v
+        return pytree.tree_unflatten([_fresh(t) for t in self.out_flat],
+                                     self.out_spec)
+
+
+def capture_line(what: str, programs: "Programs") -> str | None:
+    """The line an entry point prints after its warm-up: the last
+    capture's host ms and node count and the captures so far; None where
+    nothing was captured (a frame op by op)."""
+    prog = programs.last
+    if prog is None:
+        return None
+    g = prog.graph
+    return (f"capture: {what}: {g.capture_ms:.1f} ms, {g.nodes} nodes, "
+            f"{programs.captures} capture(s)")
+
+
+def _fresh(t):
+    return None if t is None else t.clone()
+
+
+def _as_tensor(x, device) -> torch.Tensor:
+    """An argument leaf as a tensor: a Python int (a frame index) as a
+    0-d int64 tensor made on the device by a fill; None stays None."""
+    if x is None or isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, int) and not isinstance(x, bool):
+        return torch.full((), x, dtype=torch.int64, device=device)
+    raise TypeError(f"a frame program takes tensors and ints, not "
+                    f"{type(x).__name__}")
+
+
+def _leaf_key(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, x.device)
+    return None if x is None else "int"
+
+
+class Programs:
+    """A cache of at most `size` captured bodies, the least recently used
+    dropped first.  `captures` counts this cache's captures and `last`
+    is the program of the last call through a graph (its `graph.
+    capture_ms` and `graph.nodes`).  `capture` makes a capture
+    (CudaGraph; the CPU tests pass a stand-in whose `device_type` is
+    "cpu")."""
+
+    def __init__(self, size: int, capture=CudaGraph):
+        self.size = size
+        self.capture = capture
+        self.captures = 0
+        self.last: Program | None = None
+        self._cache: collections.OrderedDict = collections.OrderedDict()
+
+    def clear(self) -> None:
+        """Drop every program (its outputs' memory goes back to the
+        device's shared pool)."""
+        self._cache.clear()
+        self.last = None
+
+    def enabled(self, device) -> bool:
+        """Whether a body on `device` goes through a graph: the capture's
+        device type, outside disable(), neither debug build on."""
+        return (torch.device(device).type == self.capture.device_type
+                and not _disabled and not _debug_builds())
+
+    def __call__(self, key, body: Callable, args, device,
+                 eager: bool = False):
+        """body(*args) -> a pytree of tensors: replayed from the graph of
+        this key (captured at its first call, after an op-by-op warm-up
+        whose result that call returns), or called op by op (see the
+        module's docstring).  `args` is a tuple of tensors, ints (made
+        0-d int64 tensors on `device`), None and NamedTuples of them."""
+        device = torch.device(device)
+        flat, spec = pytree.tree_flatten(args)
+        if eager or not self.enabled(device):
+            with torch.no_grad():
+                return body(*pytree.tree_unflatten(
+                    [_as_tensor(x, device) for x in flat], spec))
+        full = (key, repr(spec), tuple(_leaf_key(x) for x in flat))
+        prog = self._cache.get(full)
+        if prog is not None:
+            self._cache.move_to_end(full)
+            self.last = prog
+            return prog(flat)
+        while len(self._cache) >= self.size:
+            self._cache.popitem(last=False)
+        prog = Program(body, flat, spec, device, self.capture)
+        self._cache[full] = prog
+        self.captures += 1
+        self.last = prog
+        out, prog.first = prog.first, None
+        return out

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import graphs
 from ..ops import v3
 from ..ops.v3 import V3
 
@@ -65,8 +66,7 @@ def process_light_one(light: torch.Tensor, p: V3):
     in_cone = cos_to >= light[COS_CONE]
     spot_int = falloff * in_cone.to(torch.float32)
 
-    fixed = V3(*(torch.tensor(c, dtype=torch.float32, device=light.device)
-                 for c in _DEFAULT_DIR))
+    fixed = V3(*(graphs.constant(c, light.device) for c in _DEFAULT_DIR))
     dir_to_light = v3.where(has_dir, -ldir, fixed)
 
     intensity = torch.where(is_point, falloff,
@@ -109,8 +109,7 @@ def process_light(lights: torch.Tensor, world_pos: torch.Tensor):
     in_cone = cos_to >= lights[:, COS_CONE]
     spot_int = falloff * in_cone.to(torch.float32)
 
-    fixed = torch.tensor(_DEFAULT_DIR, dtype=torch.float32,
-                         device=lights.device)
+    fixed = graphs.constant(_DEFAULT_DIR, lights.device)
     dir_to_light = torch.where(has_dir[:, None], -ldir, fixed)
 
     intensity = torch.where(is_point, falloff,

@@ -233,13 +233,28 @@ def to_object_space(m, ow, dw):
     return o, d
 
 
+def ray_t_max(t_max, n: int, device) -> torch.Tensor:
+    """(n,) float32 segment ends from a number or a tensor (broadcast):
+    a number is filled on the device, with no copy from the host, so
+    that a captured frame program can take it."""
+    if isinstance(t_max, torch.Tensor):
+        return torch.broadcast_to(t_max.to(device, torch.float32), (n,))
+    return torch.full((n,), t_max, dtype=torch.float32, device=device)
+
+
+def ray_planes(o, d, t_max) -> tuple:
+    """The seven (N,) planes a walk takes, (ox, oy, oz, dx, dy, dz,
+    t_max), from V3 rays and ray_t_max's segment ends."""
+    tmax = ray_t_max(t_max, o.x.shape[0], o.x.device)
+    return (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
+
+
 def closest_hit_bruteforce(ray_o, ray_d, tri_v0, tri_e1, tri_e2,
                            t_min=TMIN, t_max=INF, chunk: int = 512):
     """O(rays x tris) closest hit.  ray_o/ray_d (N, 3), tri_* (T, 3).
     Returns (t, tri (-1 = miss), u, v), each (N,)."""
     n = ray_o.shape[0]
-    best_t = torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=ray_o.device), (n,)).clone()
+    best_t = ray_t_max(t_max, n, ray_o.device).clone()
     best_i = torch.full((n,), -1, dtype=torch.int32, device=ray_o.device)
     best_u = torch.zeros(n, device=ray_o.device)
     best_v = torch.zeros(n, device=ray_o.device)
@@ -263,8 +278,7 @@ def any_hit_bruteforce(ray_o, ray_d, tri_v0, tri_e1, tri_e2,
                        t_min=TMIN, t_max=INF, chunk: int = 512):
     """Occlusion: True where any triangle blocks (t_min, t_max)."""
     n = ray_o.shape[0]
-    t_max = torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=ray_o.device), (n,))
+    t_max = ray_t_max(t_max, n, ray_o.device)
     occluded = torch.zeros(n, dtype=torch.bool, device=ray_o.device)
     for base in range(0, tri_v0.shape[0], chunk):
         sl = slice(base, base + chunk)

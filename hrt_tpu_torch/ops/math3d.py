@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import graphs
 from . import v3
 from .v3 import V3
 
@@ -81,5 +82,5 @@ def transform_dir(mat3x4: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 def luminance(rgb: torch.Tensor) -> torch.Tensor:
     """Rec.709 luminance of (..., 3) linear RGB -> (...,)."""
-    w = torch.tensor(_LUMA, dtype=torch.float32, device=rgb.device)
+    w = graphs.constant(_LUMA, rgb.device)
     return torch.sum(rgb * w, dim=-1)

@@ -82,9 +82,20 @@ def rand2(state: torch.Tensor):
     return u0, u1, state
 
 
+def as_frame(frame, device) -> torch.Tensor:
+    """The frame index as a tensor on `device`: a tensor as it is (no
+    copy where it already lies there), a Python int as a 0-d int64
+    tensor made by a fill on the device, with no copy from the host (so
+    that a captured frame program can take it)."""
+    if isinstance(frame, torch.Tensor):
+        return frame.to(device)
+    return torch.full((), frame, dtype=torch.int64, device=device)
+
+
 def pixel_seed(px, py, frame) -> torch.Tensor:
     """Per-pixel seed hash(uint3(pixel.xy, frame))
-    (ref: shaders/raytracing.slang:96); `frame` an int or a tensor."""
+    (ref: shaders/raytracing.slang:96); `frame` an int or a 0-d integer
+    tensor (as_frame), which give the same words."""
     px = torch.as_tensor(px)
-    frame = torch.as_tensor(frame, device=px.device)
+    frame = as_frame(frame, px.device)
     return hash3(px, py, torch.broadcast_to(as_word(frame), px.shape))

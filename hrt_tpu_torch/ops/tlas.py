@@ -37,7 +37,7 @@ import torch
 from ..config import resolve_device
 from ..models.materials import MatP
 from ..models.scene import PAD, Scene
-from . import (lbvh, morton, traversal_skip, traversal_tlas8,
+from . import (intersect, lbvh, morton, traversal_skip, traversal_tlas8,
                traversal_tlas_skip, v3, wide, wide8)
 from .twolevel import mesh_scene_arrays
 from .v3 import V3
@@ -374,44 +374,48 @@ def build_two_level_flat(scene: Scene, leaf_size: int = 16,
 
 
 def refit_two_level(tl: TwoLevelFlat, world_from_obj, obj_from_world,
-                    normal_mat) -> TwoLevelFlat:
+                    normal_mat, in_place: bool = False) -> TwoLevelFlat:
     """New instance transforms (numpy (I, 3, 4), (I, 3, 4), (I, 3, 3))
-    -> new instance boxes -> a rebuilt TLAS in a new table: the wide
-    TLAS region on the host (BVH8 route), or the binary TLAS rows on the
-    table's device (binary route), and the kernel's records of that
-    region, joined to the BLAS records as they were.  No BLAS is touched
-    and `tl` is left as it was."""
+    -> new instance boxes -> a rebuilt TLAS: the wide TLAS region on the
+    host (BVH8 route), or the binary TLAS rows on the table's device
+    (binary route), and the kernel's records of that region, joined to
+    the BLAS records as they were.  No BLAS is touched.  By default the
+    tables are new and `tl` is left as it was; with `in_place` the TLAS
+    rows, their records and the instance matrices are written into
+    `tl`'s own tensors (same shapes: the instances are the same), which
+    keep their addresses, so that a frame program captured over `tl`
+    reads the refit (FrameLoop.set_instance_transform)."""
     world_from_obj = np.asarray(world_from_obj, np.float32)
     bmin, bmax = world_aabbs(*tl.root_box_host, world_from_obj)
     dev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                     device=tl.device)
+    scalars = {}
     if tl.w8_nodes is None:
         tlas, _ = _tlas_nodes(dev(bmin), dev(bmax))
         rows = tlas.shape[0]
-        tables = dict(nodes=torch.cat([tlas, tl.nodes[rows:]]),
-                      skip_rec=torch.cat([_skip_rec(tlas),
-                                          tl.skip_rec[rows * 128:]]))
+        # field: (the new TLAS part, the table's leading entries it takes)
+        parts = dict(nodes=(tlas, rows),
+                     skip_rec=(_skip_rec(tlas), rows * 128))
     else:
         tlas = wide8.build_wide8_tlas(bmin, bmax, tl.w8_tlas_nw)
-        tlas_depth = int(wide8.node_depths(tlas).max())
-        check_depths(tlas_depth, tl.blas_depth)
+        scalars["tlas_depth"] = int(wide8.node_depths(tlas).max())
+        check_depths(scalars["tlas_depth"], tl.blas_depth)
         rows = tl.w8_tlas_nw // wide8.NODES_PER_ROW
         tlas = torch.as_tensor(tlas, device=tl.device)
-        tables = dict(
-            w8_nodes=torch.cat([tlas, tl.w8_nodes[rows:]]),
-            w8_rec=torch.cat([wide8.node_records(tlas),
-                              tl.w8_rec[tl.w8_tlas_nw:]]),
-            tlas_depth=tlas_depth)
-    return dataclasses.replace(
-        tl, **tables, world_from_obj=dev(world_from_obj),
-        obj_from_world=dev(obj_from_world), normal_mat=dev(normal_mat))
-
-
-def _planes(o: V3, d: V3, t_max):
-    n = o.x.shape[0]
-    tmax = torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=o.x.device), (n,))
-    return (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
+        parts = dict(w8_nodes=(tlas, rows),
+                     w8_rec=(wide8.node_records(tlas), tl.w8_tlas_nw))
+    mats = dict(world_from_obj=dev(world_from_obj),
+                obj_from_world=dev(obj_from_world),
+                normal_mat=dev(normal_mat))
+    if in_place:
+        for name, (new, n) in parts.items():
+            getattr(tl, name)[:n].copy_(new)
+        for name, m in mats.items():
+            getattr(tl, name).copy_(m)
+        return dataclasses.replace(tl, **scalars)
+    tables = {name: torch.cat([new, getattr(tl, name)[n:]])
+              for name, (new, n) in parts.items()}
+    return dataclasses.replace(tl, **tables, **mats, **scalars)
 
 
 def _walk(tl: TwoLevelFlat, plain: bool):
@@ -427,13 +431,13 @@ def closest_hit_tlas(tl: TwoLevelFlat, o: V3, d: V3, t_min, t_max,
     walk (K4 for a BVH8 table, K5 for a binary one) runs its kernel on a
     CUDA tensor and its plain version on a CPU tensor; plain=True takes
     the plain version on any device."""
-    return _walk(tl, plain)(tl, *_planes(o, d, t_max), float(t_min), True)
+    return _walk(tl, plain)(tl, *intersect.ray_planes(o, d, t_max), float(t_min), True)
 
 
 def any_hit_tlas(tl: TwoLevelFlat, o: V3, d: V3, t_min, t_max,
                  plain: bool = False) -> torch.Tensor:
     """Occlusion of the segments (t_min, t_max): bool (N,)."""
-    return _walk(tl, plain)(tl, *_planes(o, d, t_max), float(t_min), False)
+    return _walk(tl, plain)(tl, *intersect.ray_planes(o, d, t_max), float(t_min), False)
 
 
 def shade_attrs_tlas(tl: TwoLevelFlat, materials: torch.Tensor, tri_id,

@@ -16,15 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from . import traversal_skip, traversal_wide8
+from . import intersect, traversal_skip, traversal_wide8
 from .v3 import V3
-
-
-def _planes(o: V3, d: V3, t_max):
-    n = o.x.shape[0]
-    tmax = torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=o.x.device), (n,))
-    return (o.x, o.y, o.z, d.x, d.y, d.z, tmax)
 
 
 def _walk(accel, plain: bool):
@@ -37,7 +30,7 @@ def closest_hit_bvh_p(scene, accel, o: V3, d: V3, t_min, t_max,
     """(t, tri, u, v) of the closest hit; tri is -1 on a miss.
     sorted_ids=True returns leaf-pool ids (for Accel.attr shading),
     otherwise original triangle ids."""
-    t, tri, u, v = _walk(accel, plain)(accel, *_planes(o, d, t_max),
+    t, tri, u, v = _walk(accel, plain)(accel, *intersect.ray_planes(o, d, t_max),
                                        float(t_min), True)
     if sorted_ids:
         return t, tri, u, v
@@ -48,7 +41,7 @@ def closest_hit_bvh_p(scene, accel, o: V3, d: V3, t_min, t_max,
 def any_hit_bvh_p(scene, accel, o: V3, d: V3, t_min, t_max,
                   plain: bool = False) -> torch.Tensor:
     """Occlusion of the segments (t_min, t_max): bool (N,)."""
-    return _walk(accel, plain)(accel, *_planes(o, d, t_max),
+    return _walk(accel, plain)(accel, *intersect.ray_planes(o, d, t_max),
                                float(t_min), False)
 
 

@@ -26,6 +26,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from .graphs import capture_line
 from .utils.image import encode_png, tonemap
 
 # Key names as sent by the browser (event.key, lowercased) mapped to
@@ -292,6 +293,8 @@ def run_preview(loop, camera, port: int = 8000, gamma: float = 2.2,
                 print(f"preview: resize -> {req[0]}x{req[1]}")
                 loop.set_resolution(*req)
             img = loop.step(ctl.camera())
+            if n == 0 and (line := capture_line("preview", loop.program)):
+                print(f"preview: {line}", flush=True)
             srv.publish(tonemap(img.cpu().numpy(), gamma=gamma))
             now = time.perf_counter()
             dt = min(now - last, 0.1)  # clamp stalls (kernel builds)

@@ -11,7 +11,9 @@ HRT_PROFILE_CFG, then `bench`; `--sort 0|1` (or HRT_PROFILE_SORT)
 overrides the configuration's `sort_bounces`, `--resolution WxH` its
 size (small CPU runs).
 
-After one warm-up frame, `--frames` frames run under
+After one warm-up frame (on the card it captures the frame's CUDA
+graph, and a line gives the capture's ms and node count), `--frames`
+frames, replays of that graph, run under
 utils/profiling.trace, which writes the Chrome trace to
 `--dir`/trace.json.  The table gives the top `--top` device ops: ms per
 frame, launches per frame and share of device time, each port kernel
@@ -41,7 +43,8 @@ from .config import resolve_device
 from .frameloop import FrameLoop
 from .models.scene import bench_scene
 from .ops import lbvh
-from .renderer import camera_arrays, render_frames
+from .graphs import capture_line
+from .renderer import FRAME_PROGRAMS, camera_arrays, render_frames
 from .utils.profiling import (StageTimer, busy_share, device_name,
                               device_op_totals, op_label, trace)
 
@@ -49,8 +52,9 @@ TARGETS = {"path1080": "path_tracing_1080p", "4k": "animated_4k_upscaled"}
 
 
 def make_target(which: str, dev, sort=None, resolution=None):
-    """The frame function of a target: fn(i) renders frame i and returns
-    its image.  `sort` overrides sort_bounces, `resolution` (W, H) the
+    """The frame function of a target, fn(i) rendering frame i and
+    returning its image, and the graphs.Programs that captures it on the
+    card.  `sort` overrides sort_bounces, `resolution` (W, H) the
     size."""
     change = {}
     if sort is not None:
@@ -62,14 +66,15 @@ def make_target(which: str, dev, sort=None, resolution=None):
         scene = bench_scene().build(dev)
         accel = lbvh.build_bvh_sah(scene, leaf_size=LEAF_SIZE)
         cams = camera_arrays(BENCH_CAMERA, cfg, dev)
-        return lambda i: render_frames(scene, accel, cams, i, 1, cfg)
+        return (lambda i: render_frames(scene, accel, cams, i, 1, cfg),
+                FRAME_PROGRAMS)
     if which not in TARGETS:
         raise ValueError(f"--cfg must be bench, path1080 or 4k, not "
                          f"{which!r}")
     bc = next(c for c in configs() if c.name == TARGETS[which])
     cfg = dataclasses.replace(bc.config, **change)
     loop = FrameLoop(bc.scene(), cfg, cull_threshold_px=0.0, device=dev)
-    return lambda i: loop.step(bc.camera)
+    return lambda i: loop.step(bc.camera), loop.program
 
 
 def _host_op_totals(prof) -> tuple[float, dict]:
@@ -106,11 +111,14 @@ def main(argv=None) -> dict:
     timer = StageTimer()
     fence = torch.zeros((), device=dev)
     with timer.stage("set-up", fence=fence):
-        frame = make_target(
+        frame, programs = make_target(
             args.cfg, dev, None if args.sort is None else bool(args.sort),
             parse_resolution(args.resolution))
     with timer.stage("warm-up", fence=fence):
         frame(0)
+    line = capture_line(args.cfg, programs)
+    if line:
+        print(line, flush=True)
     n = args.frames
     with trace(args.dir) as prof:
         with timer.stage("frames", fence=fence):

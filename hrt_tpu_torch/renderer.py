@@ -27,7 +27,9 @@ ops/lightbvh.py).  Only the ray order differs: rays stay in pixel order
 packet tiles), the shadow batch is light-major concatenated, the sorted
 wavefront is one stable torch.sort and index gathers instead of a
 multi-operand sort, and the k frames of `render_frames` are a Python
-loop (raygen computed once when there is no jitter).
+loop (raygen computed once when there is no jitter), captured on the
+card as one CUDA graph (graphs.py), the counterpart of the JAX
+package's jit of a scan.
 
 Every entry point takes `plain=False`; `plain=True` routes the walks
 and the BRDF to their plain PyTorch versions on whatever device the
@@ -47,6 +49,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import graphs
 from .config import RenderConfig, require_slice, resolve_device
 from .models.camera import Camera, CameraArrays, primary_rays_from_px_p
 from .models.lights import process_light, process_light_one
@@ -98,8 +101,7 @@ def _brute_blocks(scene: SceneData, o: V3, d: V3, t_min, t_max,
     closest hits within (t_min, t_max), or the occlusion mask."""
     ro, rd = o.to_array(), d.to_array()
     n = ro.shape[0]
-    tmax = torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=ro.device), (n,))
+    tmax = intersect.ray_t_max(t_max, n, ro.device)
     walk = (intersect.closest_hit_bruteforce if closest
             else intersect.any_hit_bruteforce)
     chunk = min(config.tri_chunk, scene.num_triangles)
@@ -664,18 +666,21 @@ def _primary_setup(cam: CameraArrays, rows: int, y0: int,
 def render_rows(scene: SceneData, accel, cam: CameraArrays,
                 y0: int, rows: int, config: RenderConfig,
                 plain: bool = False, want_gbuffer: bool = False,
-                frame: int = 0, _pre=None, _batches=None):
-    """Render rows [y0, y0 + rows) of frame `frame` -> (rows, W, 3)
-    linear radiance, and with `want_gbuffer` also the first sample's
-    G-buffer, each field (rows, W, ·) in pixel order.  Sample s of a
-    pixel starts from pixel_seed(px, py, frame) + s * 0x9E3779B9; with
+                frame=0, _pre=None, _batches=None):
+    """Render rows [y0, y0 + rows) of frame `frame` (an int or a 0-d
+    integer tensor on the card, rng.as_frame) -> (rows, W, 3) linear
+    radiance, and with `want_gbuffer` also the first sample's G-buffer,
+    each field (rows, W, ·) in pixel order.  Sample s of a pixel starts
+    from pixel_seed(px, py, frame) + s * 0x9E3779B9; with
     `config.jitter` its first two draws offset the ray within the pixel,
-    except on frame 0, which shoots through the pixel centre (the
+    except on frame 0, which shoots through the pixel centre (a
+    `where` over the frame on the device, as the JAX package's; the
     unjittered path shoots through the integer corner, as the JAX
     package does).  _pre: render_frames' _primary_setup; _batches: see
     trace_paths."""
     px, py, rays = _pre if _pre is not None else _primary_setup(
         cam, rows, y0, config)
+    frame = rng.as_frame(frame, px.device)
     seeds = rng.pixel_seed(px, py, frame)
     acc = None
     gbuffer = None
@@ -684,10 +689,10 @@ def render_rows(scene: SceneData, accel, cam: CameraArrays,
         if config.jitter:
             jx, seeds_s = rng.rand(seeds_s)
             jy, seeds_s = rng.rand(seeds_s)
-            if frame == 0:
-                jx = jy = 0.5
-            o, d = _rays_at(cam, config, px.to(torch.float32) + jx,
-                            py.to(torch.float32) + jy)
+            o, d = _rays_at(
+                cam, config,
+                px.to(torch.float32) + torch.where(frame == 0, 0.5, jx),
+                py.to(torch.float32) + torch.where(frame == 0, 0.5, jy))
         else:
             o, d = rays
         take_gb = want_gbuffer and s == 0
@@ -704,20 +709,39 @@ def render_rows(scene: SceneData, accel, cam: CameraArrays,
                  for k, v in gbuffer.items()}
 
 
+# render_frames' captured programs (graphs.Programs): a few keys at once,
+# since one process may render many configs, and each graph holds its own
+# memory pool.
+FRAME_PROGRAMS = graphs.Programs(4)
+
+
 def render_frames(scene: SceneData, accel, cam: CameraArrays,
-                  frame0: int, k: int, config: RenderConfig,
+                  frame0, k: int, config: RenderConfig,
                   plain: bool = False) -> torch.Tensor:
-    """Render frames frame0, ..., frame0 + k - 1 -> (k, H, W, 3).  The
-    pixel planes, and the camera rays when there is no jitter, are
-    computed once for the k frames."""
-    pre = _primary_setup(cam, config.height, 0, config)
-    return torch.stack([
-        render_rows(scene, accel, cam, 0, config.height, config,
-                    plain=plain, frame=frame0 + i, _pre=pre)
-        for i in range(k)])
+    """Render frames frame0, ..., frame0 + k - 1 -> (k, H, W, 3), the k
+    frames in one program, as the JAX package's jit of a scan: on the
+    card one CUDA graph per (config, k, camera shapes, scene and accel
+    tensors), captured at its first call and replayed after
+    (graphs.Programs; op by op with `plain`, on the CPU and in
+    graphs.disable()).  `frame0` is an int or a 0-d integer tensor; the
+    frame index frame0 + i is a tensor on the device.  The pixel planes,
+    and the camera rays when there is no jitter, are computed once for
+    the k frames."""
+
+    def body(cam, frame0):
+        pre = _primary_setup(cam, config.height, 0, config)
+        return torch.stack([
+            render_rows(scene, accel, cam, 0, config.height, config,
+                        plain=plain, frame=frame0 + i, _pre=pre)
+            for i in range(k)])
+
+    key = ("render_frames", config, k, graphs.signature(scene),
+           graphs.signature(accel))
+    return FRAME_PROGRAMS(key, body, (cam, frame0), cam.origin.device,
+                          eager=plain)
 
 
-def render_frame(scene: SceneData, accel, cam: CameraArrays, frame: int,
+def render_frame(scene: SceneData, accel, cam: CameraArrays, frame,
                  config: RenderConfig, plain: bool = False) -> torch.Tensor:
     """Render frame `frame` -> (H, W, 3) linear radiance on the scene's
     device: render_frames(..., frame, 1, config)[0]."""

@@ -1333,3 +1333,112 @@ def test_device_op_totals_name_the_port_kernels(cuda):
     assert len(k1) == 2 and [c for _, c in k1] == [2, 2]
     assert sum(k2) == 2
     assert 0.0 < total and 0.0 < profiling.busy_share(prof, wall) <= 1.0
+
+
+# ---- the captured frame programs (hrt_tpu_torch/graphs.py) -----------
+
+def _bits_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _launches():
+    from hrt_tpu_torch import graphs
+
+    return [dict(c) for c in graphs.launch_counters()]
+
+
+def test_render_frames_graph_is_bit_equal_to_eager(cuda):
+    """render_frames(k=4) with jitter: the replayed graph bit for bit the
+    same body op by op (graphs.disable()), with the same launches; one
+    capture for the key; a returned batch unchanged after the next
+    replay."""
+    import dataclasses
+
+    from hrt_tpu_torch import graphs
+
+    cfg = dataclasses.replace(RenderConfig(width=128, height=96,
+                                           max_depth=2, sky=True),
+                              indirect=True, jitter=True)
+    scene = bench_scene().build(cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, cuda)
+    caps = renderer.FRAME_PROGRAMS.captures
+    renderer.render_frames(scene, accel, cams, 0, 4, cfg)   # captures
+    assert renderer.FRAME_PROGRAMS.captures == caps + 1
+    for frame0 in (0, 4):
+        with graphs.disable():
+            before = _launches()
+            want = renderer.render_frames(scene, accel, cams, frame0, 4, cfg)
+            eager = [{k: c[k] - b[k] for k in c}
+                     for c, b in zip(_launches(), before)]
+        before = _launches()
+        got = renderer.render_frames(scene, accel, cams, frame0, 4, cfg)
+        torch.cuda.synchronize()
+        assert [{k: c[k] - b[k] for k in c}
+                for c, b in zip(_launches(), before)] == eager
+        assert _bits_equal(got, want)
+        if frame0 == 0:
+            first, kept = got, got.clone()
+    assert _bits_equal(first, kept)
+    assert renderer.FRAME_PROGRAMS.captures == caps + 1
+
+
+def test_post_loop_graph_is_bit_equal_to_eager(cuda):
+    """Four steps of a post loop (accumulate, jitter, SVGF, the temporal
+    upscaler): each captured step and the loop's state bit for bit an
+    op-by-op loop's; one capture; every returned frame unchanged after
+    the later steps."""
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.frameloop import FrameLoop
+
+    cfg = RenderConfig(width=96, height=64, max_depth=1, sky=True,
+                       jitter=True, accumulate=True, denoise=True,
+                       upscale=2, upscale_mode="temporal")
+    graphed = FrameLoop(bench_scene(), cfg, device=cuda)
+    eager = FrameLoop(bench_scene(), cfg, device=cuda)
+    kept = []
+    for f in range(4):
+        with graphs.disable():
+            want = eager.step(_post_cam(f))
+        got = graphed.step(_post_cam(f))
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want)
+        for a, b in zip([*graphed.dn_state, graphed.accum,
+                         graphed.up_history],
+                        [*eager.dn_state, eager.accum, eager.up_history]):
+            assert _bits_equal(a, b)
+        kept.append((got, got.clone()))
+    assert all(_bits_equal(a, b) for a, b in kept)
+    assert graphed.captures == 1 and eager.captures == 0
+
+
+def test_capture_failure_raises_and_only_the_listed_cases_go_op_by_op(
+        cuda, monkeypatch):
+    """A body with a host sync raises at its capture (nothing retried op
+    by op) and the card works on; a CUDA FrameLoop step captures, and
+    plain=True, graphs.disable() and the guarded build do not."""
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.frameloop import FrameLoop
+
+    def bad(x, frame):
+        return x * float(x.sum())
+
+    progs = graphs.Programs(1)
+    with pytest.raises(RuntimeError):
+        progs("bad", bad, (torch.ones(8, device=cuda), 0), cuda)
+    assert progs.captures == 0
+    torch.cuda.synchronize()
+    cfg = RenderConfig(width=64, height=48, max_depth=1, sky=True)
+    loop = FrameLoop(bench_scene(), cfg, device=cuda)
+    loop.step(Camera(**BENCH_CAM))
+    assert loop.captures == 1 and loop.program.last.graph.nodes > 0
+    loop.step(Camera(**BENCH_CAM), plain=True)
+    with graphs.disable():
+        loop.step(Camera(**BENCH_CAM))
+    monkeypatch.setattr(traversal_wide8, "GUARDS", True)
+    loop.step(Camera(**BENCH_CAM))
+    traversal_wide8.check_pending_guards()
+    monkeypatch.setattr(traversal_wide8, "GUARDS", False)
+    loop.step(Camera(**BENCH_CAM))
+    assert loop.captures == 1

@@ -3,6 +3,8 @@ accumulate branch of the JAX package's `_post_stages`, resolution
 switches, instance animation through the TLAS refit, and what the port
 refuses (the denoise and upscale branches are held against JAX in
 test_torch_post_loop.py).  The scene is test_tlas's four instances at 32x24."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -61,13 +63,17 @@ def test_set_resolution_keeps_the_accel():
 
 def test_set_instance_transform_refits_the_tlas():
     """Moving the sphere at the origin: the loop's table is the refit of
-    the transforms, its BLAS region is untouched, and the frame changes
-    where the sphere was."""
+    the transforms, written into the table's own storage (the loop's
+    captured frame program reads it there), its BLAS region is
+    untouched, and the frame changes where the sphere was."""
     loop = _loop()
     before_img = loop.step(Camera(**CAM)).clone()
-    before = loop.accel
+    before = dataclasses.replace(loop.accel,
+                                 w8_nodes=loop.accel.w8_nodes.clone())
+    nodes_ptr = loop.accel.w8_nodes.data_ptr()
     loop.set_instance_transform(1, position=(0.0, -8.0, 0.0))
     after = loop.accel
+    assert after.w8_nodes.data_ptr() == nodes_ptr
     insts = loop.scene_obj.instances
     want = tlas.refit_two_level(
         before, *[np.stack([getattr(i, k) for i in insts])
