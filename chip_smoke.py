@@ -54,21 +54,25 @@ over the bench frame, whose history fetches run K6.  Phases:
      grid's binary tables) vs their plain versions and the soup's brute
      force on 4093 of those rays (a partial last warp)
  12. FrameLoop(two_level=True): 32 steps at 512x384, each after moving
-     one sphere (set_instance_transform); the launch counters must show
+     one sphere (set_instance_transform: the loop's refit program): one
+     frame capture, one refit capture; the launch counters must show
      32 K4 closest, 32 K4 any-hit and 32 K2 launches; the last frame vs
      the plain-path frame and vs the soup frame through K1
  13. one 1920x1080 two-level frame, same checks
  14. CUDA-event times (median of 7; the kernels 10 calls per sample,
      one call alone beside): K4 vs its plain version at the 512x384
-     shapes, one refit, ms/frame and Mray/s at both sizes; K4's node
+     shapes, one refit (set_instance_transform: the refit program and
+     its depth read, host clock), ms/frame and Mray/s at both sizes; K4's node
      records' times; K4's visits per live ray in the table's order and
      nearest first (traversal_tlas8.visit_counts) and the operation
      bound they give; K4 against the baseline K4 in turns
  15. the culled FrameLoop (default cull_threshold_px) over the 16x16 grid
      soup: 32 steps at 512x384 along orbit_camera(0.15 f, radius 4,
-     height -1), the visible count per frame, >= 2 LBVH rebuilds; the
-     launch counters must show 32 K3 closest, 32 K3 any-hit, 32 K2 and
-     no K1 launch; the card's LBVH bit-equal to the CPU's; K3 vs its
+     height -1), the visible count per frame, >= 2 LBVH rebuilds (the
+     first replaces the SAH accel, the later ones write it in place from
+     the loop's rebuild program): one frame capture, one rebuild
+     capture; the launch counters must show 32 K3 closest, 32 K3
+     any-hit, 32 K2 and no K1 launch; the card's LBVH bit-equal to the CPU's; K3 vs its
      plain version on the last frame's batches and both vs brute force
      over the masked soup; the last frame vs the plain-path frame and vs
      the K1 frame of a SAH build over the same mask
@@ -77,7 +81,8 @@ over the bench frame, whose history fetches run K6.  Phases:
      the binary route, timed; K5 vs its plain version on the 512x384
      frame's batches, and vs K4 on the same scene built with a raised
      wide bound; 8 steps, each after moving another sphere (the binary
-     TLAS rebuilt on the card, timed); the launch counters must show 8
+     TLAS refitted on the card by the loop's refit program, timed): one
+     frame capture, one refit capture; the launch counters must show 8
      K5 closest, 8 K5 any-hit, 8 K2 and no K4 launch; the last frame vs
      the K4 frame and vs the plain-path frame
  18. one 1920x1080 forest frame: K5 and K2 launched once each, finite,
@@ -302,13 +307,26 @@ over the bench frame, whose history fetches run K6.  Phases:
      render_frames x32 at 512x384, bench_full's seven configurations
      through FrameLoop (3 steps each; instanced_tlas_512x384 animated
      through set_instance_transform, its refits written into the
-     captured tables), the culled orbit across its LBVH rebuilds (a
-     capture a rebuild), one brute-force frame; each captured frame and
+     captured tables), the culled orbit across its LBVH rebuilds (one
+     frame capture and one rebuild capture: the rebuilds write the
+     accel in place), one brute-force frame; each captured frame and
      the loop's state bit-equal to the op-by-op one, launches per frame
      equal, every returned frame unchanged after the next call; wall ms
      per frame of both (host clock after a synchronise), device ms of
-     both (profiler), capture ms, the graph's node count, peak bytes
-     and the number of captures
+     both (profiler; the culled orbit's steps each rebuild), capture
+     ms, the graph's node count, peak bytes and the number of captures
+ 48. the device-side builds against their bodies op by op, in turns:
+     the TLAS refit program (tlas.set_instance: the moved instance's
+     rows copied in, the refit replayed, the 4-byte depth read) on the
+     instanced grid (BVH8, K4), the forest (binary, K5) and the forest's
+     raised-bound BVH8 table, 9 moves each, every table and matrix bit
+     for bit and one capture per table (one more per TLAS depth
+     change); the culling rebuild program (lbvh.rebuild_bvh) over 8
+     orbit masks of the culled grid against the body op by op and a
+     fresh build_bvh, bit for bit; each with host-clock ms a call,
+     device ms (profiler), nodes and capture ms; for the BVH8 tables
+     the depth read-back's cost (8 replays back to back, with and
+     without the read, in turns)
 
 Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
 through K1 and K2, held off the image diagonals where the box's wall
@@ -337,8 +355,11 @@ gitignored chip_scratch/baseline/, e.g. for the K1 and K2 of 6f624a9
 built into their own library at phase 2.  A plain checkout has none,
 and the comparisons are skipped.
 
-Exits non-zero, printing no result, without a CUDA device or when any
-check fails.  The line before the last is the kernels JSON (the six
+After the phases it prints how many profiler windows came back with no
+device activity and were profiled again (utils/profiling.EMPTY_WINDOWS;
+each is also logged where it happens).  Exits non-zero, printing no
+result, without a CUDA device or when any check fails.  The line before
+the last is the kernels JSON (the six
 kernels on the direct-lighting paths, K6's backward on the trainer's
 history, then K1's two modes and K2 on the path_tracing frame, one
 frame's five launches each, then on the many_lights_256 frame, then
@@ -348,6 +369,7 @@ the debug builds of K1, K3 and K4, phase 44); the last is {"ok": true,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -4430,8 +4452,10 @@ def frame_graph_phase(sm: Smoke, dev) -> dict:
         sm.check(gl.captures == 1, f"{bc.name}: {gl.captures} capture(s)")
         del loops, gl
 
-    # The culled orbit: the first step rebuilds before its trace, and the
-    # orbit rebuilds again; each rebuilt accel captures once.
+    # The culled orbit: the first step rebuilds before its trace (the
+    # LBVH replaces the SAH accel), the later ones in place: one frame
+    # capture and one rebuild capture.  Every step's camera is new, so
+    # the profiled steps rebuild too.
     c_cfg = tbench.bench_config()
     loops = {side: FrameLoop(instance_grid_scene(), c_cfg, device=dev)
              for side in ("eager", "graph")}
@@ -4448,12 +4472,16 @@ def frame_graph_phase(sm: Smoke, dev) -> dict:
     res = graph_turns(sm, "culled orbit", cstep, 3)
     gl = loops["graph"]
     distinct = len({id(a) for a in accels})
-    dev_ms = (float("nan"), float("nan"))
+    ce, cg = iter(range(3, 9)), iter(range(3, 9))
+    dev_ms = device_ms(lambda: loops["eager"].step(cam(next(ce))),
+                       lambda: loops["graph"].step(cam(next(cg))))
     report("culled_orbit", res, gl.program, dev_ms, gl.captures)
-    sm.check(gl.rebuilds >= 2 and gl.captures == distinct
-             == gl.rebuilds and loops["eager"].rebuilds == gl.rebuilds,
-             f"culled orbit: {gl.rebuilds} rebuilds, {gl.captures} captures "
-             f"({distinct} accels traced)")
+    sm.check(gl.rebuilds >= 4 and gl.captures == distinct == 1
+             and gl.builds.captures == 1
+             and loops["eager"].rebuilds == gl.rebuilds,
+             f"culled orbit: {gl.rebuilds} rebuilds, {gl.captures} frame "
+             f"capture(s), {gl.builds.captures} rebuild capture(s) "
+             f"({distinct} accel traced)")
     del loops, gl, accels
 
     # One brute-force frame (no accel: every trace tests every triangle):
@@ -4484,6 +4512,160 @@ def frame_graph_phase(sm: Smoke, dev) -> dict:
               f"({str(e).splitlines()[0][:100]})", flush=True)
     torch.cuda.synchronize()
     sm.check(raised, "a capture with a host sync in its body raises")
+    return out
+
+
+def device_builds_phase(sm: Smoke, dev, tables: dict, cscene, cull_cams,
+                        cfg) -> dict:
+    """Phase 48: the device-side builds replayed from their captured
+    programs against the same bodies op by op, bit for bit and in turns
+    (graph first on odd turns): the TLAS refit (`tlas.set_instance`) on
+    `tables` (name -> (TwoLevelFlat, its scene's instances); copies are
+    refitted, the tables stay), and the culling rebuild
+    (`lbvh.rebuild_bvh`) over `cscene` with the masks of `cull_cams`
+    against a fresh `build_bvh` too.  Each prints its host-clock ms a
+    call (median of the turns after the capture; a refit ends in its
+    depth read or a synchronize), its device ms (profiler, one call),
+    the graph's nodes and capture ms; a BVH8 refit also the cost of its
+    depth read-back.  Returns them by case."""
+    import torch
+
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.models.instance import MeshInstance
+    from hrt_tpu_torch.ops import culling, lbvh, tlas
+
+    phase("phase 48: the refit and rebuild programs vs their bodies op by "
+          "op (bit for bit, in turns), and a fresh LBVH build")
+    fields = ("nodes", "skip_rec", "w8_nodes", "w8_rec", "world_from_obj",
+              "obj_from_world", "normal_mat")
+    out = {}
+
+    def copy(tl):
+        return dataclasses.replace(tl, **{
+            k: getattr(tl, k).clone() for k in fields
+            if getattr(tl, k) is not None})
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def record(name, times, first, progs, dev_ms):
+        g = progs.last.graph
+        med = {k: statistics.median(v) for k, v in times.items()}
+        out[name] = {"host_ms": med, "device_ms": dev_ms,
+                     "nodes": g.nodes, "capture_ms": g.capture_ms,
+                     "first_graph_call_ms": first,
+                     "captures": progs.captures}
+        print(f"  {name}: host ms a call {', '.join(f'{k} {v:.4f}' for k, v in med.items())} "
+              f"(turns: {', '.join(f'{k} {[round(x, 4) for x in v]}' for k, v in times.items())}); "
+              f"device ms {', '.join(f'{k} {v:.4f}' for k, v in dev_ms.items())}; "
+              f"{g.nodes} nodes, capture {g.capture_ms:.1f} ms, first "
+              f"captured call {first:.1f} ms, {progs.captures} capture(s)",
+              flush=True)
+
+    turns = 8
+    for name, (tl, instances) in tables.items():
+        sides = {"graph": copy(tl), "eager": copy(tl)}
+        progs = graphs.Programs(1)
+        times, first, same, moved = {"graph": [], "eager": []}, 0.0, True, 0
+        for i in range(turns + 1):
+            idx = 1 + (977 * i) % (len(instances) - 1)
+            cur = instances[idx]
+            x, y, z = cur.position
+            new = MeshInstance(cur.mesh_id, cur.material_id,
+                               (x, y - 0.4, z), (0.1 * i, 0.2 * i, 0.0),
+                               cur.scale)
+            mats = (new.transform, new.inverse_transform, new.normal_matrix)
+            for side in (("graph", "eager") if i % 2 else
+                         ("eager", "graph")):
+                before = sides[side]
+                sides[side], ms = timed(lambda: tlas.set_instance(
+                    before, idx, *mats, programs=progs,
+                    plain=side == "eager"))
+                moved += side == "graph" and sides[side] is not before
+                if i == 0 and side == "graph":
+                    first = ms
+                else:
+                    times[side].append(ms)
+            a, b = sides["graph"], sides["eager"]
+            same &= a.tlas_depth == b.tlas_depth and all(
+                same_bits(getattr(a, k), getattr(b, k)) for k in fields
+                if getattr(a, k) is not None)
+        sm.check(same and progs.captures == 1 + moved,
+                 f"{name}: the refit program bit-equal to its body op by op "
+                 f"over {turns + 1} moves; {progs.captures} capture(s), "
+                 f"{moved} TLAS depth change(s)")
+        a, b = sides["graph"], sides["eager"]
+        with graphs.disable():
+            dev_e = profiled_device_ms(lambda: tlas.set_instance(
+                b, idx, *mats, programs=progs, plain=True))
+        dev_g = profiled_device_ms(lambda: tlas.set_instance(
+            a, idx, *mats, programs=progs))
+        record(f"refit, {name}", times, first, progs,
+               {"graph": dev_g, "eager": dev_e})
+        if a.w8_nodes is not None:
+            # The depth read-back's cost: 8 replays back to back, the
+            # depth read after each or not (it waits for the replay).
+            key = ("tlas_refit", True, graphs.signature(a))
+            replay = lambda: progs(key, tlas.refit_body(a), (), dev)
+            reads = {}
+            for read in (False, True, True, False):
+                _, ms = timed(lambda: [int(replay()[0]) if read
+                                       else replay() for _ in range(8)])
+                reads.setdefault(read, []).append(ms / 8)
+            print(f"  depth read-back, {name}: ms a replay without the "
+                  f"read {reads[False]}, with it {reads[True]} (in turns)",
+                  flush=True)
+            out[f"refit, {name}"]["read_back_ms"] = reads
+        del sides, a, b
+
+    # The culling rebuild over the masks of an orbit's visibility.
+    vis = torch.ones(cscene.inst_bmin.shape[0], dtype=torch.bool, device=dev)
+    masks = []
+    for cams in cull_cams:
+        vis = culling.cull_instances(vis, cscene.inst_bmin, cscene.inst_bmax,
+                                     cams, cfg.width, cfg.height)
+        masks.append(culling.triangle_mask(vis, cscene.tri_inst,
+                                           cscene.tri_valid))
+    sides = {side: lbvh.build_bvh(cscene, 32, masks[0])
+             for side in ("graph", "eager")}
+    progs, eager_progs = graphs.Programs(1), graphs.Programs(1)
+    times = {"graph": [], "eager": [], "fresh build_bvh": []}
+    first, same = 0.0, True
+    for i, mask in enumerate(masks[1:]):
+        order = ("graph", "eager", "fresh build_bvh") if i % 2 else \
+            ("fresh build_bvh", "eager", "graph")
+        for side in order:
+            if side == "fresh build_bvh":
+                fresh, ms = timed(lambda: lbvh.build_bvh(cscene, 32, mask))
+            else:
+                _, ms = timed(lambda: lbvh.rebuild_bvh(
+                    sides[side], cscene, mask,
+                    progs if side == "graph" else eager_progs,
+                    plain=side == "eager"))
+            if i == 0 and side == "graph":
+                first = ms
+            else:
+                times[side].append(ms)
+        same &= all(same_bits(getattr(sides[s], k), getattr(fresh, k))
+                    for s in ("graph", "eager") for k in lbvh._REBUILT)
+    sm.check(same and progs.captures == 1 and eager_progs.captures == 0,
+             f"culling rebuild: the program bit-equal to its body op by op "
+             f"and to a fresh build_bvh over {len(masks) - 1} masks, "
+             f"{progs.captures} capture")
+    with graphs.disable():
+        dev_e = profiled_device_ms(lambda: lbvh.rebuild_bvh(
+            sides["eager"], cscene, masks[-1], eager_progs, plain=True))
+        dev_f = profiled_device_ms(lambda: lbvh.build_bvh(cscene, 32,
+                                                          masks[-1]))
+    dev_g = profiled_device_ms(lambda: lbvh.rebuild_bvh(
+        sides["graph"], cscene, masks[-1], progs))
+    record(f"culling rebuild ({cscene.tri_v0.shape[0]} pool triangles)",
+           times, first, progs,
+           {"graph": dev_g, "eager": dev_e, "fresh build_bvh": dev_f})
     return out
 
 
@@ -4674,6 +4856,9 @@ def main() -> int:
     sm.check(launches4 == {"k4_closest": 32, "k4_any_hit": 32,
                            "brdf_light_major": 32, "k1": 0},
              f"launch counters {launches4}")
+    sm.check(loop.captures == 1 and loop.builds.captures == 1,
+             f"32 refits and frames: {loop.captures} frame capture(s), "
+             f"{loop.builds.captures} refit capture(s)")
     sm.check(tuple(img.shape) == (384, 512, 3)
              and bool(torch.isfinite(img).all()),
              f"frame {tuple(img.shape)} finite")
@@ -4829,6 +5014,10 @@ def main() -> int:
     sm.check(cloop.rebuilds >= 2 and bool(first_rebuild_before_trace),
              f"{cloop.rebuilds} LBVH rebuilds, the first before frame 0's "
              "trace")
+    sm.check(cloop.captures == 1 and cloop.builds.captures == 1,
+             f"{steps} steps, {cloop.rebuilds} rebuilds: {cloop.captures} "
+             f"frame capture(s), {cloop.builds.captures} rebuild "
+             "capture(s)")
     sm.check(tuple(img_c.shape) == (384, 512, 3)
              and bool(torch.isfinite(img_c).all()),
              f"frame {tuple(img_c.shape)} finite")
@@ -4855,7 +5044,9 @@ def main() -> int:
 
     c_cams = renderer.camera_arrays(orbit_cam(steps - 1), g_cfg, dev)
     c_prim, c_shadow, _ = frame_batches(cscene, cloop.accel, c_cams, g_cfg)
-    caccel = cloop.accel
+    # A copy: the loop's later rebuilds write its own accel in place.
+    caccel = dataclasses.replace(cloop.accel, **{
+        k: getattr(cloop.accel, k).clone() for k in lbvh._REBUILT})
     kc3 = k3.trace_kernel(caccel, *c_prim, g_cfg.t_min, True)
     pc3 = k3.trace_plain(caccel, *c_prim, g_cfg.t_min, True)
     k3c_err = check_closest(sm, "K3 vs plain", kc3, pc3)
@@ -5001,7 +5192,12 @@ def main() -> int:
     sm.check(floop.accel.w8_nodes is None and tuple(img_f.shape)
              == (384, 512, 3) and bool(torch.isfinite(img_f).all()),
              f"frame {tuple(img_f.shape)} finite, still on the binary route")
-    ftl4 = tlas.refit_two_level(ftl4, *floop._mats)
+    sm.check(floop.captures == 1 and floop.builds.captures == 1,
+             f"{f_steps} refits and frames: {floop.captures} frame "
+             f"capture(s), {floop.builds.captures} refit capture(s)")
+    fa = floop.accel
+    ftl4 = tlas.refit_two_level(ftl4, fa.world_from_obj, fa.obj_from_world,
+                                fa.normal_mat)
     k4_f = renderer.render_frames(fscene, ftl4, g_cams, 0, 1, g_cfg)[0]
     pf4 = psnr4(img_f, k4_f)
     sm.check(pf4 > 45.0, f"last frame vs K4 frame of the raised-bound table "
@@ -5204,6 +5400,15 @@ def main() -> int:
     entry_points_phase(sm, dev, smi)
     array_api_phase(sm, dev, bench, tl, g_shadow)
     frame_graph_phase(sm, dev)
+    device_builds_phase(
+        sm, dev, {"instanced grid (257 instances, BVH8, K4)":
+                  (tl, grid.instances),
+                  "forest (33125 instances, binary, K5)":
+                  (ftl, forest.instances),
+                  "forest, raised bound (33125 instances, BVH8, K4)":
+                  (ftl4, forest.instances)},
+        cscene, [renderer.camera_arrays(orbit_cam(f), g_cfg, dev)
+                 for f in range(9)], g_cfg)
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,
@@ -5306,6 +5511,10 @@ def main() -> int:
         # the plain walk; bound: the normal walk's plus the counts written.
         *debug_entries,
     ]
+    from hrt_tpu_torch.utils import profiling
+
+    print(f"profiler windows with no device activity, profiled again: "
+          f"{profiling.EMPTY_WINDOWS}", flush=True)
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} check(s) failed: "
               f"{sm.failures}", file=sys.stderr)

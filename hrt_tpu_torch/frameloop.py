@@ -137,7 +137,14 @@ class FrameLoop:
     divide the frame's height.
 
     `visible` holds the instances' culling state and `rebuilds` counts
-    the LBVH rebuilds that culling made."""
+    the LBVH rebuilds that culling made.  On the card the frame replays
+    the loop's frame program (`program`, `captures`) and a refit or a
+    culling rebuild its build program (`builds`), each captured once for
+    as long as the shapes and the accel stay.  Both write `accel` in
+    place: after `set_instance_transform`, and after every culling
+    rebuild but the first, `accel` holds the same tensors with new
+    contents, so a caller that needs the old tables copies them
+    first."""
 
     scene_obj: Any
     config: RenderConfig
@@ -168,12 +175,6 @@ class FrameLoop:
                 raise ValueError("two_level needs the authoring Scene")
             self.accel = tlas.build_two_level_flat(
                 self.scene_obj, self.leaf_size, device=self.device)
-            # Per-instance matrices, kept so that moving one instance
-            # recomputes one row.
-            self._mats = [np.stack([getattr(i, k)
-                                    for i in self.scene_obj.instances])
-                          for k in ("transform", "inverse_transform",
-                                    "normal_matrix")]
         elif cfg.traversal == "bruteforce":
             self.accel = None
         else:
@@ -194,8 +195,12 @@ class FrameLoop:
             if temporal:
                 self.up_history = self._zeros(2 * cfg.height, 2 * cfg.width)
         # The loop's captured frame program: one graph at a time, keyed by
-        # the config, the shapes, the scene, the accel and the net.
+        # the config, the shapes, the scene, the accel and the net.  And
+        # its build program: the TLAS refit of a two-level loop or the
+        # culling rebuild, keyed by the scene and the accel.
         self.program = graphs.Programs(1)
+        self.builds = graphs.Programs(1)
+        self._culled = False
         self.reset_history()
 
     @property
@@ -233,10 +238,13 @@ class FrameLoop:
     def set_instance_transform(self, idx: int, position=None,
                                rotation=None, scale=None) -> None:
         """Animate one instance (two-level mode): update its TRS and
-        refit the TLAS in place (tlas.refit_two_level's `in_place`: the
-        TLAS rows and the instance matrices are written into the accel's
-        own tensors, so the captured frame program reads the refitted
-        tables and is not captured again); no BLAS is rebuilt."""
+        refit the TLAS in place (tlas.set_instance: the instance's
+        matrix rows go to the device, the loop's refit program writes
+        the TLAS rows and their records into the accel's own tensors,
+        so the captured frame program reads the refitted tables and is
+        not captured again); no BLAS is rebuilt.  Raises ValueError,
+        the instance left where it was, when K4 cannot walk the refitted
+        table."""
         if not self.two_level:
             raise ValueError("instance animation needs two_level=True")
         cur = self.scene_obj.instances[idx]
@@ -245,14 +253,12 @@ class FrameLoop:
             tuple(position) if position is not None else cur.position,
             tuple(rotation) if rotation is not None else cur.rotation,
             tuple(scale) if scale is not None else cur.scale)
+        self.accel = tlas.set_instance(
+            self.accel, idx, new.transform, new.inverse_transform,
+            new.normal_matrix, programs=self.builds)
         self.scene_obj.instances[idx] = new
-        for mats, m in zip(self._mats, (new.transform, new.inverse_transform,
-                                        new.normal_matrix)):
-            mats[idx] = m
-        self.accel = tlas.refit_two_level(self.accel, *self._mats,
-                                          in_place=True)
 
-    def _maybe_cull(self, cams) -> None:
+    def _maybe_cull(self, cams, plain: bool) -> None:
         if (self.accel is None or self.cull_threshold_px <= 0
                 or self.two_level):
             return
@@ -264,8 +270,16 @@ class FrameLoop:
             self.visible = new_vis
             mask = culling.triangle_mask(new_vis, self.scene.tri_inst,
                                          self.scene.tri_valid)
-            self.accel = lbvh.build_bvh(self.scene, self.leaf_size,
-                                        tri_mask=mask)
+            if self._culled:
+                # In place, from the loop's build program: the frame
+                # program reads the new tables and is not captured again.
+                lbvh.rebuild_bvh(self.accel, self.scene, mask, self.builds,
+                                 plain=plain)
+            else:
+                # The first rebuild replaces the SAH accel.
+                self.accel = lbvh.build_bvh(self.scene, self.leaf_size,
+                                            tri_mask=mask)
+                self._culled = True
             self.rebuilds += 1
 
     def step(self, camera: Camera, plain: bool = False) -> torch.Tensor:
@@ -275,8 +289,9 @@ class FrameLoop:
         (graphs.Programs): captured at the first step of a config, shape,
         scene, accel and net, replayed after, the camera arrays, the
         frame index and the cross-frame state copied in and out.  Culling
-        and its rebuild stay outside it (a rebuild changes the accel's
-        shapes, and the next step captures again).  `plain=True` renders
+        runs before it; its rebuild writes the loop's LBVH accel in place
+        from the loop's build program (the first one replaces the SAH
+        accel, and the next step captures again).  `plain=True` renders
         and post-processes it op by op with the plain versions of the
         kernels, on the loop's device (a reference loop on the card); a
         loop over a `mesh` runs the tiled frame op by op."""
@@ -284,7 +299,7 @@ class FrameLoop:
         cams = camera_arrays(camera, cfg, self.device)
         if self.prev_cams is None:
             self.prev_cams = cams
-        self._maybe_cull(cams)
+        self._maybe_cull(cams, plain)
         if self.mesh is None:
             scene, accel, net = self.scene, self.accel, self.net
 

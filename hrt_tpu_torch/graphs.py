@@ -27,7 +27,7 @@ launch.  `Programs` is a bounded cache of captured bodies:
   fresh copies of the outputs: a replay overwrites the pool, so nothing
   returned aliases it, and a frame kept from one call stays as it was
   after the next.
-- One pool for every graph of a device: a graph's intermediates are dead
+- One pool for every live graph of a device: a graph's intermediates are dead
   once its outputs are copied out, so another capture may reuse their
   memory, and the graphs together hold the largest frame's memory, not
   the sum of all of theirs.  This holds because the replays run on one
@@ -38,6 +38,13 @@ launch.  `Programs` is a bounded cache of captured bodies:
   capture (host code that ran once, launching nothing) is taken back
   and added again at every replay.
 - A capture or a replay that fails raises.  Nothing retries op by op.
+
+The same runner replays the device-side builds that change what a frame
+reads: the TLAS refit (ops/tlas.py `refit_body`, the counterpart of JAX's
+jitted `refit_two_level`) and the culling LBVH rebuild (ops/lbvh.py
+`rebuild_body`, of JAX's jitted `build_bvh`).  Their bodies write an
+accel's own tensors in place, so the frame programs captured over it
+read the new tables and are not captured again.
 
 A frame runs op by op (the body called directly, under no_grad) on CPU
 tensors, inside `disable()` (the counterpart of `jax.disable_jit()`,
@@ -58,6 +65,7 @@ import contextlib
 import ctypes
 import dataclasses
 import time
+import weakref
 from typing import Any, Callable
 
 import numpy as np
@@ -147,13 +155,15 @@ def _node_count(graph: torch.cuda.CUDAGraph) -> int:
 
 
 def _pool(device: torch.device) -> tuple:
-    """(device index, the memory pool that every capture on it
-    shares)."""
+    """(device index, the memory pool that every live capture on it
+    shares, the set of those captures).  Torch releases a pool once
+    every graph captured into it is gone and refuses to capture into its
+    handle again, so a new pool is opened then."""
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
-    if index not in _pools:
-        _pools[index] = torch.cuda.graph_pool_handle()
-    return index, _pools[index]
+    if index not in _pools or not _pools[index][1]:
+        _pools[index] = (torch.cuda.graph_pool_handle(), weakref.WeakSet())
+    return (index, *_pools[index])
 
 
 class CudaGraph:
@@ -170,10 +180,11 @@ class CudaGraph:
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         stream.wait_stream(torch.cuda.current_stream(device))
-        index, pool = _pool(device)
+        index, pool, members = _pool(device)
         with torch.cuda.stream(stream):
             self.graph.capture_begin(pool=pool,
                                      capture_error_mode="thread_local")
+            members.add(self)
             try:
                 self.outputs = body(*args)
             except BaseException:

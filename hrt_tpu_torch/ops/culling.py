@@ -4,7 +4,7 @@ the frame loop's device.
 Instances whose projected screen footprint falls below a pixel threshold
 are dropped from the frame, with enter/exit hysteresis so they do not
 pop at the boundary; the per-triangle mask feeds the LBVH rebuild
-(ops/lbvh.build_bvh(tri_mask=...)).  The arithmetic is the JAX
+(ops/lbvh.build_bvh, rebuild_bvh).  The arithmetic is the JAX
 package's, operation for operation (the camera-space dot products are
 written out left to right, as its three-term reductions sum them).
 """
@@ -12,12 +12,14 @@ from __future__ import annotations
 
 import torch
 
+from .. import graphs
+
 
 def _corners(bmin: torch.Tensor, bmax: torch.Tensor) -> torch.Tensor:
     """(I, 8, 3) corner positions of instance AABBs."""
-    picks = torch.tensor(
-        [[x, y, z] for x in (0, 1) for y in (0, 1) for z in (0, 1)],
-        dtype=torch.float32, device=bmin.device)
+    picks = graphs.constant(
+        tuple((x, y, z) for x in (0, 1) for y in (0, 1) for z in (0, 1)),
+        bmin.device)
     return (bmin[:, None, :] * (1.0 - picks[None])
             + bmax[:, None, :] * picks[None])
 

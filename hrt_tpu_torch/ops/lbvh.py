@@ -18,9 +18,15 @@ build is integer work, min/max and a few separate float32 operations
 (DFS preorder with skip links), which the skip-link walk K3
 (ops/traversal_skip.py) reads and the two-level build (ops/tlas.py)
 concatenates for K5.  `karras_hierarchy`, `refit` and `flatten_bvh` are
-the JAX functions' algorithms; where JAX runs 64 fixed sweeps, these
-stop at the fixed point (checked every few sweeps, so the host syncs
-rarely), which gives the same result.
+the JAX functions' algorithms.  Where JAX runs 64 fixed sweeps, these
+run `sweep_bound(leaves)` of them, a bound on the tree's depth, so they
+reach JAX's fixed point with no data-dependent step: no host sync, and
+no shape that depends on the data (scatters drop their masked entries
+into a spare slot, as JAX's `mode="drop"`).  So the whole build can run
+inside a captured program: `rebuild_bvh` is the culling rebuild written
+into an existing LBVH accel's tensors, replayed from a capture.  The
+flatten of an SAH tree (its depth unknown, built on the host) still
+stops at the fixed point.
 """
 from __future__ import annotations
 
@@ -29,16 +35,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import native
+from .. import graphs, native
 from ..models.scene import SceneData
 from . import morton, traversal_skip, traversal_wide8, wide8
 
 # Column where the material row starts inside Accel.attr.
 ATTR_MAT = 16
-# Sweep bound, as the JAX package: the radix tree's depth bound (30
-# Morton bits + the index tiebreak).
+# JAX's sweep count, the most a flatten of a tree of unknown depth (an
+# SAH tree, on the host) runs: 64 levels, as in the JAX package.
 _REFIT_DEPTH = 64
-# Sweeps between fixed-point checks (each check syncs with the device).
+# Sweeps between that flatten's fixed-point checks (each syncs).
 _CHECK_EVERY = 8
 _BIG = 3e38
 
@@ -221,25 +227,45 @@ def build_bvh_sah(scene: SceneData, leaf_size: int = 16, device=None,
 # ---------------------------------------------------------------------------
 
 def _clz32(x: torch.Tensor) -> torch.Tensor:
-    """Leading zeros of uint32 values held in int64 (32 for 0): float64
-    holds them exactly, and frexp's exponent is their bit length."""
+    """Leading zeros of uint32 values held in int64 (32 for 0), int32:
+    float64 holds them exactly, and frexp's exponent is their bit
+    length."""
     _, e = torch.frexp(x.to(torch.float64))
-    return 32 - e.to(torch.int64)
+    return 32 - e
 
 
 def _delta_fn(keys: torch.Tensor):
-    """delta(i, j): common-prefix length of augmented keys, -1 out of
-    range (Karras 2012 sec. 3; index-XOR tiebreak for duplicates)."""
+    """(i, delta): the internal nodes i = 0..n-2 and delta(j), the
+    common-prefix length of the augmented keys (key, index) of i and j,
+    -1 where j is out of range (Karras 2012 sec. 3; the index XOR breaks
+    ties between equal keys)."""
     n = keys.shape[0]
+    i = torch.arange(n - 1, dtype=torch.int64, device=keys.device)
+    ki = keys[:n - 1]
 
-    def delta(i, j):
-        valid = (j >= 0) & (j <= n - 1)
-        j_safe = j.clamp(0, n - 1)
-        x = keys[i] ^ keys[j_safe]
-        d = torch.where(x == 0, 32 + _clz32(i ^ j_safe), _clz32(x))
-        return torch.where(valid, d, -1)
+    def delta(j):
+        js = j.clamp(0, n - 1)
+        x = ki ^ keys[js]
+        tie = x == 0
+        c = _clz32(torch.where(tie, i ^ js, x))
+        # A Python number in torch.where costs a fill on the card.
+        return torch.where(tie, c + 32, c).masked_fill_(js != j, -1)
 
-    return delta
+    return i, delta
+
+
+def _largest(pred, top: int, like: torch.Tensor) -> torch.Tensor:
+    """Per entry, the largest l < 2 * top with pred(l), where pred (of
+    (15, N) int64 candidates -> bool) holds up to some l and not after:
+    what a binary search from `top` down finds, 15 candidates a step
+    (radix 16), so a search is a few batched steps."""
+    l = torch.zeros_like(like)
+    p = 1 << 4 * ((top.bit_length() - 1) // 4)
+    m = torch.arange(1, 16, device=like.device)[:, None]
+    while p >= 1:
+        l = l + pred(l + m * p).sum(dim=0) * p
+        p >>= 4
+    return l
 
 
 def karras_hierarchy(keys: torch.Tensor):
@@ -248,34 +274,24 @@ def karras_hierarchy(keys: torch.Tensor):
     the keys' device."""
     keys = keys.to(torch.int64)
     n = keys.shape[0]
-    delta = _delta_fn(keys)
-    i = torch.arange(n - 1, dtype=torch.int64, device=keys.device)
+    i, delta = _delta_fn(keys)
 
-    d = torch.sign(delta(i, i + 1) - delta(i, i - 1))
+    d = torch.sign(delta(i + 1) - delta(i - 1))
     d = torch.where(d == 0, 1, d)
-    delta_min = delta(i, i - d)
+    delta_min = delta(i - d)
 
-    # Range length l: largest l with delta(i, i + l*d) > delta_min.  The
-    # JAX search starts at 1 << 30; every step with p >= n lands out of
-    # range and changes nothing, so the search starts below n.
+    # Range length l: largest l with delta(i + l*d) > delta_min (delta
+    # only falls as j leaves i).  The JAX binary search starts at 1 << 30;
+    # every step with p >= n lands out of range and changes nothing, so
+    # the search starts below n.
     top = 1 << max(n - 1, 1).bit_length() - 1
-    l = torch.zeros_like(i)
-    p = top
-    while p >= 1:
-        cand = l + p
-        l = torch.where(delta(i, i + cand * d) > delta_min, cand, l)
-        p >>= 1
+    l = _largest(lambda c: delta(i + c * d) > delta_min, top, i)
     j = i + l * d
-    delta_node = delta(i, j)
+    delta_node = delta(j)
 
-    # Split position s: largest s with delta(i, i + s*d) > delta_node.
-    s = torch.zeros_like(i)
-    p = top
-    while p >= 1:
-        cand = s + p
-        ok = (cand < l) & (delta(i, i + cand * d) > delta_node)
-        s = torch.where(ok, cand, s)
-        p >>= 1
+    # Split position s: largest s < l with delta(i + s*d) > delta_node.
+    s = _largest(lambda c: (c < l) & (delta(i + c * d) > delta_node), top,
+                 i)
     gamma = i + s * d + torch.clamp(d, max=0)
 
     lo = torch.minimum(i, j)
@@ -285,92 +301,98 @@ def karras_hierarchy(keys: torch.Tensor):
     return left.to(torch.int32), right.to(torch.int32)
 
 
-def _sweep_to_fixed_point(step, state):
-    """Apply `step` until the state stops changing (at most _REFIT_DEPTH
-    times, JAX's fixed sweep count), comparing every _CHECK_EVERY
-    sweeps.  A sweep that changes nothing is a fixed point, so stopping
-    there gives what all _REFIT_DEPTH sweeps give."""
-    for k in range(_REFIT_DEPTH):
-        new = step(state)
-        if (k + 1) % _CHECK_EVERY == 0 and all(
-                torch.equal(a, b) for a, b in zip(new, state)):
-            return new
-        state = new
-    return state
+def sweep_bound(n_leaves: int) -> int:
+    """Internal nodes on any root-to-leaf path of the radix tree over
+    `n_leaves` sorted uint32 keys, so the sweeps that `refit` and
+    `flatten_bvh` need: the common-prefix length delta of a node's range
+    grows strictly from a node to its internal child (Karras 2012), and
+    delta takes at most 32 + ceil(log2(n_leaves)) values: 0-31 between
+    distinct keys (32 bits, the culled keys 0xFFFFFFFF included), 32 +
+    clz32(i ^ j) >= 64 - ceil(log2(n_leaves)) between equal keys i != j.
+    A bottom-up sweep finalises one more level of every subtree, a
+    top-down one one more level of depth, so this many sweeps reach the
+    fixed point that JAX's 64 reach, bit for bit (the bound is at most
+    64 for any leaf count below 2^32)."""
+    return 32 + (max(n_leaves, 2) - 1).bit_length()
 
 
 def refit(child_l, child_r, leaf_min, leaf_max):
-    """Bottom-up AABB propagation.  Returns per-node child boxes
-    (bmin_l, bmax_l, bmin_r, bmax_r), float32, on the inputs' device."""
+    """Bottom-up AABB propagation over a radix tree, `sweep_bound`
+    sweeps.  Returns per-node child boxes (bmin_l, bmax_l, bmin_r,
+    bmax_r), float32, on the inputs' device.  A node's box is kept as
+    one (min | max) row of six, so a sweep is six operations."""
     ni = child_l.shape[0]
     nl_pool = leaf_min.shape[0]
-    dev = child_l.device
+    leaf_box = torch.cat([leaf_min, leaf_max], dim=1)
 
     def child_box(c):
         c = c.long()
         is_leaf = (c < 0)[:, None]
-        lidx = (-(c + 1)).clamp(0, nl_pool - 1)
+        lbox = leaf_box[(-(c + 1)).clamp(0, nl_pool - 1)]
         nidx = c.clamp(0, ni - 1)
-        lmin, lmax = leaf_min[lidx], leaf_max[lidx]
-        return lambda agg_min, agg_max: (
-            torch.where(is_leaf, lmin, agg_min[nidx]),
-            torch.where(is_leaf, lmax, agg_max[nidx]))
+        return lambda agg: torch.where(is_leaf, lbox, agg[nidx])
 
     box_l, box_r = child_box(child_l), child_box(child_r)
-
-    def sweep(agg):
-        lmin, lmax = box_l(*agg)
-        rmin, rmax = box_r(*agg)
-        return torch.minimum(lmin, rmin), torch.maximum(lmax, rmax)
-
-    agg = _sweep_to_fixed_point(sweep, (
-        torch.full((ni, 3), float("inf"), dtype=torch.float32, device=dev),
-        torch.full((ni, 3), float("-inf"), dtype=torch.float32, device=dev)))
-    bmin_l, bmax_l = box_l(*agg)
-    bmin_r, bmax_r = box_r(*agg)
-    return bmin_l, bmax_l, bmin_r, bmax_r
+    agg = torch.cat([torch.full((ni, 3), float("inf"), dtype=torch.float32,
+                                device=child_l.device),
+                     torch.full((ni, 3), float("-inf"), dtype=torch.float32,
+                                device=child_l.device)], dim=1)
+    for _ in range(sweep_bound(ni + 1)):
+        lb, rb = box_l(agg), box_r(agg)
+        agg = torch.empty_like(agg)
+        torch.minimum(lb[:, :3], rb[:, :3], out=agg[:, :3])
+        torch.maximum(lb[:, 3:], rb[:, 3:], out=agg[:, 3:])
+    lb, rb = box_l(agg), box_r(agg)
+    return lb[:, :3], lb[:, 3:], rb[:, :3], rb[:, 3:]
 
 
 def flatten_bvh(child_l, child_r, bmin_l, bmax_l, bmin_r, bmax_r,
-                leaf_min, leaf_max, leaf_size: int) -> torch.Tensor:
+                leaf_min, leaf_max, leaf_size: int,
+                sweeps: int | None = None) -> torch.Tensor:
     """The JAX FlatBVH `nodes` table of a binary tree, bit for bit: DFS
     preorder (left first) with skip links, (Mp/128, 8, 128) float32 on
     the inputs' device.  Node i lives at [i // 128, :, i % 128]: rows
     0-5 its box, row 6 its leaf code as int32 bits (0 internal, else
     leaf * leaf_size + 1), row 7 its skip index as int32 bits.  Only the
-    first Ni + 1 leaf boxes are read (SAH leaf arrays are padded)."""
+    first Ni + 1 leaf boxes are read (SAH leaf arrays are padded).
+    `sweeps` bounds the tree's depth (`sweep_bound` for a radix tree),
+    and that many sweeps run with no host sync, so a capture can hold
+    them.  None (a tree of unknown depth, op by op) sweeps until a sweep
+    changes nothing, checked every _CHECK_EVERY sweeps, at most JAX's
+    _REFIT_DEPTH: the same fixed point."""
     dev = child_l.device
     cl, cr = child_l.long(), child_r.long()
     ni = cl.shape[0]
     nl = ni + 1
 
-    def subtree(sz, c):
-        return torch.where(c < 0, 1, sz[c.clamp(0, ni - 1)])
+    # Internal node k at k, leaf k at ni + k: a child's slot either way.
+    into_f, into_s = (torch.where(c >= 0, c, ni - 1 - c) for c in (cl, cr))
 
-    (sz,) = _sweep_to_fixed_point(
-        lambda st: (1 + subtree(st[0], cl) + subtree(st[0], cr),),
-        (torch.ones(ni, dtype=torch.int64, device=dev),))
+    def sweep(step, state):
+        # step() updates `state` in place.
+        for k in range(_REFIT_DEPTH if sweeps is None else sweeps):
+            check = sweeps is None and (k + 1) % _CHECK_EVERY == 0
+            before = state.clone() if check else None
+            step()
+            if check and torch.equal(before, state):
+                return
 
-    # Top-down preorder positions of internal nodes and leaves.
-    fsize = subtree(sz, cl)
-    l_int, r_int = cl >= 0, cr >= 0
-    l_node, r_node = cl[l_int], cr[r_int]
-    l_leaf, r_leaf = -(cl[~l_int] + 1), -(cr[~r_int] + 1)
+    # Bottom-up subtree sizes (a leaf's stays 1).
+    sz = torch.ones(ni + nl, dtype=torch.int64, device=dev)
+    sweep(lambda: torch.add(sz[into_f] + sz[into_s], 1, out=sz[:ni]), sz)
 
-    def pre_sweep(st):
-        pre_i, pre_l = st
-        fpos = pre_i + 1
-        spos = pre_i + 1 + fsize
-        new_i, new_l = pre_i.clone(), pre_l.clone()
-        new_i[l_node] = fpos[l_int]
-        new_i[r_node] = spos[r_int]
-        new_l[l_leaf] = fpos[~l_int]
-        new_l[r_leaf] = spos[~r_int]
-        return new_i, new_l
+    # Top-down preorder positions (left child first).
+    fsize = sz[into_f]
+    pre = torch.zeros(ni + nl, dtype=torch.int64, device=dev)
 
-    pre_i, pre_l = _sweep_to_fixed_point(pre_sweep, (
-        torch.zeros(ni, dtype=torch.int64, device=dev),
-        torch.zeros(nl, dtype=torch.int64, device=dev)))
+    def pre_step():
+        fpos = pre[:ni] + 1
+        pre[into_f] = fpos
+        pre[into_s] = fpos + fsize
+
+    sweep(pre_step, pre)
+    pre_i, pre_l = pre[:ni], pre[ni:]
+    sz = sz[:ni]
 
     m = ni + nl
     mp = -(-m // 128) * 128
@@ -427,7 +449,7 @@ def lbvh_tree(scene: SceneData, leaf_size: int,
     scene_min = torch.where(vmask, tmin, _BIG).min(dim=0).values
     scene_max = torch.where(vmask, tmax, -_BIG).max(dim=0).values
 
-    codes = morton.morton_codes_torch(centroid, scene_min, scene_max)
+    codes = morton.morton_codes(centroid, scene_min, scene_max)
     # Padding and culled triangles sort to the end, in pool order.
     codes = torch.where(valid, codes, 0xFFFFFFFF)
     order = torch.argsort(codes, stable=True)
@@ -453,128 +475,67 @@ def lbvh_tree(scene: SceneData, leaf_size: int,
                 leaf_min=lmin, leaf_max=lmax, codes=codes_sorted)
 
 
-def flatten_tree(tree: dict, leaf_size: int):
+def flatten_tree(tree: dict, leaf_size: int, sweeps: int | None = None):
     """The skip-link table of a tree dict (`lbvh_tree`'s, or a host one
-    from `sah_wide8_host`, flattened on the CPU): (nodes, m_real)."""
+    from `sah_wide8_host`, flattened on the CPU): (nodes, m_real).
+    `sweeps` as flatten_bvh's."""
     t = {k: torch.as_tensor(tree[k]) for k in (
         "child_l", "child_r", "bmin_l", "bmax_l", "bmin_r", "bmax_r",
         "leaf_min", "leaf_max")}
     nodes = flatten_bvh(t["child_l"], t["child_r"], t["bmin_l"],
                         t["bmax_l"], t["bmin_r"], t["bmax_r"],
-                        t["leaf_min"], t["leaf_max"], leaf_size)
+                        t["leaf_min"], t["leaf_max"], leaf_size, sweeps)
     return nodes, 2 * t["child_l"].shape[0] + 1
 
 
 def build_bvh(scene: SceneData, leaf_size: int = 8,
               tri_mask: torch.Tensor | None = None) -> Accel:
     """The LBVH accel (`lbvh_tree` + its skip-link table) on the scene's
-    device.  No BVH8 table: its walks take K3."""
+    device.  No BVH8 table: its walks take K3.  No host sync on the
+    card."""
     tree = lbvh_tree(scene, leaf_size, tri_mask)
-    nodes, m_real = flatten_tree(tree, leaf_size)
+    nodes, m_real = flatten_tree(
+        tree, leaf_size, sweep_bound(tree["leaf_min"].shape[0]))
     return make_accel(tree["tri_v0"], tree["tri_e1"], tree["tri_e2"],
                       tree["tri_perm"],
                       hit_attr_table(scene, tree["tri_perm"]), nodes,
                       m_real, leaf_size)
 
 
-# ---------------------------------------------------------------------------
-# Host numpy Karras radix tree + refit, for the wide TLAS over instances
-# (ops/wide8.build_wide8_tlas): the torch functions above, bit for bit,
-# without torch's per-op cost at a few hundred instances.
-# ---------------------------------------------------------------------------
-
-def _clz32_host(x: np.ndarray) -> np.ndarray:
-    """Leading zeros of uint32 values (32 for 0)."""
-    _, e = np.frexp(np.asarray(x, np.uint32).astype(np.float64))
-    return (32 - e).astype(np.int64)
+# The tensors of an LBVH accel that a rebuild writes (m_real and the
+# shapes are the pool's, whatever the mask).
+_REBUILT = ("tri_v0", "tri_e1", "tri_e2", "tri_perm", "attr", "tris",
+            "nodes", "skip_rec")
 
 
-def _delta_fn_host(keys: np.ndarray):
-    """delta(i, j): common-prefix length of augmented keys, -1 out of
-    range (Karras 2012 sec. 3; index-XOR tiebreak for duplicates)."""
-    n = keys.shape[0]
-
-    def delta(i, j):
-        valid = (j >= 0) & (j <= n - 1)
-        j_safe = np.clip(j, 0, n - 1)
-        x = keys[i] ^ keys[j_safe]
-        d = np.where(x == 0, 32 + _clz32_host((i ^ j_safe).astype(np.uint32)),
-                     _clz32_host(x))
-        return np.where(valid, d, -1)
-
-    return delta
+def rebuild_body(accel: Accel, scene: SceneData):
+    """The culling rebuild as a capturable body: mask -> `build_bvh(scene,
+    accel.leaf_size, mask)` written into `accel`'s own tensors.  Returns
+    ()."""
+    def body(tri_mask):
+        new = build_bvh(scene, accel.leaf_size, tri_mask)
+        for name in _REBUILT:
+            getattr(accel, name).copy_(getattr(new, name))
+        return ()
+    return body
 
 
-def karras_hierarchy_host(keys: np.ndarray):
-    """The radix tree over sorted uint32 keys: (child_l, child_r), each
-    (n-1,) int32 with leaves encoded as -(leaf + 1)."""
-    keys = np.asarray(keys, np.uint32)
-    n = keys.shape[0]
-    delta = _delta_fn_host(keys)
-    i = np.arange(n - 1, dtype=np.int64)
-
-    d = np.sign(delta(i, i + 1) - delta(i, i - 1))
-    d = np.where(d == 0, 1, d)
-    delta_min = delta(i, i - d)
-
-    # Range length l: largest l with delta(i, i + l*d) > delta_min.  The
-    # JAX search starts at 1 << 30; every step with p >= n lands out of
-    # range and changes nothing, so the search starts below n.
-    top = 1 << max(n - 1, 1).bit_length() - 1
-    l = np.zeros_like(i)
-    p = top
-    while p >= 1:
-        cand = l + p
-        l = np.where(delta(i, i + cand * d) > delta_min, cand, l)
-        p >>= 1
-    j = i + l * d
-    delta_node = delta(i, j)
-
-    # Split position s: largest s with delta(i, i + s*d) > delta_node.
-    s = np.zeros_like(i)
-    p = top
-    while p >= 1:
-        cand = s + p
-        ok = (cand < l) & (delta(i, i + cand * d) > delta_node)
-        s = np.where(ok, cand, s)
-        p >>= 1
-    gamma = i + s * d + np.minimum(d, 0)
-
-    lo = np.minimum(i, j)
-    hi = np.maximum(i, j)
-    left = np.where(lo == gamma, -(gamma + 1), gamma)
-    right = np.where(hi == gamma + 1, -(gamma + 2), gamma + 1)
-    return left.astype(np.int32), right.astype(np.int32)
-
-
-def refit_host(child_l, child_r, leaf_min, leaf_max):
-    """Bottom-up AABB propagation by the JAX package's fixed
-    _REFIT_DEPTH sweeps.  Returns per-node child boxes (bmin_l, bmax_l,
-    bmin_r, bmax_r), float32."""
-    ni = child_l.shape[0]
-    leaf_min = np.asarray(leaf_min, np.float32)
-    leaf_max = np.asarray(leaf_max, np.float32)
-
-    def child_box(c, agg_min, agg_max):
-        is_leaf = (c < 0)[:, None]
-        lidx = np.clip(-(c + 1), 0, leaf_min.shape[0] - 1)
-        nidx = np.clip(c, 0, ni - 1)
-        return (np.where(is_leaf, leaf_min[lidx], agg_min[nidx]),
-                np.where(is_leaf, leaf_max[lidx], agg_max[nidx]))
-
-    agg_min = np.full((ni, 3), np.inf, np.float32)
-    agg_max = np.full((ni, 3), -np.inf, np.float32)
-    for _ in range(_REFIT_DEPTH):
-        lmin, lmax = child_box(child_l, agg_min, agg_max)
-        rmin, rmax = child_box(child_r, agg_min, agg_max)
-        new_min, new_max = np.minimum(lmin, rmin), np.maximum(lmax, rmax)
-        # A converged sweep is a fixed point: stopping there gives the
-        # boxes all _REFIT_DEPTH sweeps give.
-        done = (np.array_equal(new_min, agg_min)
-                and np.array_equal(new_max, agg_max))
-        agg_min, agg_max = new_min, new_max
-        if done:
-            break
-    bmin_l, bmax_l = child_box(child_l, agg_min, agg_max)
-    bmin_r, bmax_r = child_box(child_r, agg_min, agg_max)
-    return bmin_l, bmax_l, bmin_r, bmax_r
+def rebuild_bvh(accel: Accel, scene: SceneData, tri_mask: torch.Tensor,
+                programs, plain: bool = False) -> Accel:
+    """Rebuild the LBVH accel `accel` (an earlier `build_bvh(scene,
+    leaf_size, ...)`) over the triangles of `tri_mask`, in place: its
+    pool, tri_perm, attribute rows, skip-link table and K3's records
+    keep their addresses, so a frame program captured over `accel` reads
+    the rebuild.  On the card the build replays from `programs`
+    (graphs.Programs; one capture per scene, leaf size and accel); op by
+    op on the CPU, with `plain`, and where graphs.Programs says so.
+    Raises ValueError for an accel that is not such an LBVH of `scene`."""
+    n = scene.tri_v0.shape[0]
+    if (accel.w8 is not None or accel.tri_v0.shape[0] != n
+            or accel.m_real != 2 * (n // accel.leaf_size) - 1):
+        raise ValueError("rebuild_bvh needs an LBVH accel of the scene")
+    key = ("lbvh_rebuild", graphs.signature(scene), accel.leaf_size,
+           graphs.signature(accel))
+    programs(key, rebuild_body(accel, scene), (tri_mask,),
+             accel.tris.device, eager=plain)
+    return accel

@@ -22,7 +22,7 @@ import torch
 from ..models.lights import (_DEFAULT_DIR, COS_CONE, DIRECTIONAL, POINT,
                              SPOT, TYPE)
 from . import v3
-from .morton import morton_codes_torch
+from .morton import morton_codes
 from .v3 import V3
 
 
@@ -68,7 +68,7 @@ def build_light_tree(lights: torch.Tensor) -> LightTree:
     e_pos = torch.where(is_dir, 0.0, energy)
     e_dir = torch.where(is_dir, energy, 0.0)
 
-    codes = morton_codes_torch(pos, pos.min(0).values, pos.max(0).values)
+    codes = morton_codes(pos, pos.min(0).values, pos.max(0).values)
     order = torch.argsort(codes, stable=True).to(torch.int32)
     perm = torch.cat([order, order[-1:].expand(lp - n)])
     leaf_pos = pos[perm.long()]

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import resolve_device
 from ..models.materials import MatP
 from ..models.scene import PAD, Scene
@@ -69,8 +70,8 @@ class TwoLevelFlat:
       blas_depth, the deepest binary BLAS node (root = 0), which with the
       instance count sizes K5's stack (`skip_stack`).  None / 0 on the
       BVH8 route.
-    root_box_host: root_bmin / root_bmax as numpy, so a refit needs no
-      device read."""
+    `set_instance` writes the TLAS part of the route's tables and the
+    instance matrices in place; `refit_two_level` returns new ones."""
 
     tris: torch.Tensor
     attr: torch.Tensor
@@ -93,8 +94,6 @@ class TwoLevelFlat:
     blas_base: torch.Tensor | None = None
     blas_end: torch.Tensor | None = None
     tlas_m: int = 0
-    root_box_host: tuple = dataclasses.field(repr=False, compare=False,
-                                             default=None)
 
     @property
     def device(self) -> torch.device:
@@ -172,21 +171,44 @@ def binary_blas_depth(skip_rec: torch.Tensor, blas_base: np.ndarray,
     return depth
 
 
-def world_aabbs(root_bmin, root_bmax, world_from_obj):
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once (a fused multiply-add), exact on
+    any device through float64: a * b is exact there, TwoSum gives s + e
+    == a * b + c exactly, and s rounds to the float32 that the exact sum
+    rounds to, unless s sits on a float32 tie with e != 0: then it moves
+    one float64 step toward e first."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    z = s - p
+    e = (p - (s - z)) + (c - z)
+    r = s.float()
+    away = torch.nextafter(r, torch.where(s > r.double(), float("inf"),
+                                          float("-inf")))
+    tie = (r.double() + away.double()) * 0.5 == s
+    step = torch.nextafter(s, torch.where(e > 0, float("inf"),
+                                          float("-inf")).double())
+    return torch.where(tie & (e != 0), step, s).float()
+
+
+def world_aabbs(root_bmin: torch.Tensor, root_bmax: torch.Tensor,
+                world_from_obj: torch.Tensor):
     """World AABBs (I, 3) of per-instance object boxes through their
-    3x4 transforms (all 8 corners), float32 numpy as the JAX package."""
-    f32 = np.float32
-    root_bmin = np.asarray(root_bmin, f32)
-    root_bmax = np.asarray(root_bmax, f32)
-    m = np.asarray(world_from_obj, f32)
-    sel = np.asarray([[x & 1, (x >> 1) & 1, (x >> 2) & 1]
-                      for x in range(8)], f32)                  # (8, 3)
-    corners = (root_bmin[:, None, :] * (f32(1.0) - sel)
-               + root_bmax[:, None, :] * sel)                    # (I, 8, 3)
-    wc = (m[:, None, :, 0] * corners[:, :, 0:1]
-          + m[:, None, :, 1] * corners[:, :, 1:2]
-          + m[:, None, :, 2] * corners[:, :, 2:3]) + m[:, None, :, 3]
-    return wc.min(axis=1), wc.max(axis=1)
+    3x4 transforms (all 8 corners), float32 on the inputs' device, bit
+    for bit as the JAX package's `_world_aabbs`, whose einsum XLA's CPU
+    dot sums as fma(m2, c2, fma(m1, c1, m0 * c0)) before adding the
+    translation."""
+    x = torch.arange(8, device=root_bmin.device)
+    sel = torch.stack([x & 1, (x >> 1) & 1, (x >> 2) & 1], dim=1) \
+        .to(torch.float32)                                       # (8, 3)
+    corners = (root_bmin[:, None, :] * (1.0 - sel)
+               + root_bmax[:, None, :] * sel)[:, :, None, :]     # (I, 8, 1, 3)
+    m = world_from_obj[:, None]                                  # (I, 1, 3, 4)
+    wc = m[..., 0] * corners[..., 0]
+    for b in (1, 2):
+        wc = _fma(m[..., b], corners[..., b], wc)
+    wc = wc + m[..., 3]                                          # (I, 8, 3)
+    return wc.min(dim=1).values, wc.max(dim=1).values
 
 
 def _instance_arrays(scene: Scene):
@@ -196,11 +218,6 @@ def _instance_arrays(scene: Scene):
             np.stack([x.transform for x in inst]).astype(np.float32),
             np.stack([x.inverse_transform for x in inst]).astype(np.float32),
             np.stack([x.normal_matrix for x in inst]).astype(np.float32))
-
-
-def _depths(w8_nodes: np.ndarray, tlas_nw: int):
-    depth = wide8.node_depths(w8_nodes)
-    return int(depth[:tlas_nw].max()), int(depth[tlas_nw:].max())
 
 
 def check_depths(tlas_depth: int, blas_depth: int) -> None:
@@ -271,13 +288,14 @@ def _tlas_nodes(inst_bmin: torch.Tensor, inst_bmax: torch.Tensor):
         inst_bmax = torch.cat([inst_bmax, inst_bmax])
     i = inst_bmin.shape[0]
     centroid = (inst_bmin + inst_bmax) * 0.5
-    codes = morton.morton_codes_torch(centroid, inst_bmin.min(dim=0).values,
+    codes = morton.morton_codes(centroid, inst_bmin.min(dim=0).values,
                                       inst_bmax.max(dim=0).values)
     order = torch.argsort(codes, stable=True)
     child_l, child_r = lbvh.karras_hierarchy(codes[order])
     lmin, lmax = inst_bmin[order], inst_bmax[order]
     boxes = lbvh.refit(child_l, child_r, lmin, lmax)
-    nodes = lbvh.flatten_bvh(child_l, child_r, *boxes, lmin, lmax, 1)
+    nodes = lbvh.flatten_bvh(child_l, child_r, *boxes, lmin, lmax, 1,
+                             lbvh.sweep_bound(i))
     bits = nodes.view(torch.int32)
     lc = bits[:, 6, :]
     inst_id = order.clamp(max=i_real - 1)[(lc.long() - 1).clamp(0, i - 1)]
@@ -311,11 +329,12 @@ def build_two_level_flat(scene: Scene, leaf_size: int = 16,
     mesh_root = [(np.minimum(b.tree["bmin_l"][0], b.tree["bmin_r"][0]),
                   np.maximum(b.tree["bmax_l"][0], b.tree["bmax_r"][0]))
                  for b in blases]
-    root_bmin = np.stack([mesh_root[m][0] for m in inst_mesh])
-    root_bmax = np.stack([mesh_root[m][1] for m in inst_mesh])
-    bmin, bmax = world_aabbs(root_bmin, root_bmax, w_from_o)
-
     dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    root_bmin = dev(np.stack([mesh_root[m][0] for m in inst_mesh]))
+    root_bmax = dev(np.stack([mesh_root[m][1] for m in inst_mesh]))
+    world_from_obj = dev(w_from_o)
+    bmin, bmax = world_aabbs(root_bmin, root_bmax, world_from_obj)
+
     cat = lambda k: np.concatenate([b.pool[k] for b in blases])
     tri_base = np.cumsum([0] + [b.pool["tri_v0"].shape[0] for b in blases])
     common = dict(
@@ -324,10 +343,9 @@ def build_two_level_flat(scene: Scene, leaf_size: int = 16,
         attr=dev(np.concatenate([b.attr for b in blases])
                  .astype(np.float32)),
         inst_mat=dev(inst_mat), inst_mesh=dev(inst_mesh),
-        normal_mat=dev(normal_mat), world_from_obj=dev(w_from_o),
-        obj_from_world=dev(o_from_w), root_bmin=dev(root_bmin),
-        root_bmax=dev(root_bmax), leaf_size=leaf_size,
-        root_box_host=(root_bmin, root_bmax))
+        normal_mat=dev(normal_mat), world_from_obj=world_from_obj,
+        obj_from_world=dev(o_from_w), root_bmin=root_bmin,
+        root_bmax=root_bmax, leaf_size=leaf_size)
 
     tlas_pad = wide8.tlas_nw_pad(len(scene.instances))
     mesh_w8_base = np.cumsum(
@@ -335,13 +353,13 @@ def build_two_level_flat(scene: Scene, leaf_size: int = 16,
                       * wide8.NODES_PER_ROW for b in blases])
     if all(b.records is not None for b in blases) \
             and mesh_w8_base[-1] < max_wide_nodes:
-        w8_nodes = np.concatenate(
-            [wide8.build_wide8_tlas(bmin, bmax, tlas_pad)]
-            + [wide8.globalize(b.records, int(tb), int(wb))
-               for b, tb, wb in zip(blases, tri_base, mesh_w8_base)])
-        tlas_depth, blas_depth = _depths(w8_nodes, tlas_pad)
+        tlas8, tlas_depth = wide8.build_wide8_tlas(bmin, bmax, tlas_pad)
+        tlas_depth = int(tlas_depth)
+        blas_depth = max(wide8.record_depth(b.records) for b in blases)
         check_depths(tlas_depth, blas_depth)
-        w8_nodes = dev(w8_nodes)
+        w8_nodes = torch.cat([tlas8, dev(np.concatenate(
+            [wide8.globalize(b.records, int(tb), int(wb))
+             for b, tb, wb in zip(blases, tri_base, mesh_w8_base)]))])
         return TwoLevelFlat(
             **common, w8_nodes=w8_nodes,
             w8_rec=wide8.node_records(w8_nodes),
@@ -351,7 +369,7 @@ def build_two_level_flat(scene: Scene, leaf_size: int = 16,
             blas_depth=blas_depth)
 
     # The binary route: TLAS rows, then each mesh's globalized BLAS rows.
-    tlas, tlas_m = _tlas_nodes(dev(bmin), dev(bmax))
+    tlas, tlas_m = _tlas_nodes(bmin, bmax)
     tlas_words = tlas.shape[0] * 128
     node_base = np.cumsum([0] + [b.nodes.shape[0] * 128 for b in blases])
     parts = [tlas]
@@ -373,49 +391,103 @@ def build_two_level_flat(scene: Scene, leaf_size: int = 16,
         blas_depth=binary_blas_depth(skip_rec, blas_base, blas_end))
 
 
+_MATS = ("world_from_obj", "obj_from_world", "normal_mat")
+
+
+def refit_body(tl: TwoLevelFlat):
+    """The refit as a capturable body over `tl`'s own tensors: the world
+    boxes of its instance matrices (`world_aabbs`), then the route's
+    TLAS over them (binary: `_tlas_nodes` and K5's records of its rows;
+    BVH8: `wide8.build_wide8_tlas` and K4's records of its region),
+    written over the TLAS part of `tl`'s tables.  No BLAS is touched.
+    Returns () on the binary route, (the wide TLAS depth,) on the BVH8
+    route."""
+    def body():
+        bmin, bmax = world_aabbs(tl.root_bmin, tl.root_bmax,
+                                 tl.world_from_obj)
+        if tl.w8_nodes is None:
+            tlas, _ = _tlas_nodes(bmin, bmax)
+            tl.nodes[:tlas.shape[0]].copy_(tlas)
+            tl.skip_rec[:tlas.shape[0] * 128].copy_(_skip_rec(tlas))
+            return ()
+        tlas, depth = wide8.build_wide8_tlas(bmin, bmax, tl.w8_tlas_nw)
+        tl.w8_nodes[:tlas.shape[0]].copy_(tlas)
+        tl.w8_rec[:tl.w8_tlas_nw].copy_(wide8.node_records(tlas))
+        return (depth,)
+    return body
+
+
 def refit_two_level(tl: TwoLevelFlat, world_from_obj, obj_from_world,
-                    normal_mat, in_place: bool = False) -> TwoLevelFlat:
-    """New instance transforms (numpy (I, 3, 4), (I, 3, 4), (I, 3, 3))
-    -> new instance boxes -> a rebuilt TLAS: the wide TLAS region on the
-    host (BVH8 route), or the binary TLAS rows on the table's device
-    (binary route), and the kernel's records of that region, joined to
-    the BLAS records as they were.  No BLAS is touched.  By default the
-    tables are new and `tl` is left as it was; with `in_place` the TLAS
-    rows, their records and the instance matrices are written into
-    `tl`'s own tensors (same shapes: the instances are the same), which
-    keep their addresses, so that a frame program captured over `tl`
-    reads the refit (FrameLoop.set_instance_transform)."""
-    world_from_obj = np.asarray(world_from_obj, np.float32)
-    bmin, bmax = world_aabbs(*tl.root_box_host, world_from_obj)
-    dev = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
-                                    device=tl.device)
-    scalars = {}
+                    normal_mat) -> TwoLevelFlat:
+    """New instance transforms ((I, 3, 4), (I, 3, 4), (I, 3, 3); numpy
+    or tensors) -> new instance boxes -> a rebuilt TLAS on the table's
+    device (`refit_body`, op by op), joined to the BLAS records as they
+    were, in new tensors, as the JAX package's `refit_two_level`; `tl`
+    is left as it was.  Raises ValueError when K4 cannot walk the
+    refitted table.  A frame loop refits in place instead
+    (`set_instance`)."""
+    tables = ("nodes", "skip_rec") if tl.w8_nodes is None \
+        else ("w8_nodes", "w8_rec")
+    tl = dataclasses.replace(tl, **{
+        k: getattr(tl, k).clone() for k in tables}, **{
+        k: torch.as_tensor(m, dtype=torch.float32).to(tl.device, copy=True)
+        for k, m in zip(_MATS, (world_from_obj, obj_from_world,
+                                normal_mat))})
+    out = refit_body(tl)()
     if tl.w8_nodes is None:
-        tlas, _ = _tlas_nodes(dev(bmin), dev(bmax))
-        rows = tlas.shape[0]
-        # field: (the new TLAS part, the table's leading entries it takes)
-        parts = dict(nodes=(tlas, rows),
-                     skip_rec=(_skip_rec(tlas), rows * 128))
-    else:
-        tlas = wide8.build_wide8_tlas(bmin, bmax, tl.w8_tlas_nw)
-        scalars["tlas_depth"] = int(wide8.node_depths(tlas).max())
-        check_depths(scalars["tlas_depth"], tl.blas_depth)
-        rows = tl.w8_tlas_nw // wide8.NODES_PER_ROW
-        tlas = torch.as_tensor(tlas, device=tl.device)
-        parts = dict(w8_nodes=(tlas, rows),
-                     w8_rec=(wide8.node_records(tlas), tl.w8_tlas_nw))
-    mats = dict(world_from_obj=dev(world_from_obj),
-                obj_from_world=dev(obj_from_world),
-                normal_mat=dev(normal_mat))
-    if in_place:
-        for name, (new, n) in parts.items():
-            getattr(tl, name)[:n].copy_(new)
-        for name, m in mats.items():
-            getattr(tl, name).copy_(m)
-        return dataclasses.replace(tl, **scalars)
-    tables = {name: torch.cat([new, getattr(tl, name)[n:]])
-              for name, (new, n) in parts.items()}
-    return dataclasses.replace(tl, **tables, **mats, **scalars)
+        return tl
+    depth = int(out[0])
+    check_depths(depth, tl.blas_depth)
+    return dataclasses.replace(tl, tlas_depth=depth)
+
+
+def set_instance(tl: TwoLevelFlat, idx: int, world_from_obj,
+                 obj_from_world, normal_mat, programs: graphs.Programs,
+                 plain: bool = False) -> TwoLevelFlat:
+    """Move instance `idx` and refit the TLAS in place: the instance's
+    three matrices (numpy (3, 4), (3, 4), (3, 3)) go to `tl`'s own
+    tensors in one copy, outside any graph, then `refit_body(tl)`
+    replays from `programs` (one capture per table and route), or runs
+    op by op where graphs.Programs says so or with `plain`.  The tensors
+    keep their addresses, so a frame program captured over `tl` reads
+    the refit.  On the BVH8 route the depth is read back, the refit's
+    one host sync (4 bytes).  When K4's stack cannot hold the new TLAS,
+    the old matrices go back, the refit runs again (the old TLAS, bit
+    for bit) and ValueError is raised, so no walk meets the deeper
+    table.  Returns `tl`, or a copy with the new tlas_depth where the
+    stack K4 needs changed (a frame program over it captures again)."""
+    rows = [getattr(tl, k)[idx] for k in _MATS]
+    old = torch.cat([r.reshape(-1) for r in rows])
+    new = torch.from_numpy(np.concatenate(
+        [np.asarray(m, np.float32).reshape(-1)
+         for m in (world_from_obj, obj_from_world, normal_mat)])) \
+        .to(tl.device)
+
+    def put(flat):
+        at = 0
+        for r in rows:
+            r.copy_(flat[at:at + r.numel()].view(r.shape))
+            at += r.numel()
+
+    key = ("tlas_refit", tl.w8_nodes is not None, graphs.signature(tl))
+
+    def run():
+        return programs(key, refit_body(tl), (), tl.device, eager=plain)
+
+    put(new)
+    out = run()
+    if tl.w8_nodes is None:
+        return tl
+    depth = int(out[0])
+    try:
+        check_depths(depth, tl.blas_depth)
+    except ValueError:
+        put(old)
+        run()
+        raise
+    if stack_bound(depth, tl.blas_depth) == tl.stack:
+        return tl
+    return dataclasses.replace(tl, tlas_depth=depth)
 
 
 def _walk(tl: TwoLevelFlat, plain: bool):

@@ -1,9 +1,12 @@
-"""Binary -> BVH8 collapse on the host (numpy), emitting the JAX
-package's (R, 8, 128) int32 record table bit for bit
-(hrt_tpu/ops/wide8.py `_flags_and_ids` + `_assemble` + `build_wide8`,
-with the collapse primitive of hrt_tpu/ops/wide.py `_cut`), and the
-two-level table's pieces: the wide TLAS over instance boxes and the
-globalized BLAS regions.
+"""Binary -> BVH8 collapse, emitting the JAX package's (R, 8, 128) int32
+record table bit for bit (hrt_tpu/ops/wide8.py `_flags_and_ids` +
+`_assemble` + `build_wide8`, with the collapse primitive of
+hrt_tpu/ops/wide.py `_cut`), and the two-level table's pieces: the
+globalized BLAS regions and the wide TLAS over instance boxes.  The SAH
+trees' collapse at load (`build_wide8`) runs on the host in numpy, as
+the JAX package's is host-eager; the TLAS (`build_wide8_tlas`) is built
+in torch on the table's device with fixed sweeps into a static node
+count, so that a refit is a capturable program.
 
 Record layout: wide node q lives in row q // 16; child slot j of it is
 the 8 int32 words at records[q // 16, j, 8 * (q % 16) : 8 * (q % 16) + 8]
@@ -26,6 +29,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import morton
 
 ARITY = 8
 NODES_PER_ROW = 16
@@ -225,35 +230,155 @@ def tlas_nw_pad(num_instances: int) -> int:
                * NODES_PER_ROW)
 
 
-def build_wide8_tlas(inst_bmin: np.ndarray, inst_bmax: np.ndarray,
-                     nw_pad: int) -> np.ndarray:
-    """BVH8 records for a TLAS over instance world AABBs (I, 3): Morton
-    order, Karras tree, refit, collapse with leaf metas = original
-    instance id + 1, padded to `nw_pad` nodes.  A single instance
-    duplicates its box (the radix tree needs two leaves).  Host numpy
-    throughout: at the instance counts of an animated scene this beats
-    the torch LBVH functions' per-op cost on the CPU."""
-    from . import morton
-    from .lbvh import karras_hierarchy_host, refit_host
+def _cut_torch(child_l: torch.Tensor, child_r: torch.Tensor):
+    """`_cut` in torch: (Ni, 8) int64 entries."""
+    ni = child_l.shape[0]
+    cl, cr = child_l.long(), child_r.long()
+    cut = torch.stack([cl, cr], dim=1)
+    for _ in range(2):
+        is_int = cut >= 0
+        safe = cut.clamp(0, ni - 1)
+        left = torch.where(is_int, cl[safe], cut)
+        right = torch.where(is_int, cr[safe], _EMPTY)
+        cut = torch.stack([left, right], dim=-1).reshape(ni, -1)
+    return cut
 
-    inst_bmin = np.asarray(inst_bmin, np.float32)
-    inst_bmax = np.asarray(inst_bmax, np.float32)
+
+# A wide depth no sweep reached (JAX's big_d): deeper than the sweeps.
+_BIG_D = 1 << 20
+
+
+def wide_sweeps(n_leaves: int) -> int:
+    """Sweeps of the wide depths and BFS ids over the radix tree of
+    `n_leaves` keys: a wide level is three binary levels (a cut's
+    internal entries lie three levels down), so its wide depth is below
+    lbvh.sweep_bound(n) / 3, and one top-down sweep finalises one wide
+    level.  At most 22 for any leaf count below 2^32, within JAX's 24."""
+    from .lbvh import sweep_bound
+
+    return sweep_bound(n_leaves) // 3 + 1
+
+
+def _flags_and_ids(child_l: torch.Tensor, child_r: torch.Tensor,
+                   sweeps: int):
+    """JAX `_flags_and_ids` with `sweeps` sweeps: which binary nodes
+    become wide nodes (those the top-down depth sweeps reach, as JAX's
+    flag sweeps reach the same set), their wide depths (root 0) and BFS
+    ids, the leaf-first cuts, and the wide tree's depth as a 0-d tensor:
+    _BIG_D when a wide node's internal child lies deeper than the
+    sweeps, so that it reads as too deep, never as shallow.  Every
+    scatter drops its masked entries into a spare last slot (index ni,
+    sliced off: JAX's mode="drop"); no Python number is stored through
+    indexing (a host copy)."""
+    ni = child_l.shape[0]
+    dev = child_l.device
+    cuts = _cut_torch(child_l, child_r)
+    is_leaf0 = (cuts < 0) & (cuts != _EMPTY)
+    cls = torch.where(is_leaf0, 0, torch.where(cuts >= 0, 8, 16))
+    slot_iota = torch.arange(ARITY, device=dev).expand(ni, ARITY)
+    cuts = torch.take_along_dim(cuts, torch.argsort(cls + slot_iota, dim=1),
+                                dim=1)
+    is_int = cuts >= 0
+    safe_int = cuts.clamp(0, ni - 1)
+
+    # Wide depths top-down: min(depth, parent + 1) over every internal cut
+    # entry; an unreached node's _BIG_D + 1 never lowers a minimum.
+    into = torch.where(is_int, cuts, ni).reshape(-1)
+    depth = torch.where(torch.arange(ni + 1, device=dev) == 0, 0, _BIG_D)
+    for _ in range(sweeps):
+        depth.scatter_reduce_(0, into, (depth[:ni, None] + 1).expand(
+            ni, ARITY).reshape(-1), "amin")
+    depth = depth[:ni]
+    flags = depth < _BIG_D
+    kids = flags[:, None] & is_int
+    deepest = torch.maximum(torch.where(flags, depth, 0).max(),
+                            torch.where(kids, depth[safe_int], 0).max())
+
+    # Parent binary id and slot of every wide node (root: 0, 0).
+    dst = torch.where(kids, cuts, ni).reshape(-1)
+    parent = torch.zeros(ni + 1, dtype=torch.int64, device=dev)
+    parent[dst] = torch.arange(ni, device=dev)[:, None].expand(
+        ni, ARITY).reshape(-1)
+    slot = torch.zeros(ni + 1, dtype=torch.int64, device=dev)
+    slot[dst] = slot_iota.reshape(-1)
+    parent, slot = parent[:ni], slot[:ni]
+
+    # BFS ids: rank by (depth, parent id, slot), one wide level per sweep
+    # (the other nodes rank after every wide node).
+    key0 = torch.where(flags, depth * (ARITY * ni) + slot, 1 << 62)
+    ids = torch.zeros(ni, dtype=torch.int64, device=dev)
+    iota = torch.arange(ni, device=dev)
+    for _ in range(sweeps):
+        key = key0 + ids[parent] * ARITY
+        ids = torch.empty_like(ids)
+        ids[torch.argsort(key, stable=True)] = iota
+    return flags, ids, cuts, deepest
+
+
+def build_wide8_tlas(inst_bmin: torch.Tensor, inst_bmax: torch.Tensor,
+                     nw_pad: int):
+    """BVH8 records for a TLAS over instance world AABBs (I, 3) float32,
+    on their device: Morton order, Karras tree, refit, collapse with
+    leaf metas = original instance id + 1, into `nw_pad` nodes
+    (tlas_nw_pad(I), which bounds the wide node count).  A single
+    instance duplicates its box (the radix tree needs two leaves).
+    Every step is a fixed count of torch ops (JAX's jitted
+    `build_wide8_tlas`), so it makes no host sync and can be captured.
+    Returns (records (nw_pad / 16, 8, 128) int32, the wide tree's depth
+    (root = 0) as a 0-d int64 tensor, _BIG_D if a node lay deeper than
+    the sweeps: deeper than any stack)."""
+    from .lbvh import karras_hierarchy, refit
+
     i_real = inst_bmin.shape[0]
     if i_real == 1:
-        inst_bmin = np.concatenate([inst_bmin, inst_bmin])
-        inst_bmax = np.concatenate([inst_bmax, inst_bmax])
-    centroid = (inst_bmin + inst_bmax) * np.float32(0.5)
-    codes = morton.morton_codes(centroid, inst_bmin.min(axis=0),
-                                inst_bmax.max(axis=0))
-    order = np.argsort(codes, kind="stable")
-    child_l, child_r = karras_hierarchy_host(codes[order])
+        inst_bmin = torch.cat([inst_bmin, inst_bmin])
+        inst_bmax = torch.cat([inst_bmax, inst_bmax])
+    dev = inst_bmin.device
+    centroid = (inst_bmin + inst_bmax) * 0.5
+    codes = morton.morton_codes(centroid, inst_bmin.min(dim=0).values,
+                                inst_bmax.max(dim=0).values)
+    order = torch.argsort(codes, stable=True)
+    child_l, child_r = karras_hierarchy(codes[order])
     lmin, lmax = inst_bmin[order], inst_bmax[order]
-    boxes = refit_host(child_l, child_r, lmin, lmax)
-    out = build_wide8(child_l, child_r, *boxes, lmin, lmax, 1,
-                      reorder=False, leaf_vals=np.minimum(order, i_real - 1),
-                      nw_pad=nw_pad)
-    if out is None:
-        raise ValueError(f"a TLAS over {i_real} instances has "
-                         f"MAX_WIDE_NODES ({MAX_WIDE_NODES}) wide nodes "
-                         "or more")
-    return out[0]
+    bmin_l, bmax_l, bmin_r, bmax_r = refit(child_l, child_r, lmin, lmax)
+
+    # JAX `_assemble` with leaf_vals = original instance ids, no reorder.
+    ni = child_l.shape[0]
+    flags, ids, c, deepest = _flags_and_ids(child_l, child_r,
+                                            wide_sweeps(ni + 1))
+    is_int = c >= 0
+    is_leaf = (c < 0) & (c != _EMPTY)
+    safe_int = c.clamp(0, ni - 1)
+    leaf_of = (-(c + 1)).clamp(0, ni)
+    big = float(_BIG)
+    own_min = torch.minimum(bmin_l, bmin_r)
+    own_max = torch.maximum(bmax_l, bmax_r)
+    ent = []
+    for own, leaf in ((own_min, lmin), (own_max, lmax)):
+        ent.append(torch.where(is_int[..., None], own[safe_int],
+                               torch.where(is_leaf[..., None],
+                                           leaf[leaf_of], big)))
+    inv = ent[0][..., 0:1] > ent[1][..., 0:1]        # padding leaves
+    ent = [torch.where(inv, big, e) for e in ent]
+    rank = torch.cumsum(is_int, dim=1) - is_int.long()
+    leaf_vals = order.clamp(max=i_real - 1)
+    meta = torch.where(is_int, -(rank + 1),
+                       torch.where(is_leaf, leaf_vals[leaf_of] + 1, 0))
+    child_ids = torch.where(is_int, ids[safe_int], 1 << 30)
+    base = child_ids.min(dim=1).values
+    base = torch.where(base == 1 << 30, 0, base)
+
+    # Flagged nodes scattered into wide-id order (padding: empty boxes,
+    # zero words), then (nw_pad, slot, word) -> (R, 8, 128).
+    dst = torch.where(flags, ids, nw_pad)
+    v = torch.zeros((nw_pad + 1, ARITY, ARITY), dtype=torch.int32,
+                    device=dev)
+    v[:, :, 0:6].fill_(int(_BIG.view(np.int32)))
+    v[dst, :, 0:3] = ent[0].view(torch.int32)
+    v[dst, :, 3:6] = ent[1].view(torch.int32)
+    v[dst, :, 6] = meta.to(torch.int32)
+    v[dst, 0, 7] = base.to(torch.int32)
+    r = nw_pad // NODES_PER_ROW
+    records = (v[:nw_pad].reshape(r, NODES_PER_ROW, ARITY, ARITY)
+               .permute(0, 2, 1, 3).reshape(r, ARITY, 128).contiguous())
+    return records, deepest

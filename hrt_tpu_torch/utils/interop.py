@@ -109,8 +109,7 @@ def two_level_from_numpy(d: dict, device) -> tlas.TwoLevelFlat:
                                   "normal_mat", "world_from_obj",
                                   "obj_from_world")},
         root_bmin=dev(root_bmin), root_bmax=dev(root_bmax),
-        leaf_size=int(d["leaf_size"]), root_box_host=(root_bmin, root_bmax),
-        **route)
+        leaf_size=int(d["leaf_size"]), **route)
 
 
 def upscaler_from_numpy(d: dict, temporal: bool, device):

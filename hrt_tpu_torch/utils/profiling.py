@@ -219,14 +219,33 @@ def busy_share(prof, wall_ms: float) -> float:
     return interval_union(iv) / 1e3 / wall_ms
 
 
+# Profiler windows that came back with no device activity in this
+# process (device_ms_per_call profiles each such window once more).
+EMPTY_WINDOWS = 0
+
+
 def device_ms_per_call(fn: Callable[[], object], calls: int = 8,
                        device=None) -> float:
     """The mean device ms of one fn() call: one warm-up call, then
     `calls` calls under the profiler, their CUDA activities summed
-    (profile_calls, device_op_totals).  Raises on a CPU device and on a
-    profile without device activity."""
-    prof, _ = profile_calls(fn, calls, device)
-    return device_op_totals(prof)[0] / calls
+    (profile_calls, device_op_totals).  Raises on a CPU device, and when
+    two profiles in a row hold no device activity.  A profile of a short
+    window has once held none on the card, the cause not found: such a
+    window is logged, counted in EMPTY_WINDOWS and profiled once more
+    before that raises."""
+    global EMPTY_WINDOWS
+    for retry in (False, True):
+        prof, _ = profile_calls(fn, calls, device)
+        try:
+            return device_op_totals(prof)[0] / calls
+        except RuntimeError:
+            EMPTY_WINDOWS += 1
+            logger.warning("profiler window of %d call(s) held no device "
+                           "activity (%d in this process)%s", calls,
+                           EMPTY_WINDOWS, "" if retry else "; profiling "
+                           "it once more")
+            if retry:
+                raise
 
 
 def device_name(device=None) -> str:

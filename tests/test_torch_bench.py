@@ -276,6 +276,39 @@ def test_busy_share_is_the_union_of_device_intervals():
         profiling.busy_share(_fake_profile([]), 1.0)
 
 
+def test_device_ms_per_call_profiles_again_before_it_raises(monkeypatch,
+                                                           caplog):
+    """A window whose profile holds no device activity is logged,
+    counted and profiled once more; two such windows raise, never a 0 or
+    a nan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as empty:
+        torch.ones(64).sum()
+    traced = types.SimpleNamespace(key_averages=lambda: [
+        types.SimpleNamespace(key="k", count=4, self_device_time_total=40.0,
+                              device_type=torch.autograd.DeviceType.CUDA)])
+    windows = []
+
+    def fake(fn, calls, device):
+        windows.append(calls)
+        return (empty if len(windows) < 3 else traced), 1.0
+
+    monkeypatch.setattr(profiling, "profile_calls", fake)
+    monkeypatch.setattr(profiling, "EMPTY_WINDOWS", 0)
+    with caplog.at_level("WARNING", logger="hrt_tpu_torch"), \
+            pytest.raises(RuntimeError, match="no device activity"):
+        profiling.device_ms_per_call(lambda: None, calls=4)
+    assert windows == [4, 4] and profiling.EMPTY_WINDOWS == 2
+    assert [r.getMessage() for r in caplog.records] == [
+        "profiler window of 4 call(s) held no device activity (1 in this "
+        "process); profiling it once more",
+        "profiler window of 4 call(s) held no device activity (2 in this "
+        "process)"]
+    assert profiling.device_ms_per_call(lambda: None, calls=4) == 0.01
+    assert windows == [4, 4, 4] and profiling.EMPTY_WINDOWS == 2
+
+
 def test_device_readers_raise_on_the_cpu():
     """No device time exists on the CPU: the readers raise, never a 0
     or a nan."""

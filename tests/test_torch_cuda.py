@@ -1442,3 +1442,106 @@ def test_capture_failure_raises_and_only_the_listed_cases_go_op_by_op(
     monkeypatch.setattr(traversal_wide8, "GUARDS", False)
     loop.step(Camera(**BENCH_CAM))
     assert loop.captures == 1
+
+
+# ---- the device-side builds: refit and culling rebuild programs --------
+
+_REFIT_FIELDS = ("nodes", "skip_rec", "w8_nodes", "w8_rec", "world_from_obj",
+                 "obj_from_world", "normal_mat")
+
+
+def _tables_equal(a, b) -> bool:
+    return all((getattr(a, k) is None) == (getattr(b, k) is None)
+               and (getattr(a, k) is None
+                    or _bits_equal(getattr(a, k), getattr(b, k)))
+               for k in _REFIT_FIELDS) and a.tlas_depth == b.tlas_depth
+
+
+@pytest.mark.parametrize("route", ["k4", "k5"])
+def test_refit_program_is_bit_equal_to_op_by_op(cuda, route):
+    """Three moves through tlas.set_instance: the replayed refit program
+    (one capture) against the same body op by op (plain=True) on a copy
+    of the table, bit for bit; the moved instance found where it went by
+    the route's kernel."""
+    import dataclasses
+
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.models.instance import MeshInstance
+
+    sc = instance_grid_scene(4)
+    bound = dict(max_wide_nodes=32) if route == "k5" else {}
+    graphed = tlas.build_two_level_flat(sc, 32, device=cuda, **bound)
+    eager = dataclasses.replace(graphed, **{
+        k: getattr(graphed, k).clone() for k in _REFIT_FIELDS
+        if getattr(graphed, k) is not None})
+    assert (graphed.w8_nodes is None) == (route == "k5")
+    progs = graphs.Programs(1)
+    for f, idx in enumerate((1, 5, 1)):
+        cur = sc.instances[idx]
+        new = MeshInstance(cur.mesh_id, cur.material_id,
+                           (0.3 * f, -2.0 - f, 0.5), (0.2 * f, 0.1, 0.0),
+                           cur.scale)
+        mats = (new.transform, new.inverse_transform, new.normal_matrix)
+        graphed = tlas.set_instance(graphed, idx, *mats, programs=progs)
+        eager = tlas.set_instance(eager, idx, *mats, programs=progs,
+                                  plain=True)
+        torch.cuda.synchronize()
+        assert _tables_equal(graphed, eager), f
+    assert progs.captures == 1 and progs.last.graph.nodes > 0
+    o = torch.tensor([[0.6, -4.0, -5.0]], device=cuda)
+    d = torch.tensor([[0.0, 0.0, 1.0]], device=cuda)
+    hit = tlas.closest_hit_tlas(graphed, V3(*o.unbind(-1)),
+                                V3(*d.unbind(-1)), 1e-3, 1e32)
+    assert int(hit[2][0]) == 1
+
+
+def test_culled_loop_captures_once_over_rebuilds(cuda):
+    """Four orbit steps of the culled grid at 128x96, each rebuilding:
+    one frame capture and one build capture; the rebuilt accel bit for
+    bit a fresh build_bvh over the loop's mask, the frames an op-by-op
+    loop's."""
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models.camera import orbit_camera
+    from hrt_tpu_torch.ops import culling
+
+    cfg = RenderConfig(width=128, height=96, max_depth=1, sky=True)
+    graphed = FrameLoop(instance_grid_scene(), cfg, device=cuda)
+    eager = FrameLoop(instance_grid_scene(), cfg, device=cuda)
+    for f in range(4):
+        cam = orbit_camera(0.15 * f, radius=4.0, height=-1.0)
+        with graphs.disable():
+            want = eager.step(cam)
+        got = graphed.step(cam)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want) and graphed.rebuilds == f + 1
+    assert graphed.captures == 1 and graphed.builds.captures == 1
+    mask = culling.triangle_mask(graphed.visible, graphed.scene.tri_inst,
+                                 graphed.scene.tri_valid)
+    fresh = lbvh.build_bvh(graphed.scene, graphed.leaf_size, mask)
+    for k in lbvh._REBUILT:
+        a, b = getattr(graphed.accel, k), getattr(fresh, k)
+        assert torch.equal(_bits(a), _bits(b)), k
+
+
+def test_refit_that_k4_cannot_walk_raises(cuda, monkeypatch):
+    """A refit whose TLAS needs more stack than K4 holds raises
+    ValueError, and the table and the instance's matrices stay as they
+    were."""
+    import dataclasses
+
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.models.instance import MeshInstance
+
+    sc = instance_grid_scene(4)
+    tl = tlas.build_two_level_flat(sc, 32, device=cuda)
+    before = dataclasses.replace(tl, **{
+        k: getattr(tl, k).clone() for k in _REFIT_FIELDS
+        if getattr(tl, k) is not None})
+    monkeypatch.setattr(traversal_tlas8, "MAX_STACK", tl.stack - 1)
+    new = MeshInstance(0, 0, (1.0, 2.0, 3.0))
+    with pytest.raises(ValueError, match="K4 holds"):
+        tlas.set_instance(tl, 3, new.transform, new.inverse_transform,
+                          new.normal_matrix, programs=graphs.Programs(1))
+    torch.cuda.synchronize()
+    assert _tables_equal(tl, before)

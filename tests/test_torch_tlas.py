@@ -163,64 +163,69 @@ def test_two_level_build_bit_equal(jax_loop, port_tl):
                                              port_tl.blas_depth)
 
 
-@pytest.mark.parametrize("n_inst", [1, 2, 4])
+def _instance_boxes(n_inst):
+    """Seeded random instance boxes; "equal": 7 boxes with one centroid
+    (equal Morton codes: the radix tree splits by the index tiebreak)."""
+    rs = np.random.RandomState(7 if n_inst == "equal" else n_inst)
+    n = 7 if n_inst == "equal" else n_inst
+    c = rs.uniform(-10, 10, (n, 3)).astype(np.float32)
+    if n_inst == "equal":
+        c[:] = c[0]
+    ext = rs.uniform(0.1, 2.0, (n, 3)).astype(np.float32)
+    return c - ext, c + ext
+
+
+@pytest.mark.parametrize("n_inst", [1, 2, 4, 7, 257, "equal"])
 def test_build_wide8_tlas_bit_equal(jax_loop, n_inst):
-    """Seeded random instance boxes.  Four boxes reuse the jitted TLAS
-    build that the JAX FrameLoop compiled; one and two run the same JAX
-    function with jit disabled (a compile per instance count costs
-    ~17 s on the CPU)."""
-    rs = np.random.RandomState(n_inst)
-    c = rs.uniform(-10, 10, (n_inst, 3)).astype(np.float32)
-    ext = rs.uniform(0.1, 2.0, (n_inst, 3)).astype(np.float32)
-    bmin, bmax = c - ext, c + ext
-    pad = wide8.tlas_nw_pad(n_inst)
-    assert pad == jwide8.tlas_nw_pad(n_inst)
-    with jax.disable_jit(n_inst != len(jax_loop.scene_obj.instances)):
+    """The torch wide TLAS (on the CPU here) against JAX's jitted one,
+    bit for bit, and the depth it returns against the records' depth.
+    Four boxes reuse the jitted TLAS build that the JAX FrameLoop
+    compiled; the equal-centroid set reuses the 7-box compile; one and
+    two run the same JAX function with jit disabled."""
+    bmin, bmax = _instance_boxes(n_inst)
+    n = bmin.shape[0]
+    pad = wide8.tlas_nw_pad(n)
+    assert pad == jwide8.tlas_nw_pad(n)
+    with jax.disable_jit(n < 3):
         want = np.asarray(jwide8.build_wide8_tlas(jnp.asarray(bmin),
                                                   jnp.asarray(bmax), pad))
-    got = wide8.build_wide8_tlas(bmin, bmax, pad)
-    assert got.dtype == want.dtype == np.int32
-    np.testing.assert_array_equal(got, want)
+    got, depth = wide8.build_wide8_tlas(torch.as_tensor(bmin),
+                                        torch.as_tensor(bmax), pad)
+    assert got.dtype == torch.int32 and depth.dim() == 0
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(depth) == int(wide8.node_depths(want).max())
     # Every instance is a leaf exactly once (a single one twice: its
     # box is duplicated so that the radix tree has two leaves).
-    meta = got.reshape(-1, 8, 16, 8).transpose(0, 2, 1, 3)[..., 6]
+    meta = want.reshape(-1, 8, 16, 8).transpose(0, 2, 1, 3)[..., 6]
     leaves = np.sort(meta[meta > 0]) - 1
-    expect = [0, 0] if n_inst == 1 else list(range(n_inst))
+    expect = [0, 0] if n == 1 else list(range(n))
     np.testing.assert_array_equal(leaves, expect)
 
 
 def test_morton_and_karras_bit_equal():
-    """Morton codes, the radix tree and its refit: the host numpy
-    versions (the wide TLAS) and the torch ones (the LBVH and the binary
-    TLAS) against JAX's."""
+    """Morton codes, the radix tree and its refit (torch: the LBVH and
+    both TLAS forms) against JAX's."""
     rs = np.random.RandomState(5)
     pts = rs.uniform(-3, 7, (300, 3)).astype(np.float32)
     pts[:4] = [[-3, -3, -3], [7, 7, 7], [2, 2, 2], [2, 2, 2]]  # edges, dup
     lo, hi = pts.min(axis=0), pts.max(axis=0)
-    codes = morton.morton_codes(pts, lo, hi)
     want = np.asarray(jmorton.morton_codes(jnp.asarray(pts),
                                            jnp.asarray(lo), jnp.asarray(hi)))
-    assert codes.dtype == np.uint32
-    np.testing.assert_array_equal(codes, want)
-    np.testing.assert_array_equal(morton.morton_codes_torch(
-        *map(torch.as_tensor, (pts, lo, hi))).numpy(), want)
+    codes = morton.morton_codes(*map(torch.as_tensor, (pts, lo, hi)))
+    np.testing.assert_array_equal(codes.numpy(), want)
     # The radix tree over sorted codes with duplicate keys (index
     # tiebreak) and the refit over it.
-    keys = np.sort(codes)
+    keys = np.sort(want)
     keys[10:20] = keys[10]
     boxes = (pts - 0.5, pts + 0.5)
     jcl, jcr = jlbvh.karras_hierarchy(jnp.asarray(keys))
     jboxes = jlbvh.refit(jcl, jcr, *map(jnp.asarray, boxes))
-    host = lbvh.karras_hierarchy_host(keys)
-    dev = [a.numpy() for a in lbvh.karras_hierarchy(
-        torch.as_tensor(keys.astype(np.int64)))]
-    for cl, cr in (host, dev):
-        np.testing.assert_array_equal(cl, np.asarray(jcl))
-        np.testing.assert_array_equal(cr, np.asarray(jcr))
-    for got in (lbvh.refit_host(*host, *boxes),
-                lbvh.refit(*map(torch.as_tensor, (*dev, *boxes)))):
-        for a, b in zip(got, jboxes):
-            np.testing.assert_array_equal(_bits(a), _bits(b))
+    cl, cr = lbvh.karras_hierarchy(torch.as_tensor(keys.astype(np.int64)))
+    np.testing.assert_array_equal(cl.numpy(), np.asarray(jcl))
+    np.testing.assert_array_equal(cr.numpy(), np.asarray(jcr))
+    got = lbvh.refit(cl, cr, *map(torch.as_tensor, boxes))
+    for a, b in zip(got, jboxes):
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(b))
 
 
 def _moved(instances):
