@@ -208,14 +208,17 @@ over the bench frame, whose history fetches run K6.  Phases:
      `train_upscaler.main` in this process, checkpoints to a temporary
      directory), spatial: 4 path-traced 256x256 frames of the bench
      scene and the Cornell box through FrameLoop (K1, K2; no warp), 300
-     Adam steps on 8 64-px crops (the script's sizes); the launch
+     Adam steps on 8 64-px crops (the script's sizes), each replayed
+     from the step's captured graph (one capture); the launch
      counters set to 0 just before and read just after; the mean of the
      last 10 losses < 0.8 x the first 10's
  38. the same, --temporal: two 16-frame orbits (1-spp 128x128 frames
      with their G-buffers, 8-spp 256x256 targets; K1, K2), temporal
      triples (K6), 600 steps on 8 corrupted 128-px crops, 60 recurrent
      steps over both sequences (K6 forward and, for the gradient, its
-     backward: the counters must show 60 x 2 x 15 backward launches),
+     backward: the counters must show 60 x 2 x 15 backward launches;
+     the crop step and the recurrent update each one capture, the
+     sequences' G-buffer and clean renders one capture each a sequence),
      the held-out PSNR (temporal / spatial / bilinear) of the trained
      nets beside the committed weights', the temporal net's more than
      1 dB over bilinear's; the temporal run's last-10 / first-10 loss
@@ -240,6 +243,9 @@ over the bench frame, whose history fetches run K6.  Phases:
      route (`plain=True`): loss within rtol 1e-5, gradients within 1e-4
      of each tensor's largest entry; with the warped history detached
      the gradient moves; ms per spatial, temporal and recurrent step
+     captured and op by op (graphs.disable()) in turns (CUDA events), and
+     each one's device ms (profiler, 4 steps a window; op by op's is the
+     graph's floor)
 
  41. multi-GPU rendering (hrt_tpu_torch.parallel) over a one-rank NCCL
      group: the tiled bench frame (render_frame_tiled) and its G-buffer
@@ -327,6 +333,21 @@ over the bench frame, whose history fetches run K6.  Phases:
      device ms (profiler), nodes and capture ms; for the BVH8 tables
      the depth read-back's cost (8 replays back to back, with and
      without the read, in turns)
+ 49. the training programs against their bodies op by op: the spatial
+     and temporal steps (8 crops of phase 38's frames) and the
+     recurrent update (phase 38's net, both sequences), each 3 steps
+     from one net on five sides (the graph and OP_BY_OP_SIDES op by
+     op): the graph's state (parameters, gradients, moments, count) bit
+     for bit where op by op repeats itself bit for bit, else within 4x
+     of op by op against itself; the spatial and temporal steps again
+     with cuDNN's deterministic algorithms, where op by op must repeat
+     itself and the graph equal it bit for bit; one capture each;
+     capture ms, nodes, peak bytes
+     of the capturing call and of an op-by-op step; K6's backward
+     launched from autograd's thread onto the capturing stream; a 4-frame
+     `render_sequence` through its programs bit-equal to op by op; a
+     post frame graph replayed between spatial replays leaving every
+     training tensor as it was
 
 Phase 8 also renders BASELINE's cornell_gi golden (depth 3, bounces)
 through K1 and K2, held off the image diagonals where the box's wall
@@ -2375,13 +2396,14 @@ def scene_file_phases(sm: Smoke, dev) -> dict:
     return out
 
 
-def profiled_device_ms(fn) -> float:
-    """The device ms of one fn() call under torch.profiler, after a
-    warm-up call (utils/profiling.device_ms_per_call; raises when the
-    profile shows no device activity)."""
+def profiled_device_ms(fn, calls: int = 1) -> float:
+    """The mean device ms of a fn() call over `calls` calls in one
+    torch.profiler window, after a warm-up call (utils/profiling.
+    device_ms_per_call; raises when the profile shows no device
+    activity)."""
     from hrt_tpu_torch.utils.profiling import device_ms_per_call
 
-    return device_ms_per_call(fn, calls=1)
+    return device_ms_per_call(fn, calls=calls)
 
 
 def materials_times(sm: Smoke, dev, ml: dict, sf: dict) -> list:
@@ -2896,6 +2918,8 @@ TEMPORAL_STEPS = 600
 RECURRENT_STEPS = 60
 # The least held-out PSNR gain of the trained temporal net over bilinear.
 PSNR_MARGIN_DB = 1.0
+# Phase 49's op-by-op runs of each training program beside its graph.
+OP_BY_OP_SIDES = 4
 
 
 def window_ratio(losses: list) -> float:
@@ -3003,7 +3027,7 @@ def train_phases(sm: Smoke, dev, hist4k) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from hrt_tpu_torch import train_upscaler as tu
+    from hrt_tpu_torch import graphs, train_upscaler as tu
     from hrt_tpu_torch.kernels import build
     from hrt_tpu_torch.models import upscaler
     from hrt_tpu_torch.ops import denoise, warp_kernel as k6
@@ -3013,15 +3037,32 @@ def train_phases(sm: Smoke, dev, hist4k) -> dict:
     tpath = os.path.join(tmp.name, "upscaler_temporal_torch.npz")
     dflag = ["--device", str(dev)]
 
+    steps_progs, render_progs = upscaler.TRAIN_PROGRAMS, tu.RENDER_PROGRAMS
+
+    def captures(label: str, caps: tuple, want: tuple) -> None:
+        """The runs' captures since `caps` (train steps, renders) against
+        `want`: one per key, every later call a replay."""
+        got = (steps_progs.captures - caps[0],
+               render_progs.captures - caps[1])
+        print(f"  {label}: " + "; ".join(
+            line for line in (graphs.capture_line("train step", steps_progs),
+                              graphs.capture_line("render", render_progs))
+            if line), flush=True)
+        sm.check(got == want, f"{label}: {got[0]} train-step and {got[1]} "
+                 f"render capture(s) (want {want[0]} and {want[1]}: one a "
+                 "key, the other calls replays)")
+
     phase(f"phase 37: train_upscaler, spatial: 4 frames at 256x256, "
-          f"{SPATIAL_STEPS} steps of 8 64-px crops")
+          f"{SPATIAL_STEPS} steps of 8 64-px crops (captured steps)")
     reset_all()
+    caps = (steps_progs.captures, render_progs.captures)
     t0 = time.perf_counter()
     sp = tu.main(dflag + ["--steps", str(SPATIAL_STEPS), "--out", spath])
     torch.cuda.synchronize()
     counts = launch_counts()
     print(f"  trainer run {time.perf_counter() - t0:.1f} s, launches "
           f"{counts}", flush=True)
+    captures("spatial run", caps, (1, 0))
     sm.check(counts["k1_closest"] > 0 and counts["k1_any_hit"] > 0
              and counts["k2"] > 0 and counts["k6"] == 0
              and counts["k6_backward"] == 0 and counts["k3"] == 0,
@@ -3033,8 +3074,10 @@ def train_phases(sm: Smoke, dev, hist4k) -> dict:
 
     phase(f"phase 38: train_upscaler --temporal: 2 x 16-frame orbits "
           f"(128x128 -> 256x256, 8-spp targets), {TEMPORAL_STEPS} steps, "
-          f"{RECURRENT_STEPS} recurrent steps, held-out PSNR")
+          f"{RECURRENT_STEPS} recurrent steps, held-out PSNR (captured "
+          "steps, updates and renders)")
     reset_all()
+    caps = (steps_progs.captures, render_progs.captures)
     t0 = time.perf_counter()
     tr = tu.main(dflag + ["--temporal", "--steps", str(TEMPORAL_STEPS),
                           "--recurrent-steps", str(RECURRENT_STEPS),
@@ -3043,6 +3086,9 @@ def train_phases(sm: Smoke, dev, hist4k) -> dict:
     counts = launch_counts()
     print(f"  trainer run {time.perf_counter() - t0:.1f} s, launches "
           f"{counts}", flush=True)
+    # The crop step and the recurrent update; the G-buffer and clean
+    # renders of the two training orbits and the held-out one.
+    captures("temporal run", caps, (2, 6))
     seqs, ev = tr["seqs"], tr["held_out"]
     n_seq = seqs[0][0].shape[0]
     warps = RECURRENT_STEPS * len(seqs) * (n_seq - 1)
@@ -3235,7 +3281,8 @@ def train_phases(sm: Smoke, dev, hist4k) -> dict:
              f"within {cmp['rel']:.3g} of each element's absolute sum")
 
     phase("phase 40: one recurrent step on the card, K6 route vs the plain "
-          "route, the history path's gradient; ms per step (CUDA events)")
+          "route, the history path's gradient; ms per step captured and op "
+          "by op, in turns (CUDA events), and device ms (profiler)")
     net = copy.deepcopy(tr["net"])
     seq = seqs[0]
 
@@ -3277,18 +3324,259 @@ def train_phases(sm: Smoke, dev, hist4k) -> dict:
     s_net, s_opt = upscaler.create(lr=2e-3, device=dev)
     tb = tu.crops(gen, lr_t, hist_t, hr_t)
     t_opt = upscaler.adam(net, 2e-3)
-    step_ms = {
-        "spatial step (8 x 64 px)": time_ms(
-            lambda: upscaler.train_step(s_net, s_opt, lr_b, hr_b)),
-        "temporal step (8 x 128 px)": time_ms(
-            lambda: upscaler.train_step_temporal(net, t_opt, *tb)),
-        f"recurrent update ({n_seq} frames)": time_ms(
-            lambda: upscaler.update(t_opt, lambda: tu.recurrent_loss(
-                net, *seq)), reps=5)}
-    for k, v in step_ms.items():
-        print(f"  {k}: {v:.4f} ms", flush=True)
+    steps = {
+        "spatial step (8 x 64 px)": (
+            lambda: upscaler.train_step(s_net, s_opt, lr_b, hr_b), 7),
+        "temporal step (8 x 128 px)": (
+            lambda: upscaler.train_step_temporal(net, t_opt, *tb), 7),
+        f"recurrent update ({n_seq} frames)": (
+            lambda: upscaler.update(net, t_opt, tu.recurrent_loss, seq), 5)}
+    step_ms = {}
+    for k, (fn, reps) in steps.items():
+        def eager(fn=fn):
+            with graphs.disable():
+                return fn()
+
+        # In turns: op by op, captured, captured, op by op (the first
+        # captured call captures, in time_ms's warm-up).
+        e, g = in_turns(eager, fn, reps=reps)
+        # Four steps a window: a one-step window of a captured step
+        # (~0.6 ms) has come back empty twice in a row.
+        dev_e = profiled_device_ms(eager, calls=4)
+        dev_g = profiled_device_ms(fn, calls=4)
+        step_ms[k] = {"eager_ms": e, "graph_ms": g, "device_eager_ms": dev_e,
+                      "device_graph_ms": dev_g}
+        print(f"  {k}: ms a step op by op {e[0]:.4f}, {e[1]:.4f}; captured "
+              f"{g[0]:.4f}, {g[1]:.4f} (CUDA events, median of {reps}, in "
+              f"turns); device ms op by op {dev_e:.4f} (the floor), "
+              f"captured {dev_g:.4f} (profiler, mean of 4 steps in one "
+              f"window)", flush=True)
     tmp.cleanup()
-    return {"launches": counts["k6_backward"], **entry}
+    return {"launches": counts["k6_backward"], **entry}, {
+        "net": tr["net"], "seqs": seqs, "triples": (lr_t, hist_t, hr_t),
+        "step_ms": step_ms}
+
+
+def train_graph_phase(sm: Smoke, dev, data: dict) -> dict:
+    """Phase 49: the four training programs (the spatial and temporal
+    steps, the recurrent update, the trainer's renders) replayed from
+    their graphs against the same bodies op by op, and the spatial and
+    temporal steps again with cuDNN's deterministic algorithms, where
+    they must be bit for bit.  `data`: phase 38's trained temporal net,
+    training sequences and triples.  Returns per
+    program its differences, capture ms, nodes and peak bytes."""
+    import copy
+    import gc
+    import itertools
+
+    import torch
+
+    from hrt_tpu_torch import graphs, train_upscaler as tu
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.config import RenderConfig
+    from hrt_tpu_torch.models import upscaler
+    from hrt_tpu_torch.models.scene import bench_scene
+    from hrt_tpu_torch.ops import warp_kernel as k6
+
+    phase("phase 49: the training programs vs the same bodies op by op "
+          "(graphs.disable()), 3 steps from equal nets and optimizer "
+          "states; the trainer's renders bit for bit; a frame graph "
+          "replayed between training replays; the spatial and temporal "
+          "steps with cuDNN deterministic, bit for bit")
+    out = {}
+    progs = upscaler.TRAIN_PROGRAMS
+    # No program may be dropped, its inputs freed, inside a measured call
+    # (the peaks read the bytes allocated above those held before it).
+    progs.clear()
+    tu.RENDER_PROGRAMS.clear()
+    seqs = data["seqs"]
+    gen = torch.Generator().manual_seed(49)
+    clean = torch.cat([s[4] for s in seqs])
+    spatial = [upscaler.self_supervised_batch(clean, gen, 64, 8)
+               for _ in range(3)]
+    temporal = [tu.crops(gen, *data["triples"]) for _ in range(3)]
+
+    def state(opt) -> list:
+        return [*opt.params, *opt.grads, *opt.mu, *opt.nu, opt.count]
+
+    def run(label: str, make, step, batches, backward: int = 0,
+            exact: bool = False):
+        """Five sides from one net, each 3 steps: the graph and four op
+        by op.  The graph's state against the op-by-op ones: bit for bit
+        where op by op repeats itself bit for bit, else its largest
+        difference to them within 4x of the largest between two of
+        them (op by op's spread, which one pair samples poorly: a
+        gradient near eps turns a last-bit difference into a share of
+        the learning rate).  `exact`: op by op must repeat itself bit
+        for bit, and so the graph equal it."""
+        sides = {"graph": make(),
+                 **{f"eager{k}": make() for k in range(OP_BY_OP_SIDES)}}
+        gc.collect()        # no garbage freed inside the measured calls
+        flags = []
+        orig = k6.warp_bilinear_backward_kernel
+
+        def spy(*a, **kw):
+            flags.append(torch.cuda.is_current_stream_capturing())
+            return orig(*a, **kw)
+
+        caps = progs.captures
+        info = {}
+        for i, batch in enumerate(batches):
+            for side, (net, opt) in sides.items():
+                eager = side != "graph"
+                k6.warp_bilinear_backward_kernel = spy
+                try:
+                    _, ms, launches, peak = measured(
+                        lambda: step(net, opt, batch), eager=eager)
+                finally:
+                    k6.warp_bilinear_backward_kernel = orig
+                if i == 0 and not eager:
+                    g = progs.last.graph
+                    info.update(capture_ms=g.capture_ms, nodes=g.nodes,
+                                first_call_ms=ms, peak_graph_bytes=peak,
+                                capture_flags=list(flags))
+                elif i == 0 and side == "eager0":
+                    info["peak_eager_bytes"] = peak
+                    info["eager_ms"] = ms
+                elif i == 2 and not eager:
+                    info["replay_ms"] = ms
+                if backward:
+                    sm.check(launches.get("k6_backward", 0) == backward,
+                             f"{label} step {i} ({side}): "
+                             f"{launches.get('k6_backward', 0)} K6 backward "
+                             f"launches (want {backward})")
+                flags.clear()
+        torch.cuda.synchronize()
+
+        def diff(a, b):
+            return max(float((x.detach().float() - y.detach().float())
+                             .abs().max())
+                       for x, y in zip(state(a[1]), state(b[1])))
+
+        eagers = [v for k, v in sides.items() if k != "graph"]
+        self_diff = max(diff(a, b) for a, b in
+                        itertools.combinations(eagers, 2))
+        graph_diff = max(diff(sides["graph"], e) for e in eagers)
+        info.update(self_diff=self_diff, graph_diff=graph_diff,
+                    captures=progs.captures - caps)
+        out[label] = info
+        ok = graph_diff == 0 if self_diff == 0 else \
+            graph_diff <= 4 * self_diff and not exact
+        rule = "not bit for bit, must be" if exact else "within 4x"
+        sm.check(ok and info["captures"] == 1,
+                 f"{label}: after 3 steps the graph's state differs from op "
+                 f"by op by {graph_diff:.3g} at most (op by op against "
+                 f"itself {self_diff:.3g} at most, {OP_BY_OP_SIDES} sides: "
+                 f"{'bit for bit' if self_diff == 0 else rule}); "
+                 f"{info['captures']} capture; capture {info['capture_ms']:.1f} "
+                 f"ms, {info['nodes']} nodes, first call {info['first_call_ms']:.1f} "
+                 f"ms (op by op {info['eager_ms']:.1f}), a replay "
+                 f"{info['replay_ms']:.3f} ms; peak bytes captured "
+                 f"{info['peak_graph_bytes']} (op by op "
+                 f"{info['peak_eager_bytes']})")
+        return sides
+
+    make_s = lambda: upscaler.create(seed=7, lr=2e-3, device=dev)
+    sides = run("spatial step", make_s,
+                lambda net, opt, b: upscaler.train_step(net, opt, *b),
+                spatial)
+    make_t = lambda: upscaler.create_temporal(seed=7, lr=2e-3, device=dev)
+    run("temporal step", make_t,
+        lambda net, opt, b: upscaler.train_step_temporal(net, opt, *b),
+        temporal)
+
+    def make_r():
+        net = copy.deepcopy(data["net"])
+        return net, upscaler.adam(net, 2e-3)
+
+    n_seq = seqs[0][0].shape[0]
+    run(f"recurrent update ({n_seq} frames)", make_r,
+        lambda net, opt, seq: upscaler.update(net, opt, tu.recurrent_loss,
+                                              seq),
+        [seqs[0], seqs[1], seqs[0]], backward=n_seq - 1)
+    flags = out[f"recurrent update ({n_seq} frames)"]["capture_flags"]
+    sm.check(len(flags) == 2 * (n_seq - 1)
+             and flags == [False] * (n_seq - 1) + [True] * (n_seq - 1),
+             f"K6's backward, launched from autograd's thread, ran on a "
+             f"capturing stream in the capture ({sum(flags)} of "
+             f"{n_seq - 1}) and on none in the warm-up")
+
+    # The trainer's renders: a 4-frame bench orbit at the trainer's sizes.
+    rp = tu.RENDER_PROGRAMS
+    caps = rp.captures
+    live = []     # the call's captures (render_sequence drops them)
+
+    class Recorded(graphs.CudaGraph):
+        def __init__(self, *args):
+            super().__init__(*args)
+            live.append(self)
+
+    gc.collect()
+    rp.capture = Recorded
+    try:
+        got, ms_g, _, peak_g = measured(lambda: tu.render_sequence(
+            4, device=dev))
+    finally:
+        rp.capture = graphs.CudaGraph
+    want, ms_e, _, peak_e = measured(lambda: tu.render_sequence(4,
+                                                                device=dev),
+                                     eager=True)
+    same = all(same_bits(a, b) for a, b in zip(
+        (got[0], got[1], got[2], got[4]), (want[0], want[1], want[2],
+                                            want[4])))
+    for name, g in zip(("render_gb", "render_clean"), live):
+        out[name] = {"capture_ms": g.capture_ms, "nodes": g.nodes}
+    out["renders"] = {"ms_graph": ms_g, "ms_eager": ms_e,
+                      "peak_graph_bytes": peak_g, "peak_eager_bytes": peak_e}
+    sm.check(same and rp.captures - caps == 2 and len(live) == 2,
+             f"render_sequence(4) through its programs bit-equal to op by "
+             f"op (frames, G-buffer, clean targets); "
+             f"{rp.captures - caps} captures: "
+             + ", ".join(f"{n} {out[n]['capture_ms']:.1f} ms capture, "
+                         f"{out[n]['nodes']} nodes"
+                         for n in ("render_gb", "render_clean"))
+             + f"; the sequence {ms_g:.1f} ms captured (with the captures) "
+             f"against {ms_e:.1f} op by op; peak bytes {peak_g} / {peak_e}")
+
+    # A frame graph replayed between two training replays: the training
+    # state stays as it was (nothing of it lives in the shared pool).
+    net, opt = sides["graph"]
+    loop = FrameLoop(bench_scene(), RenderConfig(
+        width=256, height=192, max_depth=1, sky=True, denoise=True,
+        upscale=2, upscale_mode="temporal"), device=dev)
+    cam = post_cam(0)
+    loop.step(cam)                                      # captures
+    held = []
+    for i in range(2):
+        upscaler.train_step(net, opt, *spatial[i])
+        torch.cuda.synchronize()
+        before = [t.clone() for t in state(opt)]
+        for f in range(2):
+            loop.step(post_cam(f + 1))
+        torch.cuda.synchronize()
+        held.append(all(same_bits(a, b) for a, b in zip(state(opt),
+                                                         before)))
+    sm.check(all(held) and loop.captures == 1,
+             f"frame graph replays between training replays leave every "
+             f"training tensor as it was ({sum(held)} of {len(held)}; "
+             f"{loop.captures} frame capture)")
+    # The bit-for-bit witness: with cuDNN's deterministic algorithms (and
+    # no K6, whose backward adds with atomics) op by op repeats itself,
+    # so the graph must equal it bit for bit.
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    progs.clear()
+    try:
+        run("spatial step, cuDNN deterministic", make_s,
+            lambda net, opt, b: upscaler.train_step(net, opt, *b),
+            spatial, exact=True)
+        run("temporal step, cuDNN deterministic", make_t,
+            lambda net, opt, b: upscaler.train_step_temporal(net, opt, *b),
+            temporal, exact=True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        progs.clear()
+    return out
 
 
 def gather_ms(group, tensors) -> float:
@@ -5387,7 +5675,7 @@ def main() -> int:
     sf = scene_file_phases(sm, dev)
     m_entries = materials_times(sm, dev, ml, sf)
     cli_phase(sm, dev)
-    k6_bwd = train_phases(sm, dev, hist4k)
+    k6_bwd, trained = train_phases(sm, dev, hist4k)
     del hist4k
     multi_gpu_phases(sm, dev, p_scene, p_accel)
     gloo_phase(sm)
@@ -5409,6 +5697,8 @@ def main() -> int:
                   (ftl4, forest.instances)},
         cscene, [renderer.camera_arrays(orbit_cam(f), g_cfg, dev)
                  for f in range(9)], g_cfg)
+    train_graph_phase(sm, dev, trained)
+    del trained
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,

@@ -1,6 +1,9 @@
-"""Frame programs captured as CUDA graphs: the port's counterpart of the
-JAX package's `jax.jit` frame programs (hrt_tpu/renderer.py
-`render_frames`, hrt_tpu/frameloop.py `frame_program`).
+"""Frame and training programs captured as CUDA graphs: the port's
+counterpart of the JAX package's `jax.jit` frame programs
+(hrt_tpu/renderer.py `render_frames`, hrt_tpu/frameloop.py
+`frame_program`) and training steps (hrt_tpu/models/upscaler.py
+`train_step`, `train_step_temporal`; scripts/train_upscaler.py
+`seq_step`, `render_gb`, `render_clean`).
 
 A jit program is compiled once per static config and shape, then
 dispatched once per call.  Here a frame body is captured once per key
@@ -19,8 +22,15 @@ launch.  `Programs` is a bounded cache of captured bodies:
   and creates cuDNN's handles, and its result is the call's result),
   then captures the body on a side stream into the memory pool that
   every capture on the device shares (`_pool`).
-  Nothing of autograd is recorded: the upscaler's parameters require
-  gradients, and the body runs without them.
+  Nothing of autograd is recorded in a frame: the upscaler's parameters
+  require gradients, and the body runs without them.  A training step
+  (models/upscaler.py `update`) turns gradients on inside its body, so
+  its graph holds the forward, autograd's backward (whose kernels go to
+  the stream of their forward, the capture's) and the optimizer's
+  update, and its output is the detached loss.  Such a body writes only
+  tensors made before the capture (the parameters, their gradients, the
+  optimizer's moments and count), in place, and its key holds their
+  addresses.
 - Every later call copies its arguments into the graph's static input
   tensors (`copy_` on the device; a Python int, the frame index, by
   `fill_`, which needs no host copy), replays the graph, and returns
@@ -32,7 +42,8 @@ launch.  `Programs` is a bounded cache of captured bodies:
   memory, and the graphs together hold the largest frame's memory, not
   the sum of all of theirs.  This holds because the replays run on one
   stream, one after another, and nothing a body makes outlives its
-  replay but its outputs, which stay allocated.
+  replay but its outputs, which stay allocated: a training body's
+  persistent state is made outside the pool, before its capture.
 - The kernel wrappers' launch counters (`LAUNCHES` of K1 to K6) count
   launches on the card, replayed or not: the counters' change during a
   capture (host code that ran once, launching nothing) is taken back
@@ -46,14 +57,16 @@ jitted `refit_two_level`) and the culling LBVH rebuild (ops/lbvh.py
 accel's own tensors in place, so the frame programs captured over it
 read the new tables and are not captured again.
 
-A frame runs op by op (the body called directly, under no_grad) on CPU
-tensors, inside `disable()` (the counterpart of `jax.disable_jit()`,
-which the checks use to hold a graph against the same body op by op),
-under the walks' debug builds (`HRT_KERNEL_GUARDS`,
-`HRT_DEBUG_COUNTERS`: they keep host state per launch), and where the
-caller says so: `plain=True` (the plain versions of the kernels on the
-card) and a loop over a `mesh` (the tiled frame gathers its bands
-across ranks).  Nothing else runs op by op.
+A frame or a step runs op by op (the body called directly, under
+no_grad, which a training body overrides) on CPU tensors, inside
+`disable()` (the counterpart of `jax.disable_jit()`, which the checks
+use to hold a graph against the same body op by op, and the way to run
+a plain reference step), under the walks' debug builds
+(`HRT_KERNEL_GUARDS`, `HRT_DEBUG_COUNTERS`: they keep host state per
+launch), and where the caller says so: `plain=True` (the plain versions
+of the kernels on the card) and a loop or a step over a process group
+(the tiled frame gathers its bands across ranks, a data-parallel step
+all-reduces its gradients).  Nothing else runs op by op.
 
 `constant` holds the small host constants that the frame's code puts on
 the device (a copy from pageable host memory cannot be captured).
@@ -319,7 +332,8 @@ class Programs:
         this key (captured at its first call, after an op-by-op warm-up
         whose result that call returns), or called op by op (see the
         module's docstring).  `args` is a tuple of tensors, ints (made
-        0-d int64 tensors on `device`), None and NamedTuples of them."""
+        0-d int64 tensors on `device`), None, and lists and NamedTuples
+        of them."""
         device = torch.device(device)
         flat, spec = pytree.tree_flatten(args)
         if eager or not self.enabled(device):

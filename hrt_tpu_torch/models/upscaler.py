@@ -26,20 +26,26 @@ flax's `net.apply` does.
 
 The training half (`create`, `train_step`, `self_supervised_batch`,
 `create_temporal`, `train_step_temporal`; hrt_tpu/models/upscaler.py
-:56-110, :175-204) trains in float32 with `torch.optim.Adam` at optax
-`adam`'s defaults, the convolutions in full float32 (`fp32_convs`: on
+:56-110, :175-204) trains in float32 with `Adam`, optax `adam`'s update
+ported over tensors, the convolutions in full float32 (`fp32_convs`: on
 the card cuDNN would otherwise run float32 convolutions in TF32, about
-three decimal digits).  Fresh nets are initialised as flax's `nn.Conv`
-is (lecun_normal kernels, zero biases), from a `torch.Generator` on the
-CPU, so a seed gives the same net on every device; `jax.random` cannot
-be reproduced, so parity tests pass JAX's parameters through
-utils/interop.  With a process `group` a step is data parallel: each
-rank takes the loss of its share of the batch and the gradients are
-averaged across the ranks before the update.
+three decimal digits).  On the card a step (`update`: forward,
+backward and the Adam update) is a captured program, the counterpart of
+the JAX package's jitted `train_step`: captured once per net, optimizer
+state, loss and batch shapes into a CUDA graph and replayed after
+(graphs.Programs; `TRAIN_PROGRAMS`).  Fresh nets are
+initialised as flax's `nn.Conv` is (lecun_normal kernels, zero biases),
+from a `torch.Generator` on the CPU, so a seed gives the same net on
+every device; `jax.random` cannot be reproduced, so parity tests pass
+JAX's parameters (and optax's state, utils/interop.adam_from_numpy)
+through utils/interop.  With a process `group` a step is data parallel,
+op by op: each rank takes the loss of its share of the batch and the
+gradients are averaged across the ranks before the update.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 import os
 
@@ -49,6 +55,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from .. import graphs
 from ..config import resolve_device
 from ..ops.denoise import _project
 from ..ops.warp_kernel import warp_bilinear, warp_bilinear_plain
@@ -247,10 +254,73 @@ def init_flax(net: nn.Module, generator: torch.Generator) -> nn.Module:
     return net
 
 
-def adam(net: nn.Module, lr: float) -> torch.optim.Adam:
-    """Adam over `net`'s parameters at optax `adam`'s defaults."""
-    return torch.optim.Adam(net.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8)
+_INT32_MAX = 2**31 - 1
+
+
+@dataclasses.dataclass(eq=False)
+class Adam:
+    """optax `adam`'s state and update over a net's parameters, every
+    tensor made once and written in place (a captured step reads and
+    writes them at fixed addresses): `grads` (each parameter's `.grad`),
+    the moments `mu` and `nu`, and `count`, a 0-d int32 tensor on the
+    parameters' device.  The bias corrections are 1 - b ** count in
+    float32, as optax computes them, so the update is one function on
+    the CPU and on the card."""
+
+    params: list
+    grads: list
+    mu: list
+    nu: list
+    count: torch.Tensor
+    lr: float
+    betas: tuple = (0.9, 0.999)
+    eps: float = 1e-8
+
+    def attach(self) -> None:
+        """Make each parameter's `.grad` this state's gradient tensor
+        again (a caller may have set it to None or replaced it)."""
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not g:
+                p.grad = g
+
+    def zero_grad(self) -> None:
+        torch._foreach_zero_(self.grads)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """optax scale_by_adam, then scale by -lr and add: mu = (1 - b1)
+        g + b1 mu, nu = (1 - b2) g^2 + b2 nu, count + 1 (saturating),
+        p += -lr (mu / (1 - b1^count)) / (sqrt(nu / (1 - b2^count)) +
+        eps)."""
+        b1, b2 = self.betas
+        g = self.grads
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(g, 1 - b1))
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(
+            torch._foreach_mul(g, g), 1 - b2))
+        self.count.copy_(torch.where(self.count < _INT32_MAX,
+                                     self.count + 1, self.count))
+        mu_hat = torch._foreach_div(self.mu, 1 - torch.pow(b1, self.count))
+        nu_hat = torch._foreach_div(self.nu, 1 - torch.pow(b2, self.count))
+        den = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(den, self.eps)
+        upd = torch._foreach_div(mu_hat, den)
+        torch._foreach_mul_(upd, -self.lr)
+        torch._foreach_add_(self.params, upd)
+
+
+def adam(net: nn.Module, lr: float) -> Adam:
+    """Adam over `net`'s parameters at optax `adam`'s defaults, from
+    optax's initial state (zero moments, count 0); the parameters'
+    gradients are made here, zero."""
+    params = list(net.parameters())
+    zeros = lambda: [torch.zeros_like(p) for p in params]
+    opt = Adam(params, zeros(), zeros(), zeros(),
+               torch.zeros((), dtype=torch.int32,
+                           device=params[0].device), lr)
+    opt.attach()
+    return opt
 
 
 def _fresh(cls, seed: int, features: int, depth: int, lr: float, device):
@@ -290,28 +360,53 @@ def _loss_fn_temporal(net: TemporalUpscalerNet, lr_batch, hist_batch,
     return charbonnier(net(lr_batch, hist_batch), hr_batch)
 
 
-def update(opt: torch.optim.Optimizer, loss_of, group=None) -> torch.Tensor:
-    """One optimizer update on the loss `loss_of()` computes, in full
-    float32; returns the loss, detached.  With a process `group` the
-    ranks' gradients and losses are averaged (one all-reduce) before the
-    step, so that every rank takes the same step."""
-    with fp32_convs():
-        opt.zero_grad(set_to_none=True)
-        loss = loss_of()
-        loss.backward()
-    loss = loss.detach()
-    if group is not None:
-        params = [p for g in opt.param_groups for p in g["params"]
-                  if p.grad is not None]
-        flat = torch.cat([p.grad.reshape(-1) for p in params]
-                         + [loss.reshape(1)])
-        dist.all_reduce(flat, group=group)
-        flat /= dist.get_world_size(group)
-        for p, g in zip(params, flat[:-1].split([p.numel() for p in params])):
-            p.grad.copy_(g.view_as(p.grad))
-        loss = flat[-1]
-    opt.step()
-    return loss
+# The training steps' captured programs: a few keys at once (a trainer
+# steps one net on crops and on whole sequences).
+TRAIN_PROGRAMS = graphs.Programs(4)
+
+
+def update(net: nn.Module, opt: Adam, loss_fn, batch: tuple,
+           group=None) -> torch.Tensor:
+    """One Adam update of `net` on the loss `loss_fn(net, *batch)`, in
+    full float32; returns the loss, detached.  On the card the step is
+    replayed from the graph captured for its loss function, net,
+    optimizer state and batch shapes (TRAIN_PROGRAMS; the batch, a tuple
+    of tensors, lists and NamedTuples of them, is copied into the
+    graph's inputs); it runs op by op on the CPU, in graphs.disable()
+    (where a plain reference step runs), and over a process `group`:
+    then the ranks' gradients and losses are averaged (one all-reduce)
+    before the update, so that every rank takes the same step.
+    `loss_fn` is part of the key: pass a module-level function, not one
+    made anew for each call."""
+    opt.attach()
+
+    def body(*batch):
+        opt.zero_grad()
+        # The runner calls bodies under no_grad.
+        with torch.enable_grad(), fp32_convs():
+            loss = loss_fn(net, *batch)
+            loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            loss = _average(opt, loss, group)
+        opt.step()
+        return loss
+
+    key = ("update", loss_fn, graphs.signature(net), graphs.signature(opt))
+    return TRAIN_PROGRAMS(key, body, tuple(batch), opt.count.device,
+                          eager=group is not None)
+
+
+def _average(opt: Adam, loss: torch.Tensor, group) -> torch.Tensor:
+    """Average the gradients and the loss over the ranks of `group`, the
+    gradients in place; returns the mean loss."""
+    flat = torch.cat([g.reshape(-1) for g in opt.grads] + [loss.reshape(1)])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    for g, a in zip(opt.grads,
+                    flat[:-1].split([g.numel() for g in opt.grads])):
+        g.copy_(a.view_as(g))
+    return flat[-1]
 
 
 def _share(group, *batches):
@@ -333,8 +428,8 @@ def train_step(net: UpscalerNet, opt, lr_batch, hr_batch,
     (B, h, w, 3) and (B, 2h, 2w, 3), the whole batch on every rank of
     `group` (data parallel: each rank takes the loss of its share).
     Returns the loss."""
-    lr_batch, hr_batch = _share(group, lr_batch, hr_batch)
-    return update(opt, lambda: _loss_fn(net, lr_batch, hr_batch), group)
+    return update(net, opt, _loss_fn, _share(group, lr_batch, hr_batch),
+                  group)
 
 
 def train_step_temporal(net: TemporalUpscalerNet, opt, lr_batch,
@@ -342,10 +437,8 @@ def train_step_temporal(net: TemporalUpscalerNet, opt, lr_batch,
     """One optimizer update of the temporal net, in place.  Batches:
     (B, h, w, 3), (B, 2h, 2w, 4) and (B, 2h, 2w, 3), data parallel over
     `group` as train_step.  Returns the loss."""
-    lr_batch, hist_batch, hr_batch = _share(group, lr_batch, hist_batch,
-                                            hr_batch)
-    return update(opt, lambda: _loss_fn_temporal(net, lr_batch, hist_batch,
-                                                  hr_batch), group)
+    return update(net, opt, _loss_fn_temporal,
+                  _share(group, lr_batch, hist_batch, hr_batch), group)
 
 
 def downsample2(img: torch.Tensor) -> torch.Tensor:

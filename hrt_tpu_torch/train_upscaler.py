@@ -31,7 +31,13 @@ spatial net from `checkpoints/upscaler_torch.npz` when it exists and
 from the committed spatial weights otherwise (a malformed file raises).
 
 The JAX script's `jax.random` keys become `torch.Generator`s on the CPU,
-so a seed draws the same crops and corruption on every device.
+so a seed draws the same crops and corruption on every device.  Its
+jitted programs are captured CUDA graphs on the card (graphs.py): the
+spatial and temporal steps and the recurrent update
+(upscaler.TRAIN_PROGRAMS) and the sequences' G-buffer and clean renders
+(`RENDER_PROGRAMS`, the script's `render_gb` and `render_clean`), each
+captured at its first call and replayed after; inside
+`graphs.disable()` they run op by op.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ import time
 import numpy as np
 import torch
 
+from . import graphs
 from .config import RenderConfig, resolve_device
 from .frameloop import FrameLoop
 from .models import upscaler
@@ -82,6 +89,11 @@ def render_training_frames(n_frames: int, size=(256, 256), device=None):
     return torch.stack(frames)
 
 
+# render_sequence's captured programs, the G-buffer frame and the clean
+# target, which live for one call: its scene and accel are made anew.
+RENDER_PROGRAMS = graphs.Programs(2)
+
+
 def render_sequence(n_frames: int, size=(256, 256), scene_kind="bench",
                     phase=0.0, step=0.06, clean_spp: int = 8, device=None):
     """Orbit sequence mirroring the inference condition of the temporal
@@ -89,7 +101,9 @@ def render_sequence(n_frames: int, size=(256, 256), scene_kind="bench",
     G-buffers and cameras) paired with CLEAN `clean_spp` targets at the
     2x output resolution.  Returns (lrs (F, h, w, 3), world positions
     (F, h, w, 3), hits (F, h, w), the F LR cameras, cleans (F, H, W,
-    3))."""
+    3)).  On the card each of the two renders is a captured program
+    (RENDER_PROGRAMS, keyed by its config and dropped at the end of the
+    call), the frame index a 0-d tensor."""
     dev = resolve_device(device)
     scene_obj, radius, height = _scene(scene_kind)
     cfg_lr = RenderConfig(width=size[0] // 2, height=size[1] // 2,
@@ -100,19 +114,32 @@ def render_sequence(n_frames: int, size=(256, 256), scene_kind="bench",
                           spp=clean_spp, traversal="pallas")
     scene = scene_obj.build(dev)
     accel = lbvh.build_bvh_sah(scene, 32)
+
+    def render_gb(cams, frame):
+        return render_rows(scene, accel, cams, 0, cfg_lr.height, cfg_lr,
+                           want_gbuffer=True, frame=frame)
+
+    def render_clean(cams, frame):
+        return render_rows(scene, accel, cams, 0, cfg_hr.height, cfg_hr,
+                           frame=frame)
+
     lrs, wps, hits, cams_list, cleans = [], [], [], [], []
-    for f in range(n_frames):
-        cam = orbit_camera(phase + step * f, radius=radius, height=height)
-        cams = camera_arrays(cam, cfg_lr, dev)
-        img, gb = render_rows(scene, accel, cams, 0, cfg_lr.height, cfg_lr,
-                              want_gbuffer=True, frame=f)
-        lrs.append(img)
-        wps.append(gb["world_pos"])
-        hits.append(gb["hit"])
-        cams_list.append(cams)
-        cleans.append(render_rows(scene, accel,
-                                  camera_arrays(cam, cfg_hr, dev), 0,
-                                  cfg_hr.height, cfg_hr, frame=1000 + f))
+    try:
+        for f in range(n_frames):
+            cam = orbit_camera(phase + step * f, radius=radius,
+                               height=height)
+            cams = camera_arrays(cam, cfg_lr, dev)
+            img, gb = RENDER_PROGRAMS(("render_gb", cfg_lr), render_gb,
+                                      (cams, f), dev)
+            lrs.append(img)
+            wps.append(gb["world_pos"])
+            hits.append(gb["hit"])
+            cams_list.append(cams)
+            cleans.append(RENDER_PROGRAMS(
+                ("render_clean", cfg_hr), render_clean,
+                (camera_arrays(cam, cfg_hr, dev), 1000 + f), dev))
+    finally:
+        RENDER_PROGRAMS.clear()
     return (torch.stack(lrs), torch.stack(wps), torch.stack(hits),
             cams_list, torch.stack(cleans))
 
@@ -227,13 +254,14 @@ def recurrent_finetune(net, opt, seqs, steps: int,
                        log_every: int = 20) -> list:
     """Fine-tune on full sequences run RECURRENTLY (recurrent_loss), one
     update per sequence per step — the exact inference condition of
-    FrameLoop's temporal mode.  Returns every update's loss."""
+    FrameLoop's temporal mode.  On the card the update is one captured
+    program per sequence shape (upscaler.update; sequences of equal
+    shapes are copied into its inputs).  Returns every update's loss."""
     t0 = time.time()
     losses = []
     for step in range(steps):
         for seq in seqs:
-            losses.append(upscaler.update(
-                opt, lambda: recurrent_loss(net, *seq)))
+            losses.append(upscaler.update(net, opt, recurrent_loss, seq))
         if step % log_every == 0 or step == steps - 1:
             print(f"recurrent step {step}: loss {float(losses[-1]):.5f} "
                   f"({time.time() - t0:.0f}s)", flush=True)

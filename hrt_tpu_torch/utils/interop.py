@@ -7,7 +7,8 @@ package's SceneData (its light tree's fields likewise, each level a
 list), from its Accel's tree fields plus `attr`, `flat.nodes` and `w8`,
 or from the fields of its TwoLevelFlat — so one structure can be fed to
 both packages.  The learned upscalers' weights
-come over the same way (`upscaler_from_numpy`).
+come over the same way (`upscaler_from_numpy`), and so does the state of
+their optimizer in the middle of training (`adam_from_numpy`).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 from ..models.scene import SceneData
-from ..models.upscaler import TemporalUpscalerNet, UpscalerNet
+from ..models.upscaler import TemporalUpscalerNet, UpscalerNet, adam
 from ..ops import tlas, traversal_skip, wide8
 from ..ops.lightbvh import LightTree
 from ..ops.lbvh import Accel, make_accel, tri_table
@@ -145,3 +146,30 @@ def upscaler_to_numpy(net) -> dict:
             2, 3, 1, 0).cpu().numpy().copy()
         out[f"{name}/bias"] = conv.bias.detach().cpu().numpy().copy()
     return out
+
+
+def adam_from_numpy(d: dict, net, lr: float):
+    """The port's Adam (models/upscaler.Adam) for `net` in the state of
+    optax's `adam`: `d` holds its step `count` and its moments under the
+    flax names, `mu/Conv_i/kernel` (HWIO), `mu/Conv_i/bias` and the same
+    under `nu/` — as `{"count": np.asarray(s.count), **{f"{m}/{k}/{f}":
+    np.asarray(getattr(s, m)["params"][k][f]) for m in ("mu", "nu") for k
+    in s.mu["params"] for f in ("kernel", "bias")}}` gives them from
+    JAX's `TrainState.opt_state[0]`.  The moments and count go to the
+    parameters' device; the gradients are zero."""
+    opt = adam(net, lr)
+    with torch.no_grad():
+        for name, conv in net.named_children():
+            for f, p in (("kernel", conv.weight), ("bias", conv.bias)):
+                i = next(j for j, q in enumerate(opt.params) if q is p)
+                for m in ("mu", "nu"):
+                    a = torch.as_tensor(np.array(d[f"{m}/{name}/{f}"],
+                                                 np.float32))
+                    if f == "kernel":
+                        a = a.permute(3, 2, 0, 1)
+                    if a.shape != p.shape:
+                        raise ValueError(f"{m}/{name}/{f}: {tuple(a.shape)} "
+                                         f"does not fit {tuple(p.shape)}")
+                    getattr(opt, m)[i].copy_(a)
+        opt.count.fill_(int(np.asarray(d["count"])))
+    return opt

@@ -1545,3 +1545,135 @@ def test_refit_that_k4_cannot_walk_raises(cuda, monkeypatch):
                           new.normal_matrix, programs=graphs.Programs(1))
     torch.cuda.synchronize()
     assert _tables_equal(tl, before)
+
+
+# ---- training programs (graphs.Programs with grad) --------------------
+
+def _train_state(opt) -> list:
+    """Every tensor a training step writes."""
+    return [*opt.params, *opt.grads, *opt.mu, *opt.nu, opt.count]
+
+
+def _state_diff(a, b) -> float:
+    return max(float((x.detach().float() - y.detach().float()).abs().max())
+               for x, y in zip(_train_state(a), _train_state(b)))
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal", "recurrent",
+                                  "spatial/deterministic",
+                                  "temporal/deterministic"])
+def test_train_step_graph_against_op_by_op(cuda, monkeypatch, kind):
+    """3 steps replayed from the step's graph (the first the warm-up and
+    the capture) against the same steps op by op from the same net and
+    optimizer state, three times: where op by op repeats itself bit for
+    bit the graph's state equals it bit for bit, else its largest
+    difference to them stays within 4x of the largest between two of
+    them (cuDNN's weight gradients and K6's backward add with atomics).
+    With cuDNN's deterministic algorithms (no K6) op by op must repeat
+    itself, and so the graph equal it.  One capture; the recurrent
+    update (4 frames) launches 3 K6 backwards a step, replayed or
+    not."""
+    from hrt_tpu_torch import graphs, train_upscaler
+    from hrt_tpu_torch.models import upscaler
+    from hrt_tpu_torch.ops import warp_kernel
+
+    kind, _, deterministic = kind.partition("/")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic",
+                        bool(deterministic))
+    rs = np.random.RandomState(31)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    if kind == "recurrent":
+        seqs = [train_upscaler.render_sequence(4, size=(64, 64), clean_spp=2,
+                                               scene_kind=k, device=cuda)
+                for k in ("bench", "cornell")]
+        make = lambda: upscaler.create_temporal(seed=5, lr=2e-3, device=cuda)
+        step = lambda net, opt, i: upscaler.update(
+            net, opt, train_upscaler.recurrent_loss, seqs[i % 2])
+    else:
+        temporal = kind == "temporal"
+        batches = []
+        for _ in range(3):
+            hr = rs.uniform(0, 2, (8, 64, 64, 3)).astype(np.float32)
+            hist = np.concatenate([hr, rs.rand(8, 64, 64, 1) < 0.7],
+                                  -1).astype(np.float32)
+            batches.append((upscaler.downsample2(t(hr)),
+                            *((t(hist),) if temporal else ()), t(hr)))
+        fn = upscaler.train_step_temporal if temporal else \
+            upscaler.train_step
+        make = (upscaler.create_temporal if temporal else upscaler.create)
+        make = (lambda m=make: m(seed=5, lr=2e-3, device=cuda))
+        step = lambda net, opt, i: fn(net, opt, *batches[i])
+    sides = [make() for _ in range(4)]
+    caps = upscaler.TRAIN_PROGRAMS.captures
+    before = warp_kernel.LAUNCHES["warp_bilinear_backward"]
+    for i in range(3):
+        step(*sides[0], i)
+        with graphs.disable():
+            for side in sides[1:]:
+                step(*side, i)
+    torch.cuda.synchronize()
+    assert upscaler.TRAIN_PROGRAMS.captures == caps + 1
+    assert upscaler.TRAIN_PROGRAMS.last.graph.nodes > 0
+    assert warp_kernel.LAUNCHES["warp_bilinear_backward"] - before == \
+        (36 if kind == "recurrent" else 0)
+    eager = [opt for _, opt in sides[1:]]
+    self_diff = max(_state_diff(a, b) for i, a in enumerate(eager)
+                    for b in eager[i + 1:])
+    graph_diff = max(_state_diff(sides[0][1], e) for e in eager)
+    assert self_diff == 0 or not deterministic, self_diff
+    if self_diff == 0:
+        assert all(_bits_equal(a.float(), b.float()) for a, b in zip(
+            _train_state(sides[0][1]), _train_state(sides[1][1])))
+    else:
+        assert graph_diff <= 4 * self_diff, (graph_diff, self_diff)
+    assert int(sides[0][1].count) == 3
+
+
+def test_frame_graph_between_training_replays(cuda):
+    """A post frame loop's graph replayed between the replays of a
+    spatial step's graph leaves every training tensor as it was (none
+    lives in the pool the graphs share), and the steps go on replaying:
+    one capture each."""
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models import upscaler
+
+    net, opt = upscaler.create(seed=2, lr=2e-3, device=cuda)
+    hr = torch.rand((8, 64, 64, 3), generator=torch.Generator().manual_seed(
+        3)).to(cuda)
+    lr = upscaler.downsample2(hr)
+    loop = FrameLoop(bench_scene(), RenderConfig(
+        width=64, height=48, max_depth=1, sky=True, denoise=True, upscale=2,
+        upscale_mode="temporal"), device=cuda)
+    loop.step(_post_cam(0))
+    caps = upscaler.TRAIN_PROGRAMS.captures
+    losses = []
+    for i in range(3):
+        losses.append(float(upscaler.train_step(net, opt, lr, hr)))
+        torch.cuda.synchronize()
+        kept = [x.clone() for x in _train_state(opt)]
+        loop.step(_post_cam(i + 1))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(_train_state(opt),
+                                                     kept)), i
+    assert upscaler.TRAIN_PROGRAMS.captures == caps + 1
+    assert loop.captures == 1 and losses[2] < losses[0]
+
+
+def test_trainer_render_programs_bit_equal_to_op_by_op(cuda):
+    """render_sequence's G-buffer and clean renders replayed from their
+    graphs (two captures) against the same renders op by op, bit for
+    bit."""
+    from hrt_tpu_torch import graphs, train_upscaler
+
+    progs = train_upscaler.RENDER_PROGRAMS
+    caps = progs.captures
+    got = train_upscaler.render_sequence(3, size=(64, 64), clean_spp=2,
+                                         device=cuda)
+    assert progs.captures == caps + 2
+    with graphs.disable():
+        want = train_upscaler.render_sequence(3, size=(64, 64), clean_spp=2,
+                                              device=cuda)
+    assert progs.captures == caps + 2
+    for i in (0, 1, 4):
+        assert _bits_equal(got[i], want[i]), i
+    assert torch.equal(got[2], want[2])

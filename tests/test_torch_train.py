@@ -275,9 +275,10 @@ def test_init_matches_flax(jax_nets, temporal):
     got = upscaler_to_numpy(net)
     assert {k: v.shape for k, v in got.items()} == \
         {k: v.shape for k, v in ref.items()}
-    assert isinstance(opt, torch.optim.Adam)
-    assert opt.defaults["betas"] == (0.9, 0.999) and opt.defaults["eps"] \
-        == 1e-8 and opt.defaults["lr"] == 1e-3
+    assert isinstance(opt, upscaler.Adam)
+    assert opt.betas == (0.9, 0.999) and opt.eps == 1e-8 and opt.lr == 1e-3
+    assert int(opt.count) == 0 and not any(m.any() for m in opt.mu + opt.nu)
+    assert all(p.grad is g for p, g in zip(net.parameters(), opt.grads))
     for k in ref:
         if k.endswith("bias"):
             assert not got[k].any()
