@@ -3579,6 +3579,313 @@ def train_graph_phase(sm: Smoke, dev, data: dict) -> dict:
     return out
 
 
+def parallel_graph_phase(sm: Smoke, dev) -> dict:
+    """Phase 50: the programs over a process group (FrameLoop(mesh).step,
+    tiles.render_frame_tiled, scene_shard.closest_hit_sharded, the
+    data-parallel steps) over a one-rank NCCL group, and the stacked
+    two-level trace, replayed from their graphs against the same bodies
+    op by op (graphs.disable()), in turns: bit for bit, the launches of a
+    replay equal to op by op's; the steps bit for bit under cuDNN's
+    deterministic algorithms.  Wall and device ms, capture ms, nodes,
+    peak bytes.  Also the stacked trace's K3 visits from the counting
+    build, its bound and its K3 kernel ms.  Returns the records."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from hrt_tpu_torch import graphs, renderer
+    from hrt_tpu_torch.config import RenderConfig
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.models import upscaler
+    from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.models.scene import bench_scene
+    from hrt_tpu_torch.ops import intersect, lbvh, traversal, twolevel
+    from hrt_tpu_torch.ops import traversal_skip as k3
+    from hrt_tpu_torch.parallel import scene_shard, tiles
+    from hrt_tpu_torch.utils.profiling import (device_op_totals, op_label,
+                                               profile_calls)
+
+    phase("phase 50: the programs over a one-rank NCCL group and the "
+          "stacked two-level trace vs the same bodies op by op "
+          "(graphs.disable()), in turns: the 1080p post loop, the 1080p "
+          "tiled G-buffer frame, the 512x384 stacked trace, the sharded "
+          "closest hit at 1080p, the data-parallel steps")
+    mesh = tiles.make_mesh(1)
+    group = mesh.get_group()
+    sm.check(dist.get_backend(group) == "nccl"
+             and graphs.Programs(1).enabled(dev, group),
+             f"one-rank {dist.get_backend(group)} group; a capture holds it")
+    out = {}
+    clock = [time.perf_counter()]
+    med = lambda xs: statistics.median(xs) if xs else float("nan")
+
+    def report(name: str, res: dict, prog, dev_ms: tuple, captures: int):
+        g = prog.last.graph
+        rec = {"wall_eager_ms": med(res["eager"]),
+               "wall_graph_ms": med(res["graph"]),
+               "device_eager_ms": dev_ms[0], "device_graph_ms": dev_ms[1],
+               "capture_ms": g.capture_ms, "nodes": g.nodes,
+               "first_graph_call_ms": res["first_graph_ms"],
+               "peak_eager_bytes": res["peak_eager"],
+               "peak_graph_bytes": res["peak_graph"], "captures": captures}
+        out[name] = rec
+        print(f"  {name}: wall ms eager {rec['wall_eager_ms']:.4f} graph "
+              f"{rec['wall_graph_ms']:.4f} (turns: eager "
+              f"{[round(x, 4) for x in res['eager']]}, graph "
+              f"{[round(x, 4) for x in res['graph']]}); device ms eager "
+              f"{dev_ms[0]:.4f} graph {dev_ms[1]:.4f}; capture "
+              f"{g.capture_ms:.1f} ms, {g.nodes} nodes, first captured call "
+              f"{res['first_graph_ms']:.1f} ms; peak bytes eager "
+              f"{res['peak_eager']} graph {res['peak_graph']}; {captures} "
+              f"capture(s); {time.perf_counter() - clock[0]:.1f} s",
+              flush=True)
+        sm.check(captures == 1, f"{name}: {captures} capture(s)")
+        clock[0] = time.perf_counter()
+
+    def device_ms(eager_fn, graph_fn, calls: int = 1):
+        with graphs.disable():
+            e = profiled_device_ms(eager_fn, calls)
+        return e, profiled_device_ms(graph_fn, calls)
+
+    # The 1080p post loop over the mesh (phase 41's config), and the
+    # one-device captured loop's device ms beside it.
+    post = RenderConfig(width=1920, height=1080, max_depth=1, sky=True,
+                        denoise=True, upscale=2, upscale_mode="temporal")
+    loops = {side: FrameLoop(bench_scene(), post, mesh=mesh)
+             for side in ("eager", "graph")}
+
+    def step(i, eager):
+        lp = loops["eager" if eager else "graph"]
+        return lp.step(post_cam(i)), loop_state(lp)
+
+    res = graph_turns(sm, "FrameLoop(mesh) 1080p post", step, 4)
+    dev_ms = device_ms(lambda: loops["eager"].step(post_cam(4)),
+                       lambda: loops["graph"].step(post_cam(4)))
+    gl = loops["graph"]
+    report("mesh_post_1080p", res, gl.program, dev_ms, gl.captures)
+    one = FrameLoop(bench_scene(), post, device=dev)
+    rec = out["mesh_post_1080p"]
+    rec["device_one_device_graph_ms"] = profiled_device_ms(
+        lambda: one.step(post_cam(4)))
+    rec["one_device_nodes"] = one.program.last.graph.nodes
+    print(f"  the one-device loop's captured frame: "
+          f"{rec['device_one_device_graph_ms']:.4f} device ms, "
+          f"{rec['one_device_nodes']} nodes", flush=True)
+    del loops, gl, one
+
+    def one_device_nodes(name: str, body, args) -> None:
+        """The node count of the same body without its collectives,
+        captured on its own."""
+        progs = graphs.Programs(1)
+        progs(name, body, args, dev)
+        out[name]["one_device_nodes"] = progs.last.graph.nodes
+        print(f"  {name}: the same body on one device, no gather: "
+              f"{progs.last.graph.nodes} nodes", flush=True)
+
+    # The 1080p tiled frame with its G-buffer.
+    scene = bench_scene().build(dev)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cfg = RenderConfig(width=1920, height=1080, max_depth=1, sky=True)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, dev)
+
+    def tiled(i=0, eager=False):
+        img, gb = tiles.render_frame_tiled(scene, accel, cams, i, cfg, mesh,
+                                           want_gbuffer=True)
+        return img, [gb[k] for k in sorted(gb)]
+
+    progs = tiles.TILED_PROGRAMS
+    caps = progs.captures
+    res = graph_turns(sm, "tiled 1080p G-buffer frame", tiled, 4)
+    dev_ms = device_ms(tiled, tiled)
+    report("tiled_gbuffer_1080p", res, progs, dev_ms,
+           progs.captures - caps)
+    one_device_nodes("tiled_gbuffer_1080p", lambda c, f: renderer.render_rows(
+        scene, accel, c, 0, cfg.height, cfg, want_gbuffer=True, frame=f),
+        (cams, 0))
+
+    # The sharded closest hit at 1080p primary rays: one shard, the bench
+    # soup's LBVH, which the whole soup's LBVH walk must equal.
+    soup = bench_scene().build(dev, pad=128)
+    sharded, accs = scene_shard.build_sharded_accel(soup, 1, leaf_size=32)
+    o, d = renderer.primary_rays(cams, 1080, 0, cfg)
+    o3, d3 = o.to_array(), d.to_array()
+
+    def shard(i=0, eager=False):
+        t, *rest = scene_shard.closest_hit_sharded(sharded, accs, o3, d3,
+                                                   mesh, leaf_size=32)
+        return t, rest
+
+    progs = scene_shard.SHARD_PROGRAMS
+    caps = progs.captures
+    res = graph_turns(sm, "closest_hit_sharded (1080p primary rays)", shard,
+                      4)
+    dev_ms = device_ms(shard, shard, calls=4)
+    report("sharded_1080p", res, progs, dev_ms, progs.captures - caps)
+    one_device_nodes("sharded_1080p", lambda o, d: scene_shard.combine_hits(
+        *(h[None] for h in scene_shard.shard_closest_hit(
+            accs[0], o, d, 0, sharded.tri_v0.shape[1]))), (o3, d3))
+    t, rest = shard()
+    whole = traversal.closest_hit_bvh_p(None, lbvh.build_bvh(soup, 32), o, d,
+                                        1e-3, 1e32)
+    sm.check(same_bits((t, *rest), tuple(whole)),
+             f"closest_hit_sharded over one shard bit-equal to the whole "
+             f"soup's LBVH walk ({float((rest[0] >= 0).float().mean()):.3f}"
+             " hit)")
+
+    # The stacked two-level trace at 512x384: captured against op by op
+    # and against its plain walk, its K3 visits and bound.
+    w, h = PT_SMALL
+    bench_obj = bench_scene()
+    tl = twolevel.build_two_level(bench_obj, 8, device=dev)
+    s_cfg = RenderConfig(width=w, height=h)
+    so, sd = renderer.primary_rays(renderer.camera_arrays(
+        Camera(**BENCH_CAM), s_cfg, dev), h, 0, s_cfg)
+    so, sd = so.to_array(), sd.to_array()
+
+    def trace(i=0, eager=False):
+        t, *rest = twolevel.trace_two_level(tl, so, sd)
+        return t, rest
+
+    progs = twolevel.TRACE_PROGRAMS
+    caps = progs.captures
+    res = graph_turns(sm, "trace_two_level (512x384 primary rays)", trace, 4)
+    dev_ms = device_ms(trace, trace, calls=4)
+    report("stacked_trace_512x384", res, progs, dev_ms,
+           progs.captures - caps)
+    kt, (ki, ktri, ku, kv) = trace()
+    pt, pi, ptri, pu, pv = twolevel.trace_two_level(tl, so, sd, plain=True)
+    same = (ki == pi) & (ktri == ptri)
+    agree = float(same.float().mean())
+    hit = same & (pi >= 0)
+    t_err = float((kt - pt)[hit].abs().max())
+    sm.check(agree >= 0.99999 and t_err <= 1e-4,
+             f"captured stacked trace vs its plain walk on {so.shape[0]} "
+             f"rays: ids agree on {agree:.6f}, {float(hit.float().mean()):.3f}"
+             f" hit, max t err {t_err:.3g}")
+    n_inst = len(bench_obj.instances)
+    # K3's counting build, launch by launch (the debug builds run op by
+    # op): visits, the bytes each launch's rays must move, the bound.
+    counts, moved = [], []
+    orig_keep, orig_kernel = k3._keep_counts, k3.trace_kernel
+
+    def keep(c):
+        counts.append(c)
+        orig_keep(c)
+
+    def kernel(acc, *args):
+        # Rays and hits, and the BLAS's tables read once.
+        moved.append(walk_bytes(args[:7], 16) + nbytes(acc.skip_rec,
+                                                       acc.tris))
+        return orig_kernel(acc, *args)
+
+    k3._keep_counts, k3.trace_kernel = keep, kernel
+    intersect.DEBUG_COUNTERS = True
+    try:
+        ct = twolevel.trace_two_level(tl, so, sd)
+    finally:
+        intersect.DEBUG_COUNTERS = False
+        k3._keep_counts, k3.trace_kernel = orig_keep, orig_kernel
+    torch.cuda.synchronize()
+    tot = {c: sum(int(x[c].sum()) for x in counts) for c in k3.COUNTS}
+    ops = tot["nodes"] * K3_OPS_PER_NODE + tot["tests"] * K3_OPS_PER_TEST
+    b_ms, b_by = bound(sum(moved), ops)
+    sm.check(len(counts) == n_inst and same_bits(tuple(ct), (kt, ki, ktri,
+                                                             ku, kv)),
+             f"stacked trace's counting build: {len(counts)} K3 launches, "
+             "hits bit-equal to the normal build's")
+    prof, _ = profile_calls(trace, calls=4)
+    _, ops_ms = device_op_totals(prof)
+    k3_ms = sum(ms for name, (ms, _) in ops_ms.items()
+                if op_label(name).startswith("hrt_skip_trace")) / 4
+    plain_ms = time_ms(lambda: twolevel.trace_two_level(tl, so, sd,
+                                                        plain=True), reps=3)
+    out["stacked_trace_k3"] = {
+        "launches": n_inst, "kernel_ms": k3_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "ops": ops, "bytes": sum(moved),
+        "plain_ms": plain_ms, **tot}
+    live = so.shape[0]
+    print(f"  stacked trace's K3 ({n_inst} launches over {live} rays, each "
+          f"instance's live rays): nodes {tot['nodes']} "
+          f"({tot['nodes'] / live:.2f} a ray), leaves {tot['leaves']}, triangle tests {tot['tests']} "
+          f"({tot['tests'] / live:.2f} a ray); {ops:.4e} operations, "
+          f"{sum(moved)} bytes of rays, hits and tables; bound {b_ms:.6f} ms "
+          f"({b_by}); K3's kernel ms a trace {k3_ms:.4f} (profiler, mean of "
+          f"4), the trace's device ms "
+          f"{out['stacked_trace_512x384']['device_graph_ms']:.4f}; "
+          f"plain {plain_ms:.4f} ms (CUDA events, median of 3)", flush=True)
+
+    # The data-parallel steps over the group: captured against op by op
+    # in turns (CUDA events, median of 7) and device ms; then three steps
+    # from equal nets, the graph and two op-by-op sides, bit for bit with
+    # cuDNN's deterministic algorithms.
+    gen = torch.Generator().manual_seed(50)
+    rand = lambda *s: torch.rand(s, generator=gen).to(dev)
+    batches = {
+        "spatial": [(rand(8, 32, 32, 3), rand(8, 64, 64, 3))
+                    for _ in range(3)],
+        "temporal": [(rand(8, 64, 64, 3), rand(8, 128, 128, 4),
+                      rand(8, 128, 128, 3)) for _ in range(3)]}
+    make = {"spatial": upscaler.create, "temporal": upscaler.create_temporal}
+    fns = {"spatial": upscaler.train_step,
+           "temporal": upscaler.train_step_temporal}
+    progs = upscaler.TRAIN_PROGRAMS
+    for kind in ("spatial", "temporal"):
+        net, opt = make[kind](seed=7, lr=2e-3, device=dev)
+        fn = lambda: fns[kind](net, opt, *batches[kind][0], group=group)
+
+        def eager(fn=fn):
+            with graphs.disable():
+                return fn()
+
+        caps = progs.captures
+        e, g = in_turns(eager, fn)
+        dev_e = profiled_device_ms(eager, calls=4)
+        dev_g = profiled_device_ms(fn, calls=4)
+        prog = progs.last
+        rec = {"eager_ms": e, "graph_ms": g, "device_eager_ms": dev_e,
+               "device_graph_ms": dev_g, "capture_ms": prog.graph.capture_ms,
+               "nodes": prog.graph.nodes, "captures": progs.captures - caps}
+        # The same step without a group, captured: its node count.
+        fns[kind](*make[kind](seed=7, lr=2e-3, device=dev),
+                  *batches[kind][0])
+        rec["one_device_nodes"] = progs.last.graph.nodes
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            sides = {s: make[kind](seed=7, lr=2e-3, device=dev)
+                     for s in ("graph", "eager0", "eager1")}
+            for i, b in enumerate(batches[kind]):
+                for s, (n_, o_) in sides.items():
+                    _, ms, launches, peak = measured(
+                        lambda: fns[kind](n_, o_, *b, group=group),
+                        eager=s != "graph")
+                    if i == 0:
+                        rec[f"peak_{s}_bytes"] = peak
+        finally:
+            torch.backends.cudnn.deterministic = det
+        torch.cuda.synchronize()
+        st = lambda o_: [*o_.params, *o_.grads, *o_.mu, *o_.nu, o_.count]
+        equal = all(same_bits(tuple(st(sides["graph"][1])),
+                              tuple(st(sides[s][1])))
+                    for s in ("eager0", "eager1"))
+        out[f"dp_{kind}_step"] = rec
+        sm.check(rec["captures"] == 1 and equal,
+                 f"data-parallel {kind} step over the NCCL group: "
+                 f"{rec['captures']} capture; ms a step op by op "
+                 f"{e[0]:.4f}, {e[1]:.4f}, captured {g[0]:.4f}, {g[1]:.4f} "
+                 f"(CUDA events, median of 7, in turns); device ms op by op "
+                 f"{dev_e:.4f}, captured {dev_g:.4f} (profiler, mean of 4); "
+                 f"capture {rec['capture_ms']:.1f} ms, {rec['nodes']} nodes "
+                 f"({rec['one_device_nodes']} without the group); "
+                 f"peak bytes captured {rec['peak_graph_bytes']} (op by op "
+                 f"{rec['peak_eager0_bytes']}); 3 steps with cuDNN "
+                 f"deterministic: the graph's state bit-equal to two "
+                 f"op-by-op sides: {equal}")
+    dist.destroy_process_group()
+    return out
+
+
 def gather_ms(group, tensors) -> float:
     """CUDA-event time of all-gathering `tensors` along rows over
     `group` (10 gathers per sample)."""
@@ -3826,6 +4133,12 @@ def gloo_worker(rank: int, out_dir: str) -> None:
     res["loss_rel"], res["grad_rel"] = max(losses), max(grads)
     res["param_rel"] = max(rel(p, q) for p, q in zip(net.parameters(),
                                                      ref.parameters()))
+    # Gloo stages its collectives through the host: nothing over the
+    # group may have been captured (the reference step, with no group,
+    # is; a program's key holds its group's signature second).
+    res["captures"] = [
+        tiles.TILED_PROGRAMS.captures, scene_shard.SHARD_PROGRAMS.captures,
+        sum(k[1] is not None for k in upscaler.TRAIN_PROGRAMS._cache)]
     dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -3892,6 +4205,10 @@ def gloo_phase(sm: Smoke) -> None:
                      f"gradients rel {res['grad_rel']:.3g} (of each "
                      f"tensor's largest), parameters rel "
                      f"{res['param_rel']:.3g}")
+            sm.check(res["captures"] == [0, 0, 0],
+                     f"rank {r}: nothing captured over gloo (tiled frame "
+                     f"and sharded hits captures, data-parallel step "
+                     f"programs: {res['captures']})")
             print(f"  rank {r}: gloo all-gather of a 192-row band of CUDA "
                   f"tensors (host clock): {res['gather_ms']:.4f} ms",
                   flush=True)
@@ -5699,6 +6016,7 @@ def main() -> int:
                  for f in range(9)], g_cfg)
     train_graph_phase(sm, dev, trained)
     del trained
+    parallel_graph_phase(sm, dev)
     end_phase()
 
     # Bounds of the walks: the bytes walk_bytes counts (hits out: t, tri,

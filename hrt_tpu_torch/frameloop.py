@@ -26,7 +26,10 @@ With a `mesh` (parallel/tiles.make_mesh) the loop is one rank of a
 multi-GPU render: its scene and accel are replicated from rank 0, each
 step traces this rank's row band and gathers the frame
 (parallel/tiles.frame_program_tiled), and the post stages run on the
-whole frame on every rank.
+whole frame on every rank.  Over NCCL that step replays the loop's
+captured program as a one-device step does, the all-gathers inside the
+graph and the mesh in its key; over gloo, which stages its collectives
+through the host, it runs op by op.
 """
 from __future__ import annotations
 
@@ -293,32 +296,34 @@ class FrameLoop:
         from the loop's build program (the first one replaces the SAH
         accel, and the next step captures again).  `plain=True` renders
         and post-processes it op by op with the plain versions of the
-        kernels, on the loop's device (a reference loop on the card); a
-        loop over a `mesh` runs the tiled frame op by op."""
+        kernels, on the loop's device (a reference loop on the card).  A
+        loop over a `mesh` replays frame_program_tiled the same way, its
+        band's all-gathers inside the graph, over NCCL; over gloo it runs
+        op by op (graphs.py)."""
         cfg = self.config
         cams = camera_arrays(camera, cfg, self.device)
         if self.prev_cams is None:
             self.prev_cams = cams
         self._maybe_cull(cams, plain)
-        if self.mesh is None:
-            scene, accel, net = self.scene, self.accel, self.net
+        scene, accel, net, mesh = self.scene, self.accel, self.net, self.mesh
 
-            def body(cams, prev_cams, dn_state, accum, up_history, frame):
+        def body(cams, prev_cams, dn_state, accum, up_history, frame):
+            if mesh is None:
                 return frame_program(scene, accel, cams, prev_cams,
                                      dn_state, accum, frame, cfg, net=net,
                                      up_history=up_history, plain=plain)
+            return tiles.frame_program_tiled(
+                scene, accel, cams, prev_cams, dn_state, accum, frame, cfg,
+                mesh, net=net, up_history=up_history, plain=plain)
 
-            key = ("frame_program", cfg, graphs.signature(scene),
-                   graphs.signature(accel), graphs.signature(net))
-            out = self.program(
-                key, body, (cams, self.prev_cams, self.dn_state, self.accum,
-                            self.up_history, self.frame),
-                self.device, eager=plain)
-        else:
-            out = tiles.frame_program_tiled(
-                self.scene, self.accel, cams, self.prev_cams, self.dn_state,
-                self.accum, self.frame, cfg, self.mesh, net=self.net,
-                up_history=self.up_history, plain=plain)
+        key = ("frame_program", cfg, graphs.signature(scene),
+               graphs.signature(accel), graphs.signature(net),
+               graphs.signature(mesh))
+        out = self.program(
+            key, body, (cams, self.prev_cams, self.dn_state, self.accum,
+                        self.up_history, self.frame),
+            self.device, group=None if mesh is None else mesh.get_group(),
+            eager=plain)
         img, self.dn_state, self.accum, self.up_history = out
         self.prev_cams = cams
         self.frame += 1

@@ -57,16 +57,42 @@ jitted `refit_two_level`) and the culling LBVH rebuild (ops/lbvh.py
 accel's own tensors in place, so the frame programs captured over it
 read the new tables and are not captured again.
 
+A body over a process group (the tiled frame and the sharded closest
+hit gather across ranks, a data-parallel step all-reduces its
+gradients) passes the group to the runner, which keys it by the group's
+`signature` (backend, world size, this rank, the group's name and which
+group object it is) and captures it only where the capture class can
+hold the group's backend (`CudaGraph.backends`: NCCL, whose kernels a
+CUDA graph records like any other).  Gloo stages its collectives
+through the host, which no CUDA graph can hold, so a body over a gloo
+group runs op by op, on CUDA tensors too; that is what gloo is, not a
+fallback.  Over NCCL:
+- The communicator must exist before the capture: NCCL makes a group's
+  communicator at its first collective, which is not capturable.  The
+  warm-up makes it (its collectives run op by op), and the port's
+  collectives (parallel/tiles.gather_rows, models/upscaler._average)
+  call `collective` first, which records the group op by op and raises
+  inside a capture when none was recorded: such a capture fails at once
+  and never hangs.
+- Ranks are bound: every rank captures at the same call of the same
+  key.  The warm-up executes its collectives and the capture executes
+  none, so a rank that captured alone would leave the others waiting in
+  theirs.  So what changes a key changes on every rank at once: the
+  config, the shapes, a culling rebuild over replicated data, the
+  least-recently-used drops of a cache that sees the same calls.
+- `capture_error_mode="thread_local"`: NCCL's watchdog thread queries
+  CUDA events while a capture is open, which the global mode would
+  fail.
+
 A frame or a step runs op by op (the body called directly, under
 no_grad, which a training body overrides) on CPU tensors, inside
 `disable()` (the counterpart of `jax.disable_jit()`, which the checks
 use to hold a graph against the same body op by op, and the way to run
 a plain reference step), under the walks' debug builds
 (`HRT_KERNEL_GUARDS`, `HRT_DEBUG_COUNTERS`: they keep host state per
-launch), and where the caller says so: `plain=True` (the plain versions
-of the kernels on the card) and a loop or a step over a process group
-(the tiled frame gathers its bands across ranks, a data-parallel step
-all-reduces its gradients).  Nothing else runs op by op.
+launch), over a group whose backend the capture cannot hold (gloo), and
+where the caller says so: `plain=True` (the plain versions of the
+kernels on the card).  Nothing else runs op by op.
 
 `constant` holds the small host constants that the frame's code puts on
 the device (a copy from pageable host memory cannot be captured).
@@ -83,12 +109,19 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils import _pytree as pytree
 
 _disabled = 0
+_capturing = 0
 _constants: dict = {}
 _pools: dict = {}
+# id(group) -> (group, serial): the group is held, so its id is never
+# another group's while this process runs.
+_groups: dict = {}
+# (group signature, device) pairs whose communicator a collective made.
+_communicators: set = set()
 
 
 @contextlib.contextmanager
@@ -136,7 +169,11 @@ def signature(obj) -> Any:
     tensor's shape, dtype, device and address, through NamedTuples,
     dataclasses, tuples, lists and modules (their parameters and
     buffers); numbers, strings and None as they are; a numpy array (host
-    data, which no graph reads) by its shape and dtype."""
+    data, which no graph reads) by its shape and dtype; a process group
+    by its backend, world size, this rank, its name and a serial number
+    of the group object (a group made anew under the same name has a
+    new communicator); a DeviceMesh by its device type, dimension names,
+    ranks, this rank's coordinate and its group."""
     if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
     if isinstance(obj, torch.Tensor):
@@ -154,7 +191,34 @@ def signature(obj) -> Any:
             for f in dataclasses.fields(obj))
     if isinstance(obj, (tuple, list)):
         return (type(obj).__name__,) + tuple(signature(v) for v in obj)
+    if isinstance(obj, dist.ProcessGroup):
+        entry = _groups.setdefault(id(obj), (obj, len(_groups)))
+        return ("ProcessGroup", str(dist.get_backend(obj)), obj.size(),
+                obj.rank(), obj.group_name, entry[1])
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if isinstance(obj, DeviceMesh):
+        return ("DeviceMesh", obj.device_type, obj.mesh_dim_names,
+                tuple(obj.mesh.flatten().tolist()), obj.get_local_rank(),
+                signature(obj.get_group()))
     raise TypeError(f"no capture signature for {type(obj).__name__}")
+
+
+def collective(group, device) -> None:
+    """Called by the port's collectives just before they run on `group`
+    for tensors on `device`.  Op by op it records that the group's
+    communicator exists there (NCCL makes it at the first collective);
+    inside a capture it raises RuntimeError when none was recorded, since
+    a communicator cannot be made inside a capture and the capture would
+    otherwise fail inside NCCL or wait on the other ranks."""
+    key = (signature(group), torch.device(device))
+    if not _capturing:
+        _communicators.add(key)
+    elif key not in _communicators:
+        raise RuntimeError(
+            f"a collective on {key[0]} in a capture, but no communicator "
+            "was made on this rank: run one op by op first (the "
+            "program's warm-up does)")
 
 
 def _node_count(graph: torch.cuda.CUDAGraph) -> int:
@@ -186,6 +250,8 @@ class CudaGraph:
     count."""
 
     device_type = "cuda"
+    # The process groups whose collectives a graph can hold.
+    backends = frozenset({"nccl"})
 
     def __init__(self, body: Callable, args, device: torch.device):
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -232,6 +298,7 @@ class Program:
 
     def __init__(self, body: Callable, flat: list, spec, device,
                  capture=CudaGraph):
+        global _capturing
         self.static = [None if x is None else _as_tensor(x, device).clone()
                        for x in flat]
         args = pytree.tree_unflatten(self.static, spec)
@@ -239,10 +306,12 @@ class Program:
             self.first = pytree.tree_map(_fresh, body(*args))
         counters = launch_counters()
         before = [dict(c) for c in counters]
+        _capturing += 1
         try:
             with torch.no_grad():
                 self.graph = capture(body, args, device)
         finally:
+            _capturing -= 1
             self.launches = [{k: c[k] - b[k] for k in c}
                              for c, b in zip(counters, before)]
             for c, b in zip(counters, before):
@@ -305,7 +374,8 @@ class Programs:
     is the program of the last call through a graph (its `graph.
     capture_ms` and `graph.nodes`).  `capture` makes a capture
     (CudaGraph; the CPU tests pass a stand-in whose `device_type` is
-    "cpu")."""
+    "cpu", and whose `backends`, empty when it has none, name the
+    process groups it can hold)."""
 
     def __init__(self, size: int, capture=CudaGraph):
         self.size = size
@@ -320,27 +390,33 @@ class Programs:
         self._cache.clear()
         self.last = None
 
-    def enabled(self, device) -> bool:
-        """Whether a body on `device` goes through a graph: the capture's
-        device type, outside disable(), neither debug build on."""
+    def enabled(self, device, group=None) -> bool:
+        """Whether a body on `device`, over the process `group` or none,
+        goes through a graph: the capture's device type, outside
+        disable(), neither debug build on, and a group's backend one the
+        capture can hold."""
         return (torch.device(device).type == self.capture.device_type
-                and not _disabled and not _debug_builds())
+                and not _disabled and not _debug_builds()
+                and (group is None or str(dist.get_backend(group)) in getattr(
+                    self.capture, "backends", frozenset())))
 
-    def __call__(self, key, body: Callable, args, device,
+    def __call__(self, key, body: Callable, args, device, group=None,
                  eager: bool = False):
         """body(*args) -> a pytree of tensors: replayed from the graph of
         this key (captured at its first call, after an op-by-op warm-up
         whose result that call returns), or called op by op (see the
         module's docstring).  `args` is a tuple of tensors, ints (made
         0-d int64 tensors on `device`), None, and lists and NamedTuples
-        of them."""
+        of them.  `group`: the process group whose collectives the body
+        runs, part of the key."""
         device = torch.device(device)
         flat, spec = pytree.tree_flatten(args)
-        if eager or not self.enabled(device):
+        if eager or not self.enabled(device, group):
             with torch.no_grad():
                 return body(*pytree.tree_unflatten(
                     [_as_tensor(x, device) for x in flat], spec))
-        full = (key, repr(spec), tuple(_leaf_key(x) for x in flat))
+        full = (key, signature(group), repr(spec),
+                tuple(_leaf_key(x) for x in flat))
         prog = self._cache.get(full)
         if prog is not None:
             self._cache.move_to_end(full)

@@ -38,9 +38,12 @@ initialised as flax's `nn.Conv` is (lecun_normal kernels, zero biases),
 from a `torch.Generator` on the CPU, so a seed gives the same net on
 every device; `jax.random` cannot be reproduced, so parity tests pass
 JAX's parameters (and optax's state, utils/interop.adam_from_numpy)
-through utils/interop.  With a process `group` a step is data parallel,
-op by op: each rank takes the loss of its share of the batch and the
-gradients are averaged across the ranks before the update.
+through utils/interop.  With a process `group` a step is data parallel:
+each rank takes the loss of its share of the batch and the gradients
+are averaged across the ranks (one all-reduce) before the update; over
+NCCL that all-reduce is inside the step's graph, keyed by the group,
+and over gloo, which stages its collectives through the host, the step
+runs op by op.
 """
 from __future__ import annotations
 
@@ -372,12 +375,14 @@ def update(net: nn.Module, opt: Adam, loss_fn, batch: tuple,
     replayed from the graph captured for its loss function, net,
     optimizer state and batch shapes (TRAIN_PROGRAMS; the batch, a tuple
     of tensors, lists and NamedTuples of them, is copied into the
-    graph's inputs); it runs op by op on the CPU, in graphs.disable()
-    (where a plain reference step runs), and over a process `group`:
-    then the ranks' gradients and losses are averaged (one all-reduce)
-    before the update, so that every rank takes the same step.
-    `loss_fn` is part of the key: pass a module-level function, not one
-    made anew for each call."""
+    graph's inputs); it runs op by op on the CPU and in graphs.disable()
+    (where a plain reference step runs).  Over a process `group` the
+    ranks' gradients and losses are averaged (one all-reduce) before the
+    update, so that every rank takes the same step: inside the step's
+    graph over NCCL (the group is part of the key, and every rank
+    captures at the same step), op by op over gloo.  `loss_fn` is part
+    of the key: pass a module-level function, not one made anew for
+    each call."""
     opt.attach()
 
     def body(*batch):
@@ -394,13 +399,14 @@ def update(net: nn.Module, opt: Adam, loss_fn, batch: tuple,
 
     key = ("update", loss_fn, graphs.signature(net), graphs.signature(opt))
     return TRAIN_PROGRAMS(key, body, tuple(batch), opt.count.device,
-                          eager=group is not None)
+                          group=group)
 
 
 def _average(opt: Adam, loss: torch.Tensor, group) -> torch.Tensor:
     """Average the gradients and the loss over the ranks of `group`, the
     gradients in place; returns the mean loss."""
     flat = torch.cat([g.reshape(-1) for g in opt.grads] + [loss.reshape(1)])
+    graphs.collective(group, flat.device)
     dist.all_reduce(flat, group=group)
     flat /= dist.get_world_size(group)
     for g, a in zip(opt.grads,

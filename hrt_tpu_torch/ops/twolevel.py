@@ -15,6 +15,10 @@ is nearer replaces the best.  Moving an instance means replacing its
 rows (box and transforms); no BLAS is rebuilt.  No frame path uses this
 accel: the frame loop's instanced scenes take ops/tlas.py's unified
 tables.
+
+JAX's `trace_two_level` is a jit of a scan over the instances; here the
+trace replays a CUDA graph on the card (TRACE_PROGRAMS, graphs.py) in
+which the instance loop is unrolled: one K3 launch per instance.
 """
 from __future__ import annotations
 
@@ -23,13 +27,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..config import resolve_device
 from ..models.scene import PAD, Scene, SceneData
 from . import lbvh, traversal_skip
-from .intersect import INF, ray_aabb, safe_inv_dir, to_object_space
+from .intersect import (INF, ray_aabb, ray_t_max, safe_inv_dir,
+                        to_object_space)
 from .math3d import normalize
 
 _ATTRS = ("nrm0", "nrm1", "nrm2", "uv0", "uv1", "uv2")
+# trace_two_level's captured programs.
+TRACE_PROGRAMS = graphs.Programs(4)
 
 
 class TwoLevelAccel(NamedTuple):
@@ -40,7 +48,8 @@ class TwoLevelAccel(NamedTuple):
     `blas` one LBVH Accel per mesh over its t_pad object-space
     triangles; nrm0..uv2 (M, t_pad, 3 or 2) each mesh's shading
     attributes in its BLAS's leaf order (the walk's pool ids index
-    them)."""
+    them); `inst_mesh_host` inst_mesh as a host tuple of ints, which the
+    trace unrolls its instance loop over without reading the card."""
 
     inst_bmin: torch.Tensor
     inst_bmax: torch.Tensor
@@ -56,6 +65,7 @@ class TwoLevelAccel(NamedTuple):
     uv0: torch.Tensor
     uv1: torch.Tensor
     uv2: torch.Tensor
+    inst_mesh_host: tuple
 
 
 def mesh_scene_arrays(mesh, t_pad: int) -> dict:
@@ -119,16 +129,17 @@ def build_two_level(scene: Scene, leaf_size: int = 8,
                for i, k in enumerate(_ATTRS)}
     _, (bmin, bmax) = scene.build_host()
     inst = scene.instances
+    mesh_of = tuple(int(i.mesh_id) for i in inst)
     dev = lambda a, dt=torch.float32: torch.as_tensor(
         np.asarray(a), dtype=dt, device=device)
     return TwoLevelAccel(
         inst_bmin=dev(bmin), inst_bmax=dev(bmax),
-        inst_mesh=dev([i.mesh_id for i in inst], torch.int32),
+        inst_mesh=dev(mesh_of, torch.int32),
         inst_mat=dev([i.material_id for i in inst], torch.int32),
         world_from_obj=dev(np.stack([i.transform for i in inst])),
         obj_from_world=dev(np.stack([i.inverse_transform for i in inst])),
         normal_mat=dev(np.stack([i.normal_matrix for i in inst])),
-        blas=tuple(blas), **stacked)
+        blas=tuple(blas), **stacked, inst_mesh_host=mesh_of)
 
 
 def trace_two_level(accel: TwoLevelAccel, o: torch.Tensor, d: torch.Tensor,
@@ -143,20 +154,40 @@ def trace_two_level(accel: TwoLevelAccel, o: torch.Tensor, d: torch.Tensor,
     order, whose BLAS blocks (t_min, t_max); t, tri, u and v then keep
     their miss values.  Rays that miss an instance's box, or that are
     already occluded, are passed to its walk as retired (t_max = -1).
-    `plain=True` walks each BLAS with K3's plain version on any
-    device."""
+    `t_max` is a number or a tensor that broadcasts to (N,).
+
+    On the card the trace replays the graph of t_min, find_closest, the
+    accel (its BLAS carry their leaf size, a static argument of JAX's
+    jit) and the ray shapes (TRACE_PROGRAMS), the rays and a tensor
+    t_max copied in; its body reads nothing back from the card.
+    `plain=True` walks each BLAS with K3's plain version on any device,
+    op by op."""
+    tm = t_max if isinstance(t_max, torch.Tensor) else None
+
+    def body(o, d, tm):
+        return _trace(accel, o, d, t_max if tm is None else tm, t_min,
+                      find_closest, plain)
+
+    key = ("trace_two_level", float(t_min), bool(find_closest),
+           None if tm is not None else float(t_max),
+           graphs.signature(accel))
+    return TRACE_PROGRAMS(key, body, (o, d, tm), o.device, eager=plain)
+
+
+def _trace(accel: TwoLevelAccel, o, d, t_max, t_min: float,
+           find_closest: bool, plain: bool):
+    """trace_two_level's body: the instance loop, unrolled over the
+    accel's host list of meshes."""
     n = o.shape[0]
     dev = o.device
-    best_t = torch.broadcast_to(torch.as_tensor(
-        t_max, dtype=torch.float32, device=dev), (n,)).clone()
+    best_t = ray_t_max(t_max, n, dev).clone()
     best_inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
     best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
     inv_d = safe_inv_dir(d)
     walk = traversal_skip.trace_plain if plain else traversal_skip.trace
-    mesh_of = accel.inst_mesh.tolist()
-    for idx, mesh_id in enumerate(mesh_of):
+    for idx, mesh_id in enumerate(accel.inst_mesh_host):
         hit_box = ray_aabb(o, inv_d, accel.inst_bmin[idx],
                            accel.inst_bmax[idx], t_min, best_t)[0]
         if not find_closest:

@@ -12,11 +12,19 @@ tables by the global ids.
 `shard_closest_hit` and `combine_hits` are the two halves of a rank's
 work; one process can run every shard's half and combine them, which is
 how the tests and the smoke run stand in for D ranks on one device.
+
+JAX's `closest_hit_sharded` is a jitted program; here it replays from
+`SHARD_PROGRAMS`, a CUDA graph of the shard's K3 walk, the four
+all-gathers and the combine over NCCL (graphs.py), and runs op by op
+over gloo, which stages its collectives through the host.
+`build_sharded_accel` is load-time work, as the accel's first LBVH build
+is, and runs op by op.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import graphs
 from ..models.scene import SceneData
 from ..ops import lbvh, traversal
 from ..ops.v3 import V3
@@ -26,6 +34,8 @@ from .tiles import gather_rows
 TRI_FIELDS = ("tri_v0", "tri_e1", "tri_e2", "nrm0", "nrm1", "nrm2", "uv0",
               "uv1", "uv2", "tri_mat", "tri_inst", "tri_valid")
 _MISS_T = 1e32
+# closest_hit_sharded's captured programs.
+SHARD_PROGRAMS = graphs.Programs(4)
 
 
 def shard_scene_triangles(scene: SceneData, n_shards: int) -> SceneData:
@@ -79,14 +89,22 @@ def closest_hit_sharded(sharded_scene: SceneData, accels, o, d, mesh,
     ranks all-gather the four arrays and combine them.  o, d: (N, 3),
     the same on every rank.  `leaf_size` is the JAX signature's; each
     accel carries its own.  Returns (t, global tri, u, v) on every
-    rank."""
+    rank.  Over NCCL it replays the graph of the mesh, t_min, the shard
+    size, accels[r] and the ray shapes (SHARD_PROGRAMS), the rays copied
+    in; over gloo it runs op by op."""
     del leaf_size
     rank, group = mesh.get_local_rank(), mesh.get_group()
-    hits = shard_closest_hit(accels[rank], o, d, rank,
-                             sharded_scene.tri_v0.shape[1], t_min)
-    n = o.shape[0]
-    return combine_hits(*(gather_rows(h, group).reshape(-1, n)
-                          for h in hits))
+    accel, t_per = accels[rank], sharded_scene.tri_v0.shape[1]
+
+    def body(o, d):
+        hits = shard_closest_hit(accel, o, d, rank, t_per, t_min)
+        n = o.shape[0]
+        return combine_hits(*(gather_rows(h, group).reshape(-1, n)
+                              for h in hits))
+
+    key = ("closest_hit_sharded", graphs.signature(mesh), t_min, t_per,
+           graphs.signature(accel))
+    return SHARD_PROGRAMS(key, body, (o, d), o.device, group=group)
 
 
 def unshard_tri_attr(sharded_scene: SceneData, name: str) -> torch.Tensor:

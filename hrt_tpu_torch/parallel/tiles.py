@@ -15,6 +15,16 @@ The post stages (accumulate, SVGF, the upscaler) run on the gathered
 frame on every rank, so the loop's state is the same on all of them
 (JAX partitions them with GSPMD instead).
 
+JAX's `render_frame_tiled` and `frame_program_tiled` are jitted
+programs; here `render_frame_tiled` replays from `TILED_PROGRAMS` and
+FrameLoop.step replays `frame_program_tiled` from the loop's program,
+each a CUDA graph that holds the band's kernels and the NCCL
+all-gathers (graphs.py: a graph is captured on every rank at the same
+call, keyed by the mesh and so by the rank's band).  Over gloo, which
+stages its collectives through the host, and with `plain=True`, they
+run op by op.  `replicate` and `make_mesh` are load-time work and run op
+by op.
+
 `band` and `render_band` render any rank's band in one process: the
 tests and the smoke run use them to stand in for n ranks on one device.
 """
@@ -27,9 +37,14 @@ import warnings
 import torch
 import torch.distributed as dist
 
+from .. import graphs
 from ..config import RenderConfig, resolve_device
 from ..ops.math3d import luminance
 from ..renderer import render_rows
+
+# render_frame_tiled's captured programs: a few keys at once (a frame
+# with and without its G-buffer, a second size).
+TILED_PROGRAMS = graphs.Programs(4)
 
 
 def rank_device(device=None) -> torch.device:
@@ -94,8 +109,10 @@ def mesh_device(mesh) -> torch.device:
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """All-gather every rank's `x` along its first axis, in rank order.
     A bool tensor travels as bytes (NCCL and gloo both take uint8, and
-    int32, int64 and float32 as they are)."""
+    int32, int64 and float32 as they are).  Inside a capture the output
+    is the capture's, in the shared pool."""
     x = x.contiguous()
+    graphs.collective(group, x.device)
     wire = x.view(torch.uint8) if x.dtype == torch.bool else x
     out = wire.new_empty((dist.get_world_size(group) * x.shape[0],)
                          + tuple(x.shape[1:]))
@@ -126,11 +143,30 @@ def render_band(scene, accel, cam, frame: int, config: RenderConfig,
                        want_gbuffer=want_gbuffer, frame=frame)
 
 
-def render_frame_tiled(scene, accel, cam, frame: int, config: RenderConfig,
+def render_frame_tiled(scene, accel, cam, frame, config: RenderConfig,
                        mesh, want_gbuffer: bool = False,
                        plain: bool = False):
     """The (H, W, 3) frame on every rank, each rank tracing its band
-    (+ the whole frame's G-buffer dict when want_gbuffer)."""
+    (+ the whole frame's G-buffer dict when want_gbuffer); `frame` an
+    int or a 0-d integer tensor.  Over NCCL it replays the graph of
+    its config, want_gbuffer, mesh (this rank's band), scene and accel
+    (TILED_PROGRAMS), the camera arrays and the frame index copied in;
+    over gloo and with `plain=True` it runs op by op."""
+    group = mesh.get_group()
+
+    def body(cam, frame):
+        return _tiled_frame(scene, accel, cam, frame, config, mesh,
+                           want_gbuffer, plain)
+
+    key = ("render_frame_tiled", config, want_gbuffer, graphs.signature(mesh),
+           graphs.signature(scene), graphs.signature(accel))
+    return TILED_PROGRAMS(key, body, (cam, frame), mesh_device(mesh),
+                          group=group, eager=plain)
+
+
+def _tiled_frame(scene, accel, cam, frame, config: RenderConfig, mesh,
+                 want_gbuffer: bool = False, plain: bool = False):
+    """render_frame_tiled's body: this rank's band, then the gathers."""
     group = mesh.get_group()
     out = render_band(scene, accel, cam, frame, config,
                       mesh.get_local_rank(), mesh.size(), want_gbuffer,
@@ -146,14 +182,16 @@ def frame_program_tiled(scene, accel, cams, prev_cams, dn_state, accum,
                         frame: int, config: RenderConfig, mesh, net=None,
                         up_history=None, plain: bool = False):
     """frameloop.frame_program with the trace and shade split into row
-    bands: the gathered frame's post stages run on every rank.  Returns
-    (output image, new denoise state, new accumulation buffer, new
-    upscaler history)."""
+    bands: the gathered frame's post stages run on every rank; `frame`
+    an int or a 0-d integer tensor.  Returns (output image, new denoise
+    state, new accumulation buffer, new upscaler history).
+    FrameLoop.step over a mesh replays it from the loop's program (over
+    NCCL; op by op over gloo and with `plain=True`)."""
     from ..frameloop import post_stages, wants_gbuffer
 
     want_gb = wants_gbuffer(config, up_history)
-    out = render_frame_tiled(scene, accel, cams, frame, config, mesh,
-                             want_gbuffer=want_gb, plain=plain)
+    out = _tiled_frame(scene, accel, cams, frame, config, mesh,
+                       want_gbuffer=want_gb, plain=plain)
     img, gbuffer = out if want_gb else (out, None)
     return post_stages(img, gbuffer, prev_cams, dn_state, accum, frame,
                        config, net, up_history, plain=plain)
@@ -161,7 +199,9 @@ def frame_program_tiled(scene, accel, cams, prev_cams, dn_state, accum,
 
 def frame_stats_psum(img_shard: torch.Tensor, group=None):
     """Whole-image mean and peak luminance from every rank's shard:
-    (mean, peak) as 0-d tensors, the same on every rank."""
+    (mean, peak) as 0-d tensors, the same on every rank.  Op by op:
+    JAX's works only inside a `shard_map` region, and no program of the
+    JAX package calls it."""
     lum = luminance(img_shard)
     total = torch.stack([lum.sum(), lum.new_tensor(float(lum.numel()))])
     peak = lum.max()

@@ -1677,3 +1677,199 @@ def test_trainer_render_programs_bit_equal_to_op_by_op(cuda):
     for i in (0, 1, 4):
         assert _bits_equal(got[i], want[i]), i
     assert torch.equal(got[2], want[2])
+
+
+# ---- programs over a process group (one-rank NCCL) and the stacked
+# two-level trace, captured ----------------------------------------------
+
+def _launch_delta(fn):
+    """(fn()'s result, the launches it made per counter)."""
+    before = _launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [{k: c[k] - b[k] for k in c}
+                 for c, b in zip(_launches(), before)]
+
+
+def _flat(x) -> list:
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_flatten(x)[0]
+
+
+def _same(a, b) -> bool:
+    fa, fb = _flat(a), _flat(b)
+    return len(fa) == len(fb) and all(
+        _bits_equal(x, y) if x.is_floating_point() else torch.equal(x, y)
+        for x, y in zip(fa, fb))
+
+
+def test_mesh_loop_graph_is_bit_equal_to_op_by_op(nccl_group):
+    """FrameLoop(mesh) over one NCCL rank, 3 post steps: one capture,
+    each replayed step, its state and its launches those of the same
+    mesh loop op by op."""
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.frameloop import FrameLoop
+
+    cfg = RenderConfig(width=128, height=96, max_depth=1, sky=True,
+                       jitter=True, accumulate=True, denoise=True,
+                       upscale=2, upscale_mode="temporal")
+    graphed = FrameLoop(bench_scene(), cfg, mesh=nccl_group)
+    eager = FrameLoop(bench_scene(), cfg, mesh=nccl_group)
+    for f in range(3):
+        with graphs.disable():
+            want, el = _launch_delta(lambda: eager.step(_post_cam(f)))
+        got, gl = _launch_delta(lambda: graphed.step(_post_cam(f)))
+        assert _bits_equal(got, want) and gl == el
+        assert _same([*graphed.dn_state, graphed.accum, graphed.up_history],
+                     [*eager.dn_state, eager.accum, eager.up_history])
+    assert graphed.captures == 1 and eager.captures == 0
+    assert graphed.program.last.graph.nodes > 0
+
+
+def test_tiled_frame_graph_is_bit_equal_to_op_by_op(nccl_group):
+    """render_frame_tiled with and without its G-buffer: one capture per
+    key, each replay bit for bit the frame op by op with its launches."""
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.parallel import tiles
+
+    dev = tiles.mesh_device(nccl_group)
+    cfg = RenderConfig(width=128, height=96, max_depth=2, sky=True,
+                       jitter=True)
+    scene = bench_scene().build(dev)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, dev)
+    progs = tiles.TILED_PROGRAMS
+    caps = progs.captures
+    for gb in (False, True):
+        for f in range(3):
+            call = lambda: tiles.render_frame_tiled(
+                scene, accel, cams, f, cfg, nccl_group, want_gbuffer=gb)
+            with graphs.disable():
+                want, el = _launch_delta(call)
+            got, gl = _launch_delta(call)
+            assert _same(got, want) and gl == el
+    assert progs.captures == caps + 2
+
+
+def test_sharded_hits_graph_is_bit_equal_to_op_by_op(nccl_group):
+    """closest_hit_sharded over one NCCL rank (one shard): replayed, bit
+    for bit op by op and the whole soup's LBVH walk; one capture."""
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.ops import traversal
+    from hrt_tpu_torch.parallel import scene_shard
+
+    scene = bench_scene().build("cuda", pad=128)
+    sharded, accs = scene_shard.build_sharded_accel(scene, 1, leaf_size=8)
+    o, d = _rays(5, 4093, scene.tri_v0.device)
+    progs = scene_shard.SHARD_PROGRAMS
+    caps = progs.captures
+    call = lambda: scene_shard.closest_hit_sharded(sharded, accs, o, d,
+                                                   nccl_group, leaf_size=8)
+    for _ in range(2):
+        with graphs.disable():
+            want, el = _launch_delta(call)
+        got, gl = _launch_delta(call)
+        assert _same(got, want) and gl == el
+        assert gl[2]["closest"] == 1
+    assert progs.captures == caps + 1
+    whole = traversal.closest_hit_bvh_p(
+        None, lbvh.build_bvh(scene, 8), V3(*o.unbind(-1)), V3(*d.unbind(-1)),
+        1e-3, 1e32)
+    assert _same(got, tuple(whole))
+    assert (got[1] >= 0).float().mean().item() > 0.3
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+def test_group_step_graph_is_bit_equal_under_deterministic_cudnn(
+        nccl_group, monkeypatch, kind):
+    """The data-parallel step over one NCCL rank, its all-reduce inside
+    the graph: with cuDNN's deterministic algorithms op by op repeats
+    itself, so 3 replayed steps equal 3 op-by-op steps bit for bit (two
+    op-by-op sides); one capture."""
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.models import upscaler
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    group = nccl_group.get_group()
+    temporal = kind == "temporal"
+    rs = np.random.RandomState(41)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device="cuda")
+    batches = []
+    for _ in range(3):
+        hr = rs.uniform(0, 2, (8, 64, 64, 3))
+        hist = np.concatenate([hr, rs.rand(8, 64, 64, 1) < 0.7], -1)
+        batches.append((upscaler.downsample2(t(hr)),
+                        *((t(hist),) if temporal else ()), t(hr)))
+    fn = upscaler.train_step_temporal if temporal else upscaler.train_step
+    make = upscaler.create_temporal if temporal else upscaler.create
+    sides = [make(seed=5, lr=2e-3, device="cuda") for _ in range(3)]
+    caps = upscaler.TRAIN_PROGRAMS.captures
+    for b in batches:
+        losses = [fn(*sides[0], *b, group=group)]
+        with graphs.disable():
+            losses += [fn(*s, *b, group=group) for s in sides[1:]]
+        assert all(_bits_equal(losses[0], x) for x in losses[1:])
+    torch.cuda.synchronize()
+    assert upscaler.TRAIN_PROGRAMS.captures == caps + 1
+    for s in sides[1:]:
+        assert _same(_train_state(sides[0][1]), _train_state(s[1]))
+    assert int(sides[0][1].count) == 3
+
+
+def test_stacked_trace_graph_against_op_by_op_and_plain(cuda):
+    """trace_two_level replayed: bit for bit op by op with the same K3
+    launches (one per instance), and its plain walk on >= 0.99999 of
+    rays; one capture per key, any-hit mode another."""
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.ops import twolevel
+
+    sc = bench_scene()
+    tl = twolevel.build_two_level(sc, 8)
+    o, d = _rays(11, 8192, cuda)
+    progs = twolevel.TRACE_PROGRAMS
+    caps = progs.captures
+    for closest in (True, False, True):
+        call = lambda: twolevel.trace_two_level(tl, o, d,
+                                                find_closest=closest)
+        with graphs.disable():
+            want, el = _launch_delta(call)
+        got, gl = _launch_delta(call)
+        assert _same(got, want) and gl == el
+        assert gl[2]["closest" if closest else "any_hit"] == len(
+            sc.instances)
+    assert progs.captures == caps + 2
+    pt, pi, ptri, _, _ = twolevel.trace_two_level(tl, o, d, plain=True)
+    kt, ki, ktri = got[:3]
+    same = (ki == pi) & (ktri == ptri)
+    assert float(same.float().mean()) >= 0.99999
+    hit = same & (pi >= 0)
+    assert float((kt - pt)[hit].abs().max()) <= 1e-4
+
+
+def test_capture_without_a_communicator_raises_on_the_card(nccl_group):
+    """A capture whose NCCL collective meets no recorded communicator
+    raises RuntimeError at once (the warm-up's record taken away), the
+    card works on, and with the record the same body captures."""
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.parallel import tiles
+
+    group = nccl_group.get_group()
+
+    class Forgets(graphs.CudaGraph):
+        def __init__(self, *args):
+            graphs._communicators.clear()
+            super().__init__(*args)
+
+    body = lambda x: tiles.gather_rows(x * 2.0, group)
+    x = torch.ones(16, 3, device="cuda")
+    progs = graphs.Programs(1, capture=Forgets)
+    with pytest.raises(RuntimeError, match="no communicator"):
+        progs("k", body, (x,), "cuda", group=group)
+    assert progs.captures == 0
+    torch.cuda.synchronize()
+    progs = graphs.Programs(1)
+    for _ in range(2):
+        out = progs("k", body, (x,), "cuda", group=group)
+        assert torch.equal(out, x * 2.0)
+    assert progs.captures == 1

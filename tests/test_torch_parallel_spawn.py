@@ -2,13 +2,14 @@
 package's multi-chip dry run (__graft_entry__.dryrun_multichip) at world
 size 2.  The test spawns two worker processes (this file's `worker`);
 each renders its band of the tiled frame and steps FrameLoop(mesh) with
-the post stages, walks its shard of the triangle pool, takes a
-data-parallel upscaler step, renders its farm frames, and runs the
-render command with --devices 2 under torchrun's variables, set by
-hand.  Each checks what it computed against the one-process result, and
-the test checks that every farm frame was rendered once and that the
---devices 2 PNG equals --devices 1's.  The workers import neither JAX
-nor the JAX package."""
+the post stages (op by op, and replayed from a stand-in capture that
+holds gloo groups, keyed by the rank's band), walks its shard of the
+triangle pool, takes a data-parallel upscaler step, renders its farm
+frames, and runs the render command with --devices 2 under torchrun's
+variables, set by hand.  Each checks what it computed against the
+one-process result, and the test checks that every farm frame was
+rendered once and that the --devices 2 PNG equals --devices 1's.  The
+workers import neither JAX nor the JAX package."""
 import json
 import os
 import socket
@@ -25,11 +26,34 @@ SMOKE = ["--scene", "demo", "--width", "32", "--height", "24",
          "cpu", "--frames", "2", "--orbit", "--stats"]
 
 
+class GlooCapture:
+    """A capture on the CPU that holds gloo groups: test_torch_frame_graph's
+    StandIn (which the workers do not import: its module imports JAX)
+    with gloo among its backends.  The body runs at capture and at every
+    replay, writing into the outputs it made at capture."""
+
+    device_type = "cpu"
+    backends = frozenset({"gloo"})
+
+    def __init__(self, body, args, device):
+        self.body, self.args = body, args
+        self.outputs = body(*args)
+
+    def replay(self):
+        from torch.utils import _pytree as pytree
+
+        out = self.body(*self.args)
+        for s, o in zip(pytree.tree_flatten(self.outputs)[0],
+                        pytree.tree_flatten(out)[0]):
+            if s is not None:
+                s.copy_(o)
+
+
 def worker(rank: int, out_dir: str) -> None:
     import torch
     import torch.distributed as dist
 
-    from hrt_tpu_torch import cli, renderer
+    from hrt_tpu_torch import cli, graphs, renderer
     from hrt_tpu_torch.config import RenderConfig
     from hrt_tpu_torch.frameloop import FrameLoop
     from hrt_tpu_torch.models import upscaler
@@ -68,13 +92,24 @@ def worker(rank: int, out_dir: str) -> None:
                         denoise=True, accumulate=True, upscale=2,
                         upscale_mode="temporal")
 
-    def two_frames(m):
+    def frames(m, capture=None, steps=2):
         loop = FrameLoop(reference_demo_scene(), post, cull_threshold_px=0.0,
                          mesh=m, device=None if m else "cpu")
-        return [loop.step(Camera()).clone() for _ in range(2)]
+        if capture is not None:
+            loop.program = graphs.Programs(1, capture=capture)
+        return [loop.step(Camera()).clone() for _ in range(steps)], loop
 
-    for got, want in zip(two_frames(mesh), two_frames(None)):
+    for got, want in zip(frames(mesh)[0], frames(None)[0]):
         assert got.shape == (16 * WORLD, 128, 3) and torch.equal(got, want)
+    # The same loop replayed from a capture of its frame program: one
+    # capture over 3 steps, keyed by this rank's band, each frame the
+    # op-by-op mesh loop's.
+    graphed, loop = frames(mesh, GlooCapture, 3)
+    assert loop.captures == 1
+    key = next(iter(loop.program._cache))[0]
+    assert graphs.signature(mesh) in key and graphs.signature(mesh)[4] == rank
+    for got, want in zip(graphed, frames(mesh, steps=3)[0]):
+        assert torch.equal(got, want)
     try:
         FrameLoop(reference_demo_scene(), RenderConfig(width=64, height=17),
                   mesh=mesh)
