@@ -16,6 +16,10 @@ With `HRT_KERNEL_GUARDS=1` the BVH8 walks run guarded and the command
 raises after a frame whose walks recorded an index violation
 (ops/traversal_wide8.check_pending_guards), as the JAX command does.
 
+`--stats` prints a last line of JSON: frames, ms a frame, Mray/s, and
+from the program's tracing, which it turns on (utils/tracing.py), each
+frame stage's ms, each span's mean host ms and the live-lane share.
+
 `--devices N` > 1 renders each frame in N row bands, one process per
 GPU, launched by torchrun:
 
@@ -38,6 +42,7 @@ from .config import CONFIGS, RenderConfig, resolve_device
 from .graphs import capture_line
 from .models.camera import Camera, orbit_camera
 from .ops import traversal_wide8
+from .utils import tracing
 from .utils.image import tonemap, write_png
 from .utils.logging import FrameStats, build_step, logger, rays_per_frame
 
@@ -89,7 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar=("X", "Y", "Z", "RX", "RY", "RZ"),
                     default=(0.0, 0.0, -2.0, 0.0, 0.0, 0.0))
     ap.add_argument("--gamma", type=float, default=2.2)
-    ap.add_argument("--stats", action="store_true")
+    ap.add_argument("--stats", action="store_true",
+                    help="print the stats line; turns the program's "
+                         "tracing on (utils/tracing.py): per-stage ms, "
+                         "per-span host ms and the live-lane share")
     ap.add_argument("--upscale", type=int, default=1, choices=(1, 2))
     ap.add_argument("--upscale-mode", default="spatial",
                     choices=("spatial", "temporal"),
@@ -171,10 +179,16 @@ def main(argv=None):
     # Rank 0 alone logs and writes.
     quiet = logger.disabled
     logger.disabled = quiet or not lead
+    traced = tracing.enabled()
+    if args.stats:
+        tracing.enable()
+        tracing.reset()
     try:
         return _run(args, mesh, lead)
     finally:
         logger.disabled = quiet
+        if not traced:
+            tracing.disable()
         if started:
             import torch.distributed as dist
 
@@ -248,5 +262,18 @@ def _run(args, mesh, lead: bool):
             "frames": stats.frames,
             "ms_per_frame": round(stats.ms_per_frame, 2),
             "mrays_per_sec": round(stats.mrays_per_sec, 2),
+            **trace_stats(tracing.snapshot()),
         }))
     return loop
+
+
+def trace_stats(snap: dict) -> dict:
+    """The stats line's part from the program's tracing: the frames'
+    stage ms (`stage_ms` on the card, `host_stage_ms` on the CPU), each
+    span's mean host ms (`span_ms`) and the live-lane share."""
+    out = {k: {name: round(v, 4) for name, v in snap[k].items()}
+           for k in ("stage_ms", "host_stage_ms") if k in snap}
+    out["span_ms"] = {k: round(v["total_ms"] / v["count"], 4)
+                      for k, v in snap["spans"].items()}
+    out["live_lane_share"] = snap["live_lane_share"]
+    return out

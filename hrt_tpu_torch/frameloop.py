@@ -48,6 +48,7 @@ from .models.scene import Scene, SceneData
 from .ops import culling, denoise, lbvh, rng, tlas
 from .parallel import tiles
 from .renderer import camera_arrays, render_rows
+from .utils import tracing
 from .utils.interop import upscaler_from_numpy
 
 
@@ -69,19 +70,23 @@ def post_stages(img, gbuffer, prev_cams, dn_state, accum, frame,
     package's `_post_stages`).  Returns (output image, new denoise
     state, new accumulation buffer, new upscaler history).  `plain=True`
     routes the K6 warps to their plain version on whatever device the
-    tensors are on."""
+    tensors are on.  Each stage that runs starts with its stage clock
+    (utils/tracing.mark: `accumulate`, `svgf`, `upscale`)."""
     w, h = config.width, config.height
     frame = rng.as_frame(frame, img.device)
     if config.accumulate:
+        tracing.mark("accumulate")
         n = torch.clamp(frame, max=10000).to(torch.float32)
         accum = (accum * n + img) / (n + 1.0)
         img = accum
 
     if config.denoise:
+        tracing.mark("svgf")
         img, dn_state = denoise.svgf(dn_state, img, gbuffer, prev_cams, w,
                                      h, plain=plain)
 
     if config.upscale == 2 and net is not None:
+        tracing.mark("upscale")
         if _temporal_up(config, up_history):
             hist = upscaler.reproject_history(
                 up_history, gbuffer["world_pos"], gbuffer["hit"], prev_cams,
@@ -203,6 +208,8 @@ class FrameLoop:
         # culling rebuild, keyed by the scene and the accel.
         self.program = graphs.Programs(1)
         self.builds = graphs.Programs(1)
+        # The stage clocks of the frame program's last run (tracing on).
+        self._trace_frame = None
         self._culled = False
         self.reset_history()
 
@@ -299,31 +306,50 @@ class FrameLoop:
         kernels, on the loop's device (a reference loop on the card).  A
         loop over a `mesh` replays frame_program_tiled the same way, its
         band's all-gathers inside the graph, over NCCL; over gloo it runs
-        op by op (graphs.py)."""
+        op by op (graphs.py).  With tracing on (utils/tracing.py) the
+        step is the span `frameloop.step` over `frameloop.camera`,
+        `frameloop.cull` and `frameloop.key` (the signatures and the
+        key), the frame program's key says so (so switching tracing
+        captures again once), and the frame's stage clocks go to the
+        tracing ring after it."""
+        with tracing.span("frameloop.step"):
+            return self._step(camera, plain)
+
+    def _step(self, camera: Camera, plain: bool) -> torch.Tensor:
         cfg = self.config
-        cams = camera_arrays(camera, cfg, self.device)
+        with tracing.span("frameloop.camera"):
+            cams = camera_arrays(camera, cfg, self.device)
         if self.prev_cams is None:
             self.prev_cams = cams
-        self._maybe_cull(cams, plain)
+        with tracing.span("frameloop.cull"):
+            self._maybe_cull(cams, plain)
         scene, accel, net, mesh = self.scene, self.accel, self.net, self.mesh
 
         def body(cams, prev_cams, dn_state, accum, up_history, frame):
-            if mesh is None:
-                return frame_program(scene, accel, cams, prev_cams,
-                                     dn_state, accum, frame, cfg, net=net,
-                                     up_history=up_history, plain=plain)
-            return tiles.frame_program_tiled(
-                scene, accel, cams, prev_cams, dn_state, accum, frame, cfg,
-                mesh, net=net, up_history=up_history, plain=plain)
+            with tracing.frame(self.device) as rec:
+                if mesh is None:
+                    out = frame_program(scene, accel, cams, prev_cams,
+                                        dn_state, accum, frame, cfg,
+                                        net=net, up_history=up_history,
+                                        plain=plain)
+                else:
+                    out = tiles.frame_program_tiled(
+                        scene, accel, cams, prev_cams, dn_state, accum,
+                        frame, cfg, mesh, net=net, up_history=up_history,
+                        plain=plain)
+            self._trace_frame = rec
+            return out
 
-        key = ("frame_program", cfg, graphs.signature(scene),
-               graphs.signature(accel), graphs.signature(net),
-               graphs.signature(mesh))
+        with tracing.span("frameloop.key"):
+            key = ("frame_program", cfg, graphs.signature(scene),
+                   graphs.signature(accel), graphs.signature(net),
+                   graphs.signature(mesh), tracing.enabled())
         out = self.program(
             key, body, (cams, self.prev_cams, self.dn_state, self.accum,
                         self.up_history, self.frame),
             self.device, group=None if mesh is None else mesh.get_group(),
             eager=plain)
+        tracing.collect(self._trace_frame)
         img, self.dn_state, self.accum, self.up_history = out
         self.prev_cams = cams
         self.frame += 1

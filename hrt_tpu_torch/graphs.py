@@ -49,6 +49,9 @@ launch.  `Programs` is a bounded cache of captured bodies:
   capture (host code that ran once, launching nothing) is taken back
   and added again at every replay.
 - A capture or a replay that fails raises.  Nothing retries op by op.
+- With tracing on (utils/tracing.py), a call's copies in, its replay
+  and its copies out are the host spans `graphs.copy_in`,
+  `graphs.replay` and `graphs.copy_out`, and a capture `graphs.capture`.
 
 The same runner replays the device-side builds that change what a frame
 reads: the TLAS refit (ops/tlas.py `refit_body`, the counterpart of JAX's
@@ -112,6 +115,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.utils import _pytree as pytree
+
+from .utils import tracing
 
 _disabled = 0
 _capturing = 0
@@ -308,7 +313,7 @@ class Program:
         before = [dict(c) for c in counters]
         _capturing += 1
         try:
-            with torch.no_grad():
+            with torch.no_grad(), tracing.span("graphs.capture"):
                 self.graph = capture(body, args, device)
         finally:
             _capturing -= 1
@@ -322,17 +327,20 @@ class Program:
     def __call__(self, flat: list):
         """Copy the call's arguments into the static inputs, replay, and
         return copies of the outputs."""
-        for s, x in zip(self.static, flat):
-            if isinstance(x, torch.Tensor):
-                s.copy_(x)
-            elif x is not None:
-                s.fill_(x)
-        self.graph.replay()
+        with tracing.span("graphs.copy_in"):
+            for s, x in zip(self.static, flat):
+                if isinstance(x, torch.Tensor):
+                    s.copy_(x)
+                elif x is not None:
+                    s.fill_(x)
+        with tracing.span("graphs.replay"):
+            self.graph.replay()
         for c, d in zip(launch_counters(), self.launches):
             for k, v in d.items():
                 c[k] += v
-        return pytree.tree_unflatten([_fresh(t) for t in self.out_flat],
-                                     self.out_spec)
+        with tracing.span("graphs.copy_out"):
+            return pytree.tree_unflatten(
+                [_fresh(t) for t in self.out_flat], self.out_spec)
 
 
 def capture_line(what: str, programs: "Programs") -> str | None:

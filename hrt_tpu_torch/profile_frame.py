@@ -22,14 +22,20 @@ utils/profiling.op_label).  The last line is one JSON object: `cfg`,
 `frames`, `device_ms_per_frame`, `wall_ms_per_frame` (host clock under
 the profiler, synchronised), `busy` (the union of the device activity
 over that window), `launches_per_frame`, the stages' ms
-(`stages`: set-up, warm-up, frames), `top` (the table's rows) and the
-card (`device`).  With `--device cpu` there is no device activity: the
-table and `top` hold host ops by self CPU time instead, under
-`cpu_ms_per_frame`, and the device keys are null.
+(`stages`: set-up, warm-up, frames, the spans `profile_frame.<stage>`),
+`top` (the table's rows), the card (`device`) and `program`, the
+program's own tracing (utils/tracing.snapshot: its host spans and, for
+a FrameLoop target, its frames' stage ms and live rays a depth).  The
+run turns tracing on, so a FrameLoop target's frame holds its stage
+clocks, and the profile holds the program's spans as `hrt.*`.  With
+`--device cpu` there is no device activity: the table and `top` hold
+host ops by self CPU time instead, under `cpu_ms_per_frame`, and the
+device keys are null.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -45,8 +51,9 @@ from .models.scene import bench_scene
 from .ops import lbvh
 from .graphs import capture_line
 from .renderer import FRAME_PROGRAMS, camera_arrays, render_frames
-from .utils.profiling import (StageTimer, busy_share, device_name,
-                              device_op_totals, op_label, trace)
+from .utils import tracing
+from .utils.profiling import (busy_share, device_name, device_op_totals,
+                              op_label, trace)
 
 TARGETS = {"path1080": "path_tracing_1080p", "4k": "animated_4k_upscaled"}
 
@@ -102,29 +109,54 @@ def parse_args(argv):
     return ap.parse_args(argv)
 
 
+STAGES = ("set-up", "warm-up", "frames")
+
+
+@contextlib.contextmanager
+def _stage(name: str, dev):
+    """The span `profile_frame.<name>`, the device synchronised at its
+    end."""
+    with tracing.span(f"profile_frame.{name}"):
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 def main(argv=None) -> dict:
     """Profile the target, print the table and the JSON line; returns
     the line's object."""
     args = parse_args(sys.argv[1:] if argv is None else argv)
+    was_on = tracing.enabled()
+    tracing.enable()
+    tracing.reset()
+    try:
+        return _profile(args)
+    finally:
+        if not was_on:
+            tracing.disable()
+
+
+def _profile(args) -> dict:
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
-    timer = StageTimer()
-    fence = torch.zeros((), device=dev)
-    with timer.stage("set-up", fence=fence):
+    with _stage("set-up", dev):
         frame, programs = make_target(
             args.cfg, dev, None if args.sort is None else bool(args.sort),
             parse_resolution(args.resolution))
-    with timer.stage("warm-up", fence=fence):
+    with _stage("warm-up", dev):
         frame(0)
     line = capture_line(args.cfg, programs)
     if line:
         print(line, flush=True)
     n = args.frames
     with trace(args.dir) as prof:
-        with timer.stage("frames", fence=fence):
+        with _stage("frames", dev):
             for i in range(1, n + 1):
                 frame(i)
-    wall_ms = timer.totals["frames"] * 1e3
+    snap = tracing.snapshot()
+    stages = {k: round(snap["spans"][f"profile_frame.{k}"]["total_ms"], 3)
+              for k in STAGES}
+    wall_ms = stages["frames"]
     if cuda:
         total, ops = device_op_totals(prof)
         busy = busy_share(prof, wall_ms)
@@ -153,7 +185,8 @@ def main(argv=None) -> dict:
         "wall_ms_per_frame": wall_ms / n,
         "busy": busy,
         "launches_per_frame": launches / n if cuda else None,
-        "stages": timer.report(),
+        "stages": stages,
+        "program": snap,
         "top": top,
         "device": device_name(dev),
     }

@@ -64,6 +64,7 @@ from .ops.intersect import INF
 from .ops.lbvh import ATTR_MAT, Accel
 from .ops.tlas import TwoLevelFlat
 from .ops.v3 import V3
+from .utils import tracing
 
 # Sorted depths of a `sort_bounces` frame: depths 1..SORT_CAP are sorted
 # (the JAX package's default cap; Russian roulette has retired most rays
@@ -547,8 +548,15 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
     put back in pixel order by the carried pixel index at the end;
     depth 0's radiance stays in pixel order.
 
-    `_batches`, a list, receives each depth's closest-hit batch and its
-    shading inputs (a dict per depth; for measurements and tests)."""
+    `_batches`, a list, receives each depth's closest-hit batch, its
+    shading inputs and the rays active on entry (a dict per depth; for
+    measurements and tests).
+
+    Inside a traced frame (utils/tracing.frame) each depth k marks the
+    stage clocks `hit.d<k>` (the sort, the closest walk and the
+    attribute gather), `nee.d<k>` (sky, the light batch, K2, the shadow
+    walk, emission) and `bounce.d<k>` (the bounce, roulette,
+    retirement), and counts its live rays on entry as `live.d<k>`."""
     require_slice(config)
     if accel is not None and not isinstance(accel, (Accel, TwoLevelFlat)):
         raise TypeError(f"accel must be an Accel, a TwoLevelFlat or None "
@@ -564,6 +572,8 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
     orig = None         # pixel index of each ray once sorted
     rad_px = None       # depth 0's radiance, in pixel order
     for depth in range(config.max_depth):
+        tracing.mark(f"hit.d{depth}")
+        tracing.count(f"live.d{depth}", active)
         if config.sort_bounces and 0 < depth <= SORT_CAP:
             key = torch.where(active, wavefront.bounce_sort_key_p(o, d) >> 1,
                               _DEAD_KEY)
@@ -583,8 +593,10 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
         hit = sh.hit & active
         if _batches is not None:
             _batches.append({"depth": depth, "o": o, "d": d, "t_max": t_max,
-                             "hits": sh._replace(hit=hit), "seed": seed})
+                             "hits": sh._replace(hit=hit), "seed": seed,
+                             "active": active})
 
+        tracing.mark(f"nee.d{depth}")
         sky_rad = eval_sky_p(scene.sky, d, enabled=config.sky)
         radiance = radiance + v3.where(active & ~sh.hit,
                                        throughput * sky_rad, 0.0)
@@ -600,6 +612,7 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
         if not config.indirect or depth + 1 == config.max_depth:
             break
 
+        tracing.mark(f"bounce.d{depth}")
         basis = v3.orthonormal_basis(sh.normal)
         new_d, weight, seed, transmitted = _sample_bounce_p(
             sh.mat, sh.normal, sh.view, seed, sh.entering, basis)
@@ -677,7 +690,9 @@ def render_rows(scene: SceneData, accel, cam: CameraArrays,
     `where` over the frame on the device, as the JAX package's; the
     unjittered path shoots through the integer corner, as the JAX
     package does).  _pre: render_frames' _primary_setup; _batches: see
-    trace_paths."""
+    trace_paths.  In a traced frame each sample starts with the stage
+    clock `raygen` (utils/tracing.mark)."""
+    tracing.mark("raygen")
     px, py, rays = _pre if _pre is not None else _primary_setup(
         cam, rows, y0, config)
     frame = rng.as_frame(frame, px.device)
@@ -685,6 +700,8 @@ def render_rows(scene: SceneData, accel, cam: CameraArrays,
     acc = None
     gbuffer = None
     for s in range(config.spp):
+        if s:
+            tracing.mark("raygen")
         seeds_s = (seeds + ((s * 0x9E3779B9) & rng.M32)) & rng.M32
         if config.jitter:
             jx, seeds_s = rng.rand(seeds_s)

@@ -1,13 +1,15 @@
 """Profiling (hrt_tpu/utils/profiling.py and hrt_tpu/utils/xprof.py): a
-torch.profiler trace around frames, per-stage timers fenced on the
-device, a per-frame stats dict, the device memory snapshot, and the
-device time of a call read from a profile (xprof's
-`device_ms_per_call`): the CUDA activities' time by op, the card's busy
-share over a window, and the card's name and power limit.
+torch.profiler trace around frames, a per-frame stats dict, the device
+memory snapshot, and the device time of a call read from a profile
+(xprof's `device_ms_per_call`): the CUDA activities' time by op, the
+card's busy share over a window, and the card's name and power limit.
+Per-stage timers are the spans of utils/tracing.py.
 
 The device-time readers raise where a profile holds no device activity
 (a CPU device, a capture that saw no kernel): they never stand in a 0 or
-a nan for a time that was not measured."""
+a nan for a time that was not measured.  They count device work only:
+the device-side annotations of the program's spans (`hrt.*`,
+utils/tracing.span under a profiler) are left out."""
 from __future__ import annotations
 
 import contextlib
@@ -40,30 +42,6 @@ def trace(log_dir: str = "hrt_tpu_torch_trace") -> Iterator[object]:
     path = os.path.join(log_dir, "trace.json")
     prof.export_chrome_trace(path)
     logger.info("profiler trace written to %s", path)
-
-
-class StageTimer:
-    """Host-clock per-stage timers; a stage given a `fence` tensor waits
-    for its device before the clock is read."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, fence=None) -> Iterator[None]:
-        t0 = time.perf_counter()
-        yield
-        if fence is not None and fence.is_cuda:
-            torch.cuda.synchronize(fence.device)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> dict[str, float]:
-        """Mean ms per stage."""
-        return {k: round(v * 1e3 / max(self.counts[k], 1), 3)
-                for k, v in self.totals.items()}
 
 
 def timed_call(fn: Callable[[], object], device):
@@ -123,6 +101,7 @@ KERNEL_ENTRIES = {
     "brdf_light_major_kernel": "hrt_brdf_light_major",
     "warp_bilinear_kernel": "hrt_warp_bilinear",
     "warp_bilinear_backward_kernel": "hrt_warp_bilinear_backward",
+    "timestamp_kernel": "hrt_timestamp",
 }
 
 
@@ -180,6 +159,11 @@ def profile_calls(fn: Callable[[], object], calls: int = 1,
     return prof, wall_ms
 
 
+def _annotation(name: str) -> bool:
+    """A program span's mark on the device timeline, not device work."""
+    return name.startswith("hrt.")
+
+
 _NO_DEVICE = ("the profile holds no device activity (no CUDA device "
               "traced, or no kernel ran)")
 
@@ -190,7 +174,8 @@ def device_op_totals(prof) -> tuple[float, dict]:
     Raises RuntimeError when the profile holds none."""
     cuda = torch.autograd.DeviceType.CUDA
     ops = {e.key: (e.self_device_time_total / 1e3, e.count)
-           for e in prof.key_averages() if e.device_type == cuda}
+           for e in prof.key_averages()
+           if e.device_type == cuda and not _annotation(e.key)}
     total = sum(ms for ms, _ in ops.values())
     if total <= 0.0:
         raise RuntimeError(_NO_DEVICE)
@@ -213,7 +198,7 @@ def busy_share(prof, wall_ms: float) -> float:
     holds no device activity."""
     cuda = torch.autograd.DeviceType.CUDA
     iv = [(e.time_range.start, e.time_range.end) for e in prof.events()
-          if e.device_type == cuda]
+          if e.device_type == cuda and not _annotation(e.name)]
     if not iv:
         raise RuntimeError(_NO_DEVICE)
     return interval_union(iv) / 1e3 / wall_ms

@@ -253,24 +253,30 @@ def test_profile_frame_on_the_cpu_reports_host_ops(tmp_path, capsys):
     assert set(out["stages"]) == {"set-up", "warm-up", "frames"}
 
 
-def _fake_profile(intervals_us, device="CUDA"):
+def _fake_profile(intervals_us, device="CUDA", name="kernel"):
     dt = getattr(torch.autograd.DeviceType, device)
-    ev = [types.SimpleNamespace(device_type=dt, time_range=types.SimpleNamespace(
-        start=a, end=b)) for a, b in intervals_us]
+    ev = [types.SimpleNamespace(name=name, device_type=dt,
+                                time_range=types.SimpleNamespace(
+                                    start=a, end=b))
+          for a, b in intervals_us]
     ev.append(types.SimpleNamespace(
-        device_type=torch.autograd.DeviceType.CPU,
+        name="cpu_op", device_type=torch.autograd.DeviceType.CPU,
         time_range=types.SimpleNamespace(start=0.0, end=1e6)))
     return types.SimpleNamespace(events=lambda: ev)
 
 
 def test_busy_share_is_the_union_of_device_intervals():
     """Overlapping kernels (two streams) count once; nested ones too; a
-    CPU event never counts."""
+    CPU event never counts, nor a program span's device annotation."""
     prof = _fake_profile([(0.0, 10.0), (5.0, 15.0), (20.0, 25.0),
                           (21.0, 22.0)])
+    span = _fake_profile([(0.0, 40.0)], name="hrt.frameloop.step")
+    both = types.SimpleNamespace(events=lambda: prof.events()
+                                 + span.events())
     assert profiling.interval_union([(0, 10), (5, 15), (20, 25),
                                      (21, 22)]) == 20.0
     assert profiling.busy_share(prof, 0.04) == pytest.approx(0.5)
+    assert profiling.busy_share(both, 0.04) == pytest.approx(0.5)
     # The summed times would read 0.7.
     with pytest.raises(RuntimeError, match="no device activity"):
         profiling.busy_share(_fake_profile([]), 1.0)

@@ -26,7 +26,7 @@ from hrt_tpu_torch.frameloop import FrameLoop
 from hrt_tpu_torch.models.camera import Camera
 from hrt_tpu_torch.models.scene import bench_scene, reference_demo_scene
 from hrt_tpu_torch.ops import lbvh, traversal
-from hrt_tpu_torch.utils import checkpoint
+from hrt_tpu_torch.utils import checkpoint, tracing
 from hrt_tpu_torch.utils.image import tonemap
 
 from test_torch_materials import OBJ_TEXT
@@ -76,8 +76,15 @@ def test_cli_renders_and_resumes(tmp_path, capsys):
     loop = cli.main(args)
     assert os.path.exists(out) and os.path.exists(ckpt)
     stats = _stats_line(capsys)
-    assert set(stats) == {"frames", "ms_per_frame", "mrays_per_sec"}
+    # --stats traces the frame: on the CPU its stage clocks are host
+    # clocks (host_stage_ms), never device ms.
+    assert set(stats) == {"frames", "ms_per_frame", "mrays_per_sec",
+                          "host_stage_ms", "span_ms", "live_lane_share"}
     assert stats["frames"] == 1 and stats["ms_per_frame"] > 0
+    assert list(stats["host_stage_ms"]) == ["raygen", "hit.d0", "nee.d0"]
+    assert stats["span_ms"]["frameloop.step"] > 0
+    assert stats["live_lane_share"] == 1.0
+    assert not tracing.enabled()
     assert _read_png(out).shape == (24, 32, 3)
     assert loop.frame == 1 and loop.accel is not None
     cli.main(args)

@@ -1413,6 +1413,58 @@ def test_post_loop_graph_is_bit_equal_to_eager(cuda):
     assert graphed.captures == 1 and eager.captures == 0
 
 
+def test_traced_loop_is_bit_equal_and_its_stage_clocks_read_the_frame(cuda):
+    """A path-traced loop with the program's tracing on
+    (utils/tracing.py): each captured step and its state bit for bit an
+    untraced loop's; the traced graph holds the stage clocks and counters
+    as extra nodes, the untraced graph none; the stage ms are positive
+    and sum to the first-to-last mark, within the CUDA events' frame
+    time; live.d0 is every pixel and the later depths fewer."""
+    import dataclasses
+
+    from hrt_tpu_torch.config import CONFIGS
+    from hrt_tpu_torch.frameloop import FrameLoop
+    from hrt_tpu_torch.utils import tracing
+
+    cfg = dataclasses.replace(CONFIGS["path_tracing"], width=128,
+                              height=96, accumulate=True)
+    cam = Camera(**BENCH_CAM)
+    plain = FrameLoop(bench_scene(), cfg, cull_threshold_px=0.0,
+                      device=cuda)
+    traced = FrameLoop(bench_scene(), cfg, cull_threshold_px=0.0,
+                       device=cuda)
+    tracing.reset()
+    event_ms = []
+    try:
+        for f in range(4):
+            tracing.disable()
+            want = plain.step(cam)
+            tracing.enable()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            got = traced.step(cam)
+            b.record()
+            torch.cuda.synchronize()
+            event_ms.append(a.elapsed_time(b))
+            assert _bits_equal(got, want)
+            assert _bits_equal(traced.accum, plain.accum)
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    marks = 1 + 3 * cfg.max_depth - 1 + 2     # raygen .. accumulate, end
+    assert (plain.program.last.graph.nodes + marks + cfg.max_depth
+            <= traced.program.last.graph.nodes)
+    assert snap["frames"] == 4 and "host_stage_ms" not in snap
+    st = snap["stage_ms"]
+    assert len(st) == marks - 1 and all(v > 0 for v in st.values())
+    assert sum(st.values()) == pytest.approx(snap["frame_ms"])
+    assert snap["frame_ms"] < sum(event_ms) / len(event_ms)
+    live = [snap["counts"][f"live.d{k}"] for k in range(cfg.max_depth)]
+    assert live[0] == cfg.width * cfg.height and live[-1] < live[0]
+
+
 def test_capture_failure_raises_and_only_the_listed_cases_go_op_by_op(
         cuda, monkeypatch):
     """A body with a host sync raises at its capture (nothing retried op

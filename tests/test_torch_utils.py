@@ -17,7 +17,7 @@ from hrt_tpu.utils import profiling as jprofiling
 from hrt_tpu_torch.config import CONFIGS
 from hrt_tpu_torch.models import scenefile, upscaler
 from hrt_tpu_torch.utils import checkpoint, image, logging as tlogging
-from hrt_tpu_torch.utils import profiling
+from hrt_tpu_torch.utils import profiling, tracing
 from hrt_tpu_torch.utils.interop import upscaler_from_numpy
 
 
@@ -100,15 +100,25 @@ def test_frame_stats_and_frame_stats_dict():
 
 
 def test_stage_timer_and_memory_stats():
-    timer = profiling.StageTimer()
-    for _ in range(2):
-        with timer.stage("trace", fence=torch.zeros(4) + 1):
-            pass
-    with timer.stage("shade"):
+    """Per-stage timers are the tracing module's spans (utils/tracing.py):
+    counts and mean ms per stage, off by default."""
+    tracing.reset()
+    with tracing.span("trace"):
         pass
-    rep = timer.report()
-    assert set(rep) == {"trace", "shade"} and timer.counts["trace"] == 2
-    assert all(v >= 0 for v in rep.values())
+    assert tracing.snapshot()["spans"] == {}
+    tracing.enable()
+    try:
+        for _ in range(2):
+            with tracing.span("trace"):
+                torch.zeros(4) + 1
+        with tracing.span("shade"):
+            pass
+        rep = tracing.snapshot()["spans"]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert set(rep) == {"trace", "shade"} and rep["trace"]["count"] == 2
+    assert all(v["total_ms"] >= 0 for v in rep.values())
     assert profiling.device_memory_stats("cpu") == {}
 
 
