@@ -132,29 +132,36 @@ over the bench frame, whose history fetches run K6.  Phases:
      (retired lanes among them), K1's visits per live ray in both orders,
      K2 vs its plain version
  26. path_tracing through FrameLoop at 1920x1080, depth 5, sorted: 4
-     steps; the launch counters must show 5 K1 closest, 5 K1 any-hit and
-     5 K2 launches a step and no K3; 2 steps replayed with the plain
+     steps; the launch counters must show 5 K1 closest, 5 K1 any-hit, 5
+     K2 and 4 K7 (the bounce stage) launches a step and no K3; 2 steps
+     replayed with the plain
      versions (PSNR > 45); frame 1 sorted vs unsorted within rtol 1e-4 /
      atol 1e-5; frames 0 and 1 finite and different
  27. BASELINE's whitted (depth 4, no Russian roulette) and mesh_bvh
      frames on the Cornell box at 800x600 through K1 and K2 (launches:
-     4 and 1 of each), vs the plain frames
+     4 and 1 of each; K7 3 and 0), vs the plain frames
  28. the instanced (K4), culled (K3) and forest (K5) loops path-traced
      (indirect, depth 2) at 512x384, 2 steps each: 2 closest and 2
-     any-hit launches of the route's walk a step and none of another
-     walk; each walk vs its plain version on 4093 rays of its depth-1
+     any-hit launches of the route's walk a step, none of another walk
+     and one K7; each walk vs its plain version on 4093 rays of its depth-1
      batch and of that batch's shadow rays
  29. animated_4k: the path_tracing frame at depth 3, 1920x1080, sorted,
      then SVGF and the temporal 2x upscaler (3840x2160), 2 steps along
-     the moving camera; per step 3 K1 closest, 3 K1 any-hit, 3 K2 and 2
-     K6 launches; step 1 vs its plain replay (PSNR > 45); peak memory
+     the moving camera; per step 3 K1 closest, 3 K1 any-hit, 3 K2, 2 K7
+     and 2 K6 launches; step 1 vs its plain replay (PSNR > 45); peak memory
  30. times (CUDA events, median of 7): ms/frame and Mray/s (bench.py's
      count: pixels x spp x (1 + lights) x depth) of path_tracing at both
      sizes, sorted and unsorted, and of animated_4k; K1 closest, any hit
      and K2 on every depth's batch of the 1080p frame (10 calls per
      sample, one call alone beside), their plain versions and bounds,
-     K1's visits; K1 on the depth-1 and depth-3 batches unsorted; the
-     sort's own time (key, torch.sort, the gathers);
+     K1's visits; K7 (the bounce stage) on every bounce depth's inputs
+     of the same frame, sorted and unsorted, bit-equal to its plain
+     version on every output and lane, timed (its wrapper, and raw
+     launches on a prepared argument block) beside its byte bound and
+     its plain version; the frame with the plain bounce stage in K7's
+     place bit-equal to the kernel frame; K1 on the depth-1 and depth-3
+     batches unsorted; the sort's own time (key, torch.sort, the
+     gathers);
      the card's busy share of one 1080p path_tracing step
      (torch.profiler, once)
  31. many lights through FrameLoop, 16 steps each at 512x384 with 2
@@ -171,8 +178,8 @@ over the bench frame, whose history fetches run K6.  Phases:
  33. scenes/studio.yaml (held here as STUDIO_SPEC: a checkerboard
      texture, a spot light, glass and chrome) at 800x600 through
      FrameLoop, 4 steps each: direct (max_depth=2), path traced
-     (max_depth=4, bounces, jitter: 4 K1 closest, 4 any hit, 4 K2 a
-     step) and brdf='pbr' (the pbr BSDF in PyTorch, no K2); each vs its
+     (max_depth=4, bounces, jitter: 4 K1 closest, 4 any hit, 4 K2 and
+     3 K7 a step) and brdf='pbr' (the pbr BSDF in PyTorch, no K2); each vs its
      plain replay, K1 and K2 on its batches vs their plain versions
  34. scenes/colonnade.yaml (COLONNADE_SPEC: a directional sun and a
      point light) through FrameLoop(two_level=True) at 512x384, 4 steps,
@@ -492,6 +499,13 @@ K5_SOURCE = "hrt_tpu_torch/csrc/tlas_skip_trace.cu"
 K5_REPLACES = "hrt_tpu/ops/tlas.py:538"
 K6_SOURCE = "hrt_tpu_torch/csrc/warp_bilinear.cu"
 K6_REPLACES = "hrt_tpu/ops/warp_pallas.py:291"
+K7_SOURCE = "hrt_tpu_torch/csrc/sample_bounce.cu"
+# No Pallas kernel: the JAX package leaves the bounce (_sample_bounce_p
+# and the roulette lines of trace_paths) to XLA.
+K7_REPLACES = "none (XLA): hrt_tpu/renderer.py:866"
+# K7's bytes a lane: 20 float planes, the int64 seed and 3 bool flags
+# read; 9 floats, the seed and `active` written.
+K7_BYTES_PER_LANE = 20 * 4 + 8 + 3 + 9 * 4 + 8 + 1
 # H100 SXM (data sheet): device memory rate, float32 rate outside the
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1110,6 +1124,7 @@ def run_post_loop(dev, cfg, steps: int, replay: int | None = None):
 
     from hrt_tpu_torch.frameloop import FrameLoop
     from hrt_tpu_torch.models.scene import bench_scene
+    from hrt_tpu_torch.ops import bounce_kernel as k7
     from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
     from hrt_tpu_torch.ops import traversal_wide8 as k1, warp_kernel as k6
 
@@ -1118,13 +1133,15 @@ def run_post_loop(dev, cfg, steps: int, replay: int | None = None):
                 "k1_closest": k1.LAUNCHES["closest"],
                 "k1_any_hit": k1.LAUNCHES["any_hit"],
                 "k2": shade_kernel.LAUNCHES["brdf_light_major"],
-                "k3": k3.LAUNCHES["closest"] + k3.LAUNCHES["any_hit"]}
+                "k3": k3.LAUNCHES["closest"] + k3.LAUNCHES["any_hit"],
+                "k7": k7.LAUNCHES["sample_bounce"]}
 
     loop = FrameLoop(bench_scene(), cfg, device=dev)
     ref_loop = FrameLoop(bench_scene(), cfg, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset(k6.LAUNCHES, k1.LAUNCHES, k3.LAUNCHES, shade_kernel.LAUNCHES)
+    reset(k6.LAUNCHES, k1.LAUNCHES, k3.LAUNCHES, shade_kernel.LAUNCHES,
+          k7.LAUNCHES)
     replay = steps if replay is None else replay
     deltas = []
     for f in range(steps):
@@ -1260,7 +1277,8 @@ def post_phases(sm: Smoke, dev, baseline=None) -> tuple:
               f"{2 * w}x{2 * h} along the moving camera")
         cfg = RenderConfig(width=w, height=h, **post)
         deltas, totals, peak, img, ref, loop = run_post_loop(dev, cfg, steps)
-        want = {"k6": 2, "k1_closest": 1, "k1_any_hit": 1, "k2": 1, "k3": 0}
+        want = {"k6": 2, "k1_closest": 1, "k1_any_hit": 1, "k2": 1, "k3": 0,
+                "k7": 0}
         sm.check(all(d == want for d in deltas) and loop.rebuilds == 0,
                  f"launches per step {deltas[-1]} on all {steps} steps, "
                  f"totals {totals}, {loop.rebuilds} rebuilds")
@@ -1699,6 +1717,44 @@ def batch_planes(b: dict, scene, cfg):
     return (*o, *d, tmax), shadow, k2
 
 
+def bounce_args(b: dict, cfg) -> dict:
+    """K7's arguments for one depth's captured batch (trace_paths'
+    `_batches`): the hits' planes as the frame gathered them."""
+    sh = b["hits"]
+    return dict(mat=sh.mat, n=sh.normal, view=sh.view,
+                world_pos=sh.world_pos, throughput=b["throughput"],
+                seed=b["seed"], entering=sh.entering, hit=sh.hit,
+                active=b["active"], bounce_offset=cfg.bounce_offset,
+                roulette=cfg.russian_roulette
+                and b["depth"] + 1 >= cfg.rr_start_depth)
+
+
+def k7_check(sm: Smoke, label: str, args) -> float:
+    """K7 against its plain version on `args` (sample_bounce's): origin,
+    direction, throughput, seed and `active` equal bit for bit on every
+    lane; returns the max abs error of the float outputs."""
+    import torch
+
+    from hrt_tpu_torch.ops import bounce_kernel
+
+    k = bounce_kernel.sample_bounce_kernel(**args)
+    p = bounce_kernel.sample_bounce_plain(**args)
+    flat = lambda r: [*r[0], *r[1], *r[2], r[3], r[4]]
+    differ, err = [], 0.0
+    for a, b in zip(flat(k), flat(p)):
+        if a.dtype == torch.float32:
+            err = max(err, float((a - b).abs().max()))
+            a, b = (t.contiguous().view(torch.int32) for t in (a, b))
+        differ.append(int((a != b).sum()))
+    live = float(args["active"].float().mean())
+    sm.check(not any(differ), f"K7 vs plain, {label} ({live:.4f} live on "
+             f"entry, roulette {args['roulette']}): bit-equal on all "
+             f"{args['n'].x.numel()} lanes; lanes differing by output "
+             f"(origin, direction and throughput xyz, seed, active) "
+             f"{differ}")
+    return err
+
+
 def capture_batches(scene, accel, cams, cfg, frame: int) -> list:
     """Every depth's batch of one frame through the kernels."""
     from hrt_tpu_torch import renderer
@@ -1801,6 +1857,7 @@ def path_loop_phase(sm: Smoke, dev) -> dict:
     from hrt_tpu_torch.frameloop import FrameLoop
     from hrt_tpu_torch.models.camera import Camera
     from hrt_tpu_torch.models.scene import bench_scene
+    from hrt_tpu_torch.ops import bounce_kernel as k7
     from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
     from hrt_tpu_torch.ops import traversal_wide8 as k1
 
@@ -1817,12 +1874,13 @@ def path_loop_phase(sm: Smoke, dev) -> dict:
         return {"k1_closest": k1.LAUNCHES["closest"],
                 "k1_any_hit": k1.LAUNCHES["any_hit"],
                 "k2": shade_kernel.LAUNCHES["brdf_light_major"],
-                "k3": k3.LAUNCHES["closest"] + k3.LAUNCHES["any_hit"]}
+                "k3": k3.LAUNCHES["closest"] + k3.LAUNCHES["any_hit"],
+                "k7": k7.LAUNCHES["sample_bounce"]}
 
     loop = FrameLoop(bench_scene(), cfg, device=dev)
     ref_loop = FrameLoop(bench_scene(), cfg, device=dev)
     torch.cuda.synchronize()
-    reset(k1.LAUNCHES, k3.LAUNCHES, shade_kernel.LAUNCHES)
+    reset(k1.LAUNCHES, k3.LAUNCHES, shade_kernel.LAUNCHES, k7.LAUNCHES)
     deltas, imgs = [], []
     for f in range(steps):
         before = counts()
@@ -1831,7 +1889,7 @@ def path_loop_phase(sm: Smoke, dev) -> dict:
     torch.cuda.synchronize()
     totals = counts()
     d = cfg.max_depth
-    want = {"k1_closest": d, "k1_any_hit": d, "k2": d, "k3": 0}
+    want = {"k1_closest": d, "k1_any_hit": d, "k2": d, "k3": 0, "k7": d - 1}
     sm.check(all(x == want for x in deltas) and loop.frame == steps,
              f"launches per step {deltas[-1]} on all {steps} steps, totals "
              f"{totals}")
@@ -1870,6 +1928,7 @@ def cornell_phase(sm: Smoke, dev) -> None:
     from hrt_tpu_torch.config import CONFIGS
     from hrt_tpu_torch.models.camera import Camera
     from hrt_tpu_torch.models.scenefile import cornell_box
+    from hrt_tpu_torch.ops import bounce_kernel as k7
     from hrt_tpu_torch.ops import lbvh, shade_kernel
     from hrt_tpu_torch.ops import traversal_wide8 as k1
 
@@ -1881,14 +1940,15 @@ def cornell_phase(sm: Smoke, dev) -> None:
         cfg = dataclasses.replace(CONFIGS[name], width=PT_CORNELL[0],
                                   height=PT_CORNELL[1])
         cams = renderer.camera_arrays(Camera(**CORNELL_CAM), cfg, dev)
-        reset(k1.LAUNCHES, shade_kernel.LAUNCHES)
+        reset(k1.LAUNCHES, shade_kernel.LAUNCHES, k7.LAUNCHES)
         img = renderer.render_frames(scene, accel, cams, 0, 1, cfg)[0]
         torch.cuda.synchronize()
         d = cfg.max_depth if cfg.indirect else 1
         got = (k1.LAUNCHES["closest"], k1.LAUNCHES["any_hit"],
-               shade_kernel.LAUNCHES["brdf_light_major"])
-        sm.check(got == (d, d, d), f"{name}: K1 closest, any-hit and K2 "
-                 f"launches {got}, {d} each")
+               shade_kernel.LAUNCHES["brdf_light_major"],
+               k7.LAUNCHES["sample_bounce"])
+        sm.check(got == (d, d, d, d - 1), f"{name}: K1 closest, any-hit, K2 "
+                 f"and K7 launches {got}, {d} each and {d - 1} K7")
         ref = renderer.render_frames(scene, accel, cams, 0, 1, cfg,
                                      plain=True)[0]
         p = psnr4(img, ref)
@@ -1906,6 +1966,7 @@ def route_phase(sm: Smoke, dev, routes: dict) -> None:
 
     import torch
 
+    from hrt_tpu_torch.ops import bounce_kernel as k7
     from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
     from hrt_tpu_torch.ops import traversal_tlas8 as k4
     from hrt_tpu_torch.ops import traversal_tlas_skip as k5
@@ -1922,7 +1983,7 @@ def route_phase(sm: Smoke, dev, routes: dict) -> None:
         loop.reset_history()
         ok = True
         for f in range(2):
-            reset(shade_kernel.LAUNCHES,
+            reset(shade_kernel.LAUNCHES, k7.LAUNCHES,
                   *(m.LAUNCHES for m in walks.values()))
             img = step(f)
             torch.cuda.synchronize()
@@ -1930,10 +1991,11 @@ def route_phase(sm: Smoke, dev, routes: dict) -> None:
             want = {k: ({"closest": 2, "any_hit": 2} if k == name
                         else {"closest": 0, "any_hit": 0}) for k in walks}
             ok &= (got == want
-                   and shade_kernel.LAUNCHES["brdf_light_major"] == 2)
+                   and shade_kernel.LAUNCHES["brdf_light_major"] == 2
+                   and k7.LAUNCHES["sample_bounce"] == 1)
         sm.check(ok, f"{name} loop: launches per step {got[name]} on both "
-                 f"steps, K2 {shade_kernel.LAUNCHES['brdf_light_major']}, no "
-                 "other walk")
+                 f"steps, K2 {shade_kernel.LAUNCHES['brdf_light_major']}, K7 "
+                 f"{k7.LAUNCHES['sample_bounce']}, no other walk")
         sm.check(tuple(img.shape) == (h, w, 3)
                  and bool(torch.isfinite(img).all()),
                  f"{name} loop: frame {tuple(img.shape)} finite")
@@ -1977,7 +2039,8 @@ def animated_phase(sm: Smoke, dev) -> dict:
           "camera")
     deltas, totals, peak, img, ref, loop = run_post_loop(dev, cfg, steps,
                                                          replay=1)
-    want = {"k6": 2, "k1_closest": 3, "k1_any_hit": 3, "k2": 3, "k3": 0}
+    want = {"k6": 2, "k1_closest": 3, "k1_any_hit": 3, "k2": 3, "k3": 0,
+            "k7": 2}
     sm.check(all(d == want for d in deltas), f"launches per step "
              f"{deltas[-1]} on all {steps} steps, totals {totals}")
     sm.check(tuple(img.shape) == (2 * h, 2 * w, 3)
@@ -2015,7 +2078,7 @@ def path_times(sm: Smoke, dev, scene, accel, pt: dict, anim: dict) -> dict:
     batch of the 1080p frame beside their bounds and held against their
     plain versions, the sort's own time and the card's busy share.
     Returns the kernels line's entries for the path_tracing frame's K1
-    (both modes) and K2 launches, their max abs errors from these
+    (both modes), K2 and K7 launches, their max abs errors from these
     batches."""
     import dataclasses
 
@@ -2025,8 +2088,9 @@ def path_times(sm: Smoke, dev, scene, accel, pt: dict, anim: dict) -> dict:
     from hrt_tpu_torch.config import CONFIGS
     from hrt_tpu_torch.frameloop import FrameLoop
     from hrt_tpu_torch.models.camera import Camera
+    from hrt_tpu_torch.kernels import build
     from hrt_tpu_torch.models.scene import bench_scene
-    from hrt_tpu_torch.ops import shade_kernel, wavefront
+    from hrt_tpu_torch.ops import bounce_kernel, shade_kernel, wavefront
     from hrt_tpu_torch.ops import traversal_wide8 as k1
 
     phase("phase 30: path-traced times (CUDA events, median of 7; the "
@@ -2110,6 +2174,52 @@ def path_times(sm: Smoke, dev, scene, accel, pt: dict, anim: dict) -> dict:
     # the sort buys the walks.
     uns_cfg = dataclasses.replace(cfg, sort_bounces=False)
     uns = capture_batches(scene, accel, cams, uns_cfg, frame=1)
+    # K7 on every bounce depth's inputs, sorted (timed) and unsorted (as
+    # the benchmark's cells render), against its plain version.
+    lib = build.load()
+    t7 = dict(ms=0.0, launch_ms=0.0, plain_ms=0.0, bytes=0.0, err=0.0)
+    for b, bu in zip(batches[:-1], uns[:-1]):
+        depth = b["depth"]
+        args = bounce_args(b, cfg)
+        label = f"depth-{depth} bounce {w}x{h}"
+        err = k7_check(sm, f"{label} sorted", args)
+        k7_check(sm, f"{label} unsorted", bounce_args(bu, uns_cfg))
+        n = b["o"].x.numel()
+        outs = (torch.empty((9, n), device=dev),
+                torch.empty((n,), dtype=torch.int64, device=dev),
+                torch.empty((n,), dtype=torch.bool, device=dev))
+        block = bounce_kernel.pack_args(**args, out=outs[0],
+                                        seed_out=outs[1], active_out=outs[2])
+        stream = build.stream(dev)
+        ms = time_ms(lambda: bounce_kernel.sample_bounce_kernel(**args),
+                     calls=10)
+        launch_ms = time_ms(lambda: lib.hrt_sample_bounce(block, stream),
+                            calls=20)
+        plain_ms = time_ms(lambda: bounce_kernel.sample_bounce_plain(**args),
+                           reps=3)
+        n_bytes = K7_BYTES_PER_LANE * n
+        print(f"  K7 depth {depth} ({float(args['active'].float().mean()):.4f}"
+              f" live on entry): {ms:.4f} ms (raw launches {launch_ms:.4f}),"
+              f" plain {plain_ms:.4f} ms, bound {bound(n_bytes)[0]:.6f} ms "
+              f"(bytes; {n_bytes} bytes)", flush=True)
+        t7["ms"] += ms
+        t7["launch_ms"] += launch_ms
+        t7["plain_ms"] += plain_ms
+        t7["bytes"] += n_bytes
+        t7["err"] = max(t7["err"], err)
+    # The frame with the plain bounce stage in K7's place (render_rows
+    # runs op by op, so the swap takes).
+    img = renderer.render_rows(scene, accel, cams, 0, h, uns_cfg, frame=1)
+    kernel_route = bounce_kernel.sample_bounce
+    bounce_kernel.sample_bounce = bounce_kernel.sample_bounce_plain
+    try:
+        ref = renderer.render_rows(scene, accel, cams, 0, h, uns_cfg, frame=1)
+    finally:
+        bounce_kernel.sample_bounce = kernel_route
+    sm.check(torch.equal(img, ref), f"{w}x{h} frame 1 unsorted: the frame "
+             "with the plain bounce stage in K7's place bit-equal to the "
+             f"kernel frame ({int((img != ref).any(-1).sum())} pixels differ)")
+    del img, ref
     for depth in (1, 3):
         ordered = {"sorted": batch_planes(batches[depth], scene, cfg),
                    "unsorted": batch_planes(uns[depth], scene, uns_cfg)}
@@ -2153,11 +2263,19 @@ def path_times(sm: Smoke, dev, scene, accel, pt: dict, anim: dict) -> dict:
         print(f"  {key}, the frame's {cfg.max_depth} launches: {t['ms']:.4f} "
               f"ms, plain {t['plain_ms']:.4f} ms, bound {bms:.6f} ms ({by})",
               flush=True)
+    bms, by = bound(t7["bytes"])
+    entries["k7"] = {"max_abs_err": t7["err"], "ms": t7["ms"],
+                     "launch_ms": t7["launch_ms"], "plain_ms": t7["plain_ms"],
+                     "bound_ms": bms, "bound_by": by, "library_ms": None}
+    print(f"  k7, the frame's {cfg.max_depth - 1} launches: {t7['ms']:.4f} "
+          f"ms (raw launches {t7['launch_ms']:.4f}), plain "
+          f"{t7['plain_ms']:.4f} ms, bound {bms:.6f} ms ({by})", flush=True)
     return entries
 
 
 def launch_counts() -> dict:
     """Every kernel's launch counters, by kernel."""
+    from hrt_tpu_torch.ops import bounce_kernel as k7
     from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
     from hrt_tpu_torch.ops import traversal_tlas8 as k4
     from hrt_tpu_torch.ops import traversal_tlas_skip as k5
@@ -2173,12 +2291,14 @@ def launch_counts() -> dict:
             "k5": k5.LAUNCHES["closest"] + k5.LAUNCHES["any_hit"],
             "k6": k6.LAUNCHES["warp_bilinear"],
             "k6_backward": k6.LAUNCHES["warp_bilinear_backward"],
+            "k7": k7.LAUNCHES["sample_bounce"],
             # The walks' debug builds (phase 44): none on a normal path.
             **{f"{name}_debug": sum(m.DEBUG_LAUNCHES.values())
                for name, m in (("k1", k1), ("k3", k3), ("k4", k4))}}
 
 
 def reset_all() -> None:
+    from hrt_tpu_torch.ops import bounce_kernel as k7
     from hrt_tpu_torch.ops import shade_kernel, traversal_skip as k3
     from hrt_tpu_torch.ops import traversal_tlas8 as k4
     from hrt_tpu_torch.ops import traversal_tlas_skip as k5
@@ -2186,8 +2306,8 @@ def reset_all() -> None:
     from hrt_tpu_torch.ops import warp_kernel as k6
 
     reset(k1.LAUNCHES, k3.LAUNCHES, k4.LAUNCHES, k5.LAUNCHES,
-          shade_kernel.LAUNCHES, k6.LAUNCHES, k1.DEBUG_LAUNCHES,
-          k3.DEBUG_LAUNCHES, k4.DEBUG_LAUNCHES)
+          shade_kernel.LAUNCHES, k6.LAUNCHES, k7.LAUNCHES,
+          k1.DEBUG_LAUNCHES, k3.DEBUG_LAUNCHES, k4.DEBUG_LAUNCHES)
 
 
 def drive_loop(sm: Smoke, label: str, loop, cam, steps: int,
@@ -2369,7 +2489,7 @@ def scene_file_phases(sm: Smoke, dev) -> dict:
         sm.check(tuple(loop.scene.textures.shape) == (1, 256, 256, 3),
                  f"{label}: one 256x256 texture on the card")
         want = {"k1_closest": d, "k1_any_hit": d,
-                "k2": 0 if cfg.brdf == "pbr" else d}
+                "k2": 0 if cfg.brdf == "pbr" else d, "k7": d - 1}
         r = drive_loop(sm, label, loop, cam, steps, want)
         r.update(nee_checks(sm, label, loop, k1, steps), loop=loop)
         out[label] = r
@@ -2695,13 +2815,16 @@ def want_launches(sm: Smoke, label: str, counts: dict, loop, frames: int,
                   depth: int, k6: int = 0) -> None:
     """A run's launches: a BRDF call and a closest and an any-hit walk a
     depth a frame, by the accel's route (K1, or K3 after a culling
-    rebuild; K4 for a two-level loop), and `k6` warps."""
+    rebuild; K4 for a two-level loop), a bounce (K7) a depth but the
+    last, and `k6` warps."""
     n = frames * depth
+    bounces = frames * (depth - 1)
     if loop.two_level:
-        want = {"k4_closest": n, "k4_any_hit": n, "k2": n, "k6": k6}
+        want = {"k4_closest": n, "k4_any_hit": n, "k2": n, "k6": k6,
+                "k7": bounces}
         ok = counts == {k: want.get(k, 0) for k in counts}
     elif loop.accel is None:
-        want = {"k2": n, "k6": k6}
+        want = {"k2": n, "k6": k6, "k7": bounces}
         ok = counts == {k: want.get(k, 0) for k in counts}
     else:
         walks = counts["k1_closest"] + counts["k1_any_hit"] + counts["k3"]
@@ -2709,6 +2832,7 @@ def want_launches(sm: Smoke, label: str, counts: dict, loop, frames: int,
               and counts["k1_closest"] == counts["k1_any_hit"]
               and counts["k4_closest"] + counts["k4_any_hit"]
               + counts["k5"] == 0 and counts["k6"] == k6
+              and counts["k7"] == bounces
               and (loop.rebuilds > 0 or counts["k3"] == 0))
     sm.check(ok, f"{label}: launches {counts} ({frames} frame(s) x {depth} "
              f"depth(s), {loop.rebuilds} rebuild(s))")
@@ -3998,8 +4122,9 @@ def multi_gpu_phases(sm: Smoke, dev, scene, accel) -> dict:
                                  frame=1)
     differ = (bands != whole).any(-1)
     sm.check(all(counts[k] >= 4 for k in one_frame)
-             and counts["k3"] == 0, f"4 path_tracing bands: launches "
-             f"{counts}")
+             and counts["k3"] == 0
+             and counts["k7"] == 4 * (cfg.max_depth - 1),
+             f"4 path_tracing bands: launches {counts}")
     sm.check(not bool(differ.any()),
              f"4 bands bit-equal to the whole frame ({int(differ.sum())} "
              "pixels differ, rows "
@@ -4484,12 +4609,12 @@ def counted_steps(sm: Smoke, loops: dict) -> dict:
         cfg = loop.config
         depth = cfg.max_depth if cfg.indirect else 1
         got = launch_counts()
-        others = {k: v for k, v in got.items() if k not in (f"{name}_debug",
-                                                            "k2")}
+        others = {k: v for k, v in got.items()
+                  if k not in (f"{name}_debug", "k2", "k7")}
         n = cfg.width * cfg.height * cfg.spp
         sm.check(dict(mod.DEBUG_LAUNCHES) == {"closest": depth,
                                               "any_hit": depth}
-                 and not any(others.values())
+                 and not any(others.values()) and got["k7"] == depth - 1
                  and mod.LAST_COUNTERS["tests"].numel() >= n
                  and torch.equal(img, want),
                  f"{name} FrameLoop.step with HRT_DEBUG_COUNTERS=1 "
@@ -4632,10 +4757,10 @@ def debug_phases(sm: Smoke, dev, cases: dict, loops: dict, times: dict,
 # the walks it must not: every configuration runs with culling off.
 BENCH_FULL_KERNELS = {
     "primary_800x600": ("k1_closest", "k1_any_hit", "k2"),
-    "whitted_800x600": ("k1_closest", "k1_any_hit", "k2"),
+    "whitted_800x600": ("k1_closest", "k1_any_hit", "k2", "k7"),
     "mesh_bvh_800x600": ("k1_closest", "k1_any_hit", "k2"),
-    "path_tracing_1080p": ("k1_closest", "k1_any_hit", "k2"),
-    "animated_4k_upscaled": ("k1_closest", "k1_any_hit", "k2", "k6"),
+    "path_tracing_1080p": ("k1_closest", "k1_any_hit", "k2", "k7"),
+    "animated_4k_upscaled": ("k1_closest", "k1_any_hit", "k2", "k6", "k7"),
     "instanced_tlas_512x384": ("k4_closest", "k4_any_hit", "k2"),
     "many_lights_256_512x384": ("k1_closest", "k1_any_hit", "k2"),
 }
@@ -4759,7 +4884,8 @@ def entry_points_phase(sm: Smoke, dev, smi: str) -> dict:
                  f"profile_frame {cfg}: K1 and K2 among the top 40 ops, "
                  f"busy {r['busy']:.4f} in (0, 1], trace written")
         want_kernels(sm, f"profile_frame {cfg}", counts,
-                     ("k1_closest", "k1_any_hit", "k2"))
+                     ("k1_closest", "k1_any_hit", "k2")
+                     + (("k7",) if cfg == "path1080" else ()))
 
     reset_all()
     big, _ = run_entry(bench_bigscene.main, ["--sub", str(BIGSCENE_SUB)])
@@ -6098,8 +6224,8 @@ def main() -> int:
         {"name": "warp_bilinear_backward", "route": "cuda",
          "source": K6_SOURCE, "replaces": K6_REPLACES, **k6_bwd},
         # The path_tracing frame (1080p, depth 5, sorted): one frame's five
-        # launches of each, every depth's batch; launches over phase 26's
-        # 4 steps.
+        # launches of each (K7: four), every depth's batch; launches over
+        # phase 26's 4 steps.
         {"name": "bvh8_trace_closest (path_tracing frame)", "route": "cuda",
          "source": K1_SOURCE, "replaces": K1_REPLACES,
          "launches": pt["totals"]["k1_closest"], **p_times["closest"]},
@@ -6109,6 +6235,11 @@ def main() -> int:
         {"name": "brdf_light_major (path_tracing frame)", "route": "cuda",
          "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": pt["totals"]["k2"], **p_times["k2"]},
+        # The frame's four bounce launches; launch_ms: raw launches on a
+        # prepared argument block, ms the whole wrapper call.
+        {"name": "sample_bounce (path_tracing frame)", "route": "cuda",
+         "source": K7_SOURCE, "replaces": K7_REPLACES,
+         "launches": pt["totals"]["k7"], **p_times["k7"]},
         # The many_lights_256 frame by the tree (512x384, 2 samples): its
         # batches' K1 closest, K1 any hit over the 2-sample light-major
         # batch and K2 with L = 2; launches over phase 31's 16 steps.

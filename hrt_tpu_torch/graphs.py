@@ -44,7 +44,7 @@ launch.  `Programs` is a bounded cache of captured bodies:
   stream, one after another, and nothing a body makes outlives its
   replay but its outputs, which stay allocated: a training body's
   persistent state is made outside the pool, before its capture.
-- The kernel wrappers' launch counters (`LAUNCHES` of K1 to K6) count
+- The kernel wrappers' launch counters (`LAUNCHES` of K1 to K7) count
   launches on the card, replayed or not: the counters' change during a
   capture (host code that ran once, launching nothing) is taken back
   and added again at every replay.
@@ -147,13 +147,15 @@ def _debug_builds() -> bool:
 
 
 def launch_counters() -> list[dict]:
-    """The kernel wrappers' launch counters, K1 to K6."""
-    from .ops import (shade_kernel, traversal_skip, traversal_tlas8,
-                      traversal_tlas_skip, traversal_wide8, warp_kernel)
+    """The kernel wrappers' launch counters, K1 to K7."""
+    from .ops import (bounce_kernel, shade_kernel, traversal_skip,
+                      traversal_tlas8, traversal_tlas_skip, traversal_wide8,
+                      warp_kernel)
 
     return [m.LAUNCHES for m in (traversal_wide8, shade_kernel,
                                  traversal_skip, traversal_tlas8,
-                                 traversal_tlas_skip, warp_kernel)]
+                                 traversal_tlas_skip, warp_kernel,
+                                 bounce_kernel)]
 
 
 def constant(values, device, dtype=torch.float32) -> torch.Tensor:

@@ -13,7 +13,14 @@ keyed by a hash of the sources and flags, so a changed source rebuilds
 and an unchanged one loads at once.  Building happens at the first
 `load()`; nvcc's ptxas report (registers, spills) is kept beside it as
 `<name>.log`.  A missing nvcc or a failed build raises with nvcc's
-stderr.  No fast-math: FMA contraction stays on, as nvcc's default.
+stderr.  No fast-math: FMA contraction stays on, as nvcc's default,
+except in the files of FILE_FLAGS, which add their own flags to the
+compile.  A kernel that has to round every product and sum on its own,
+as torch's one-op kernels do, to equal its plain version bit for bit
+lists `-fmad=false` there (K7 does); that is the way to do it.  K2 and
+K6, written before FILE_FLAGS, spell those roundings out with
+`__fmul_rn` / `__fadd_rn` in their source instead.  `compile_flags`
+gives one file's whole flag list to every compile path.
 """
 from __future__ import annotations
 
@@ -33,6 +40,13 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# Flags added to one file's compile.
+FILE_FLAGS = {"sample_bounce.cu": ["-fmad=false"]}
+
+
+def compile_flags(src: str) -> list[str]:
+    """nvcc's flags for compiling the .cu file `src` to an object."""
+    return [*NVCC_FLAGS, *FILE_FLAGS.get(os.path.basename(src), [])]
 
 _lib: ctypes.CDLL | None = None
 
@@ -55,7 +69,8 @@ def _sources() -> list[str]:
 
 
 def lib_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(
+        FILE_FLAGS.items()))).encode())
     for src in _sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
@@ -107,7 +122,7 @@ def build() -> str:
 
     def stages(tmp):
         objs = [f"{tmp}.{os.path.basename(src)}.o" for src in cu]
-        return [[[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        return [[[nvcc, *compile_flags(src), "-c", "-o", obj, src]
                  for src, obj in zip(cu, objs)],
                 [[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]]]
 
@@ -124,7 +139,7 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    from ..ops import shade_kernel
+    from ..ops import bounce_kernel, shade_kernel
 
     cdll = ctypes.CDLL(build())
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -145,6 +160,8 @@ def load() -> ctypes.CDLL:
         + [p] * 6 + [p]
     cdll.hrt_brdf_light_major.restype = i
     cdll.hrt_brdf_light_major.argtypes = [shade_kernel.BrdfArgs, p]
+    cdll.hrt_sample_bounce.restype = i
+    cdll.hrt_sample_bounce.argtypes = [bounce_kernel.BounceArgs, p]
     cdll.hrt_warp_bilinear.restype = i
     cdll.hrt_warp_bilinear.argtypes = [p, i, i, i, i, i, i, p, p, i, p, p,
                                          p]

@@ -12,11 +12,12 @@ tree past MAX_WIDE_NODES), or a two-level TwoLevelFlat (ops/tlas.py),
 traced by K4 (BVH8 route) or K5 (binary route) and shaded through the
 hit instance's normal matrix and material.  Every depth's closest and
 shadow traces go to the accel's walk, every depth's Disney BRDF to K2
-(the pbr BSDF, as in the JAX package, stays plain PyTorch).  With no
-accel, or `traversal="bruteforce"` on a single-level scene, every
-trace tests every triangle (ops/intersect.py, plain PyTorch as in the
-JAX package) in ray blocks, and hits shade from the scene's attribute
-table in original ids.
+(the pbr BSDF, as in the JAX package, stays plain PyTorch), every
+depth's bounce sampling and roulette to K7 (ops/bounce_kernel.py).
+With no accel, or `traversal="bruteforce"` on a single-level scene,
+every trace tests every triangle (ops/intersect.py, plain PyTorch as in
+the JAX package) in ray blocks, and hits shade from the scene's
+attribute table in original ids.
 
 hrt_tpu/renderer.py's `trace_paths` and `render_rows` in plain PyTorch
 around the kernels.  Per-pixel output is the JAX package's: the same
@@ -31,9 +32,10 @@ loop (raygen computed once when there is no jitter), captured on the
 card as one CUDA graph (graphs.py), the counterpart of the JAX
 package's jit of a scan.
 
-Every entry point takes `plain=False`; `plain=True` routes the walks
-and the BRDF to their plain PyTorch versions on whatever device the
-tensors are on, which is how a reference frame is rendered on the card.
+Every entry point takes `plain=False`; `plain=True` routes the walks,
+the BRDF and the bounce to their plain PyTorch versions on whatever
+device the tensors are on, which is how a reference frame is rendered
+on the card.
 `trace_paths` and `render_rows` also return the first hit's G-buffer
 when asked (`want_gbuffer`), for the post stages (ops/denoise.py,
 models/upscaler.py).
@@ -53,13 +55,12 @@ from . import graphs
 from .config import RenderConfig, require_slice, resolve_device
 from .models.camera import Camera, CameraArrays, primary_rays_from_px_p
 from .models.lights import process_light, process_light_one
-from .models.materials import BASE_COLOR_TEX, ROUGHNESS_MIN, MatP
+from .models.materials import BASE_COLOR_TEX, MatP
 from .models.scene import Scene, SceneData
 from .models.sky import eval_sky_p
 from .models.textures import sample_texture_p
-from .ops import (intersect, lbvh, lightbvh, math3d, pbr, rng, sampling,
+from .ops import (bounce_kernel, intersect, lbvh, lightbvh, math3d, pbr, rng,
                   shade_kernel, tlas, traversal, v3, wavefront)
-from .ops.disney import schlick_weight
 from .ops.intersect import INF
 from .ops.lbvh import ATTR_MAT, Accel
 from .ops.tlas import TwoLevelFlat
@@ -456,74 +457,6 @@ def _gbuffer(sh: SurfaceHits) -> dict:
     }
 
 
-def _refract_p(view: V3, n: V3, eta):
-    """Snell refraction of the viewing direction about n (both unit, n
-    facing the viewer) -> (direction, total internal reflection mask)."""
-    cos_i = v3.dot(view, n)
-    sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
-    tir = sin2_t > 1.0
-    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
-    d = view * (-eta) + n * (eta * cos_i - cos_t)
-    return v3.normalize(d), tir
-
-
-def _sample_bounce_p(mat: MatP, n: V3, view: V3, seed, entering, frame):
-    """One-sample lobe selection, as the JAX package's: transmission
-    (Snell + TIR, Fresnel-chosen mirror), specular (GGX-VNDF) or diffuse
-    (cosine).  Draws, in order: u0 and u1 (rand2), the lobe, the
-    Fresnel choice, the transmission choice.  `entering` (the front face
-    was hit) sets eta; `frame` is the normal's orthonormal basis.
-    Returns (direction, weight, seed, transmitted mask)."""
-    u0, u1, seed = rng.rand2(seed)
-    usel, seed = rng.rand(seed)
-    metallic = mat.metallic
-    rough = torch.clamp(mat.roughness, min=ROUGHNESS_MIN)
-    transmission = mat.transmission
-    ior = torch.clamp(mat.ior, min=1.0001)
-    p_spec = torch.clamp(metallic + 0.25 * (1.0 - rough), 0.0, 0.95)
-
-    d_spec, w_spec = sampling.ggx_vndf_spherical_cap_p(mat, view, n, u0, u1,
-                                                       frame)
-    local_diff, _ = sampling.cosine_hemisphere_p(u0, u1)
-    d_diff = v3.to_world(local_diff, n, frame)
-
-    color = mat.color
-    # Metals reflect their color; dielectric specular is achromatic,
-    # scaled by a Schlick weight.
-    h = v3.normalize(view + d_spec)
-    fres = schlick_weight(v3.dot(d_spec, h))
-    spec_col = ((color + (1.0 - color) * fres) * metallic
-                + (0.04 + 0.96 * fres) * (1.0 - metallic))
-    diff_col = color * (1.0 - metallic)
-
-    take_spec = usel < p_spec
-    direction = v3.where(take_spec, d_spec, d_diff)
-    p = torch.where(take_spec, torch.clamp(p_spec, min=1e-3),
-                    torch.clamp(1.0 - p_spec, min=1e-3))
-    weight = v3.where(take_spec, spec_col * w_spec, diff_col) * (1.0 / p)
-    # Kill specular samples below the horizon.
-    weight = v3.where(take_spec & (w_spec <= 0.0), _zero3(usel), weight)
-
-    # Transmission lobe: a Fresnel-weighted choice between refraction
-    # and mirror reflection; total internal reflection always reflects.
-    eta = torch.where(entering, 1.0 / ior, ior)
-    d_refr, tir = _refract_p(view, n, eta)
-    cos_i = torch.abs(v3.dot(view, n))
-    f0 = ((1.0 - ior) / (1.0 + ior)) ** 2
-    fr = f0 + (1.0 - f0) * schlick_weight(cos_i)
-    u_t, seed = rng.rand(seed)
-    reflect_inst = tir | (u_t < fr)
-    d_mirr = v3.normalize(n * (2.0 * v3.dot(view, n)) - view)
-    d_trans = v3.where(reflect_inst, d_mirr, d_refr)
-    u_tsel, seed = rng.rand(seed)
-    take_trans = (transmission > 0.0) & (u_tsel < transmission)
-    transmitted = take_trans & ~reflect_inst
-
-    direction = v3.where(take_trans, d_trans, direction)
-    weight = v3.where(take_trans, color, weight)
-    return direction, weight, seed, transmitted
-
-
 def _empty_gbuffer(n: int, device) -> dict:
     zeros = lambda *s: torch.zeros((n, *s), device=device)
     return {"normal": zeros(3), "depth": zeros(), "albedo": zeros(3) + 1.0,
@@ -549,13 +482,13 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
     depth 0's radiance stays in pixel order.
 
     `_batches`, a list, receives each depth's closest-hit batch, its
-    shading inputs and the rays active on entry (a dict per depth; for
-    measurements and tests).
+    shading inputs, the throughput and the rays active on entry (a dict
+    per depth; for measurements and tests).
 
     Inside a traced frame (utils/tracing.frame) each depth k marks the
     stage clocks `hit.d<k>` (the sort, the closest walk and the
     attribute gather), `nee.d<k>` (sky, the light batch, K2, the shadow
-    walk, emission) and `bounce.d<k>` (the bounce, roulette,
+    walk, emission) and `bounce.d<k>` (K7: the bounce, roulette,
     retirement), and counts its live rays on entry as `live.d<k>`."""
     require_slice(config)
     if accel is not None and not isinstance(accel, (Accel, TwoLevelFlat)):
@@ -594,7 +527,7 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
         if _batches is not None:
             _batches.append({"depth": depth, "o": o, "d": d, "t_max": t_max,
                              "hits": sh._replace(hit=hit), "seed": seed,
-                             "active": active})
+                             "active": active, "throughput": throughput})
 
         tracing.mark(f"nee.d{depth}")
         sky_rad = eval_sky_p(scene.sky, d, enabled=config.sky)
@@ -613,22 +546,12 @@ def trace_paths(scene: SceneData, accel, o: V3, d: V3, seeds,
             break
 
         tracing.mark(f"bounce.d{depth}")
-        basis = v3.orthonormal_basis(sh.normal)
-        new_d, weight, seed, transmitted = _sample_bounce_p(
-            sh.mat, sh.normal, sh.view, seed, sh.entering, basis)
-        throughput = throughput * weight
-        side = torch.where(transmitted, -1.0, 1.0)
-        o = sh.world_pos + sh.normal * (side * config.bounce_offset)
-        d = new_d
-        alive = v3.max_component(throughput) > 1e-5
-        active = active & hit & alive
-        if config.russian_roulette and depth + 1 >= config.rr_start_depth:
-            p_cont = torch.clamp(v3.max_component(throughput), 0.05, 0.95)
-            u_rr, seed = rng.rand(seed)
-            throughput = throughput * (1.0 / p_cont)
-            active = active & (u_rr < p_cont)
-        # Retired rays keep their lanes with throughput 0.
-        throughput = v3.where(active, throughput, 0.0)
+        bounce = (bounce_kernel.sample_bounce_plain if plain
+                  else bounce_kernel.sample_bounce)
+        o, d, throughput, seed, active = bounce(
+            sh.mat, sh.normal, sh.view, sh.world_pos, throughput, seed,
+            sh.entering, hit, active, config.bounce_offset,
+            config.russian_roulette and depth + 1 >= config.rr_start_depth)
 
     if orig is not None:
         # Back to pixel order: ray i of the sorted wavefront is pixel

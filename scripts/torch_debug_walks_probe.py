@@ -61,7 +61,7 @@ def compile_all(src_dir: str, out_dir: str) -> dict:
     for src in cu:
         obj = os.path.join(out_dir, os.path.basename(src) + ".o")
         procs.append((src, obj, time.perf_counter(), subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-c", "-o", obj, src],
+            [nvcc, *build.compile_flags(src), "-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     ends = {}
     while len(ends) < len(procs):   # each file's end, as it comes

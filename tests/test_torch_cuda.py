@@ -16,8 +16,8 @@ from hrt_tpu_torch.config import RenderConfig
 from hrt_tpu_torch.models.camera import Camera
 from hrt_tpu_torch.models.materials import MatP
 from hrt_tpu_torch.models.scene import bench_scene, instance_grid_scene
-from hrt_tpu_torch.ops import (lbvh, shade_kernel, tlas, traversal_tlas8,
-                               traversal_wide8, wide8)
+from hrt_tpu_torch.ops import (bounce_kernel, lbvh, shade_kernel, tlas,
+                               traversal_tlas8, traversal_wide8, wide8)
 from hrt_tpu_torch.ops.intersect import (any_hit_bruteforce,
                                          closest_hit_bruteforce)
 from hrt_tpu_torch.ops.v3 import V3
@@ -737,21 +737,122 @@ def test_k1_on_bounce_batches_with_dead_lanes(cuda, closest):
 
 def test_path_traced_frame_matches_plain(cuda):
     """A 64x48 path_tracing frame (depth 5, jitter, sorted) through the
-    kernels: five launches of each per frame, and the plain frame's
-    image (PSNR > 45)."""
+    kernels: five launches of K1 and K2 per frame, four of K7, and the
+    plain frame's image (PSNR > 45)."""
     cfg = _path_cfg(64, 48)
     scene = bench_scene().build(cuda)
     accel = lbvh.build_bvh_sah(scene, leaf_size=32)
     cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, cuda)
-    before = (dict(traversal_wide8.LAUNCHES), dict(shade_kernel.LAUNCHES))
+    before = (dict(traversal_wide8.LAUNCHES), dict(shade_kernel.LAUNCHES),
+              bounce_kernel.LAUNCHES["sample_bounce"])
     img = renderer.render_frames(scene, accel, cams, 3, 1, cfg)
     assert traversal_wide8.LAUNCHES == {
         m: c + 5 for m, c in before[0].items()}
     assert shade_kernel.LAUNCHES == {m: c + 5 for m, c in before[1].items()}
+    assert bounce_kernel.LAUNCHES["sample_bounce"] == before[2] + 4
     ref = renderer.render_frames(scene, accel, cams, 3, 1, cfg, plain=True)
     assert torch.isfinite(img).all()
     assert psnr(img[0].clamp(0, 4).cpu().numpy(),
                 ref[0].clamp(0, 4).cpu().numpy(), peak=4.0) > 45.0
+
+
+_STAGE_OUT = ("origin.x", "origin.y", "origin.z", "direction.x",
+              "direction.y", "direction.z", "throughput.x", "throughput.y",
+              "throughput.z", "seed", "active")
+
+
+def _check_bounce(b: dict, roulette: bool):
+    """K7 on one batch (sample_bounce's keyword arguments but the
+    offset and the roulette flag): one launch, and every output equal to
+    the plain version's bit for bit on every lane."""
+    from test_torch_bounce import OFFSET, bits
+
+    before = bounce_kernel.LAUNCHES["sample_bounce"]
+    k = bounce_kernel.sample_bounce(**b, bounce_offset=OFFSET,
+                                    roulette=roulette)
+    assert bounce_kernel.LAUNCHES["sample_bounce"] == before + 1
+    p = bounce_kernel.sample_bounce_plain(**b, bounce_offset=OFFSET,
+                                          roulette=roulette)
+    torch.cuda.synchronize()
+    for name, kb, pb in zip(_STAGE_OUT, bits(k), bits(p)):
+        assert torch.equal(kb, pb), \
+            f"{name}: {int((kb != pb).sum())} of {kb.numel()} lanes differ"
+    return k
+
+
+def _stage_inputs(batch: dict) -> dict:
+    """sample_bounce's inputs at one depth of trace_paths' _batches."""
+    sh = batch["hits"]
+    return dict(mat=sh.mat, n=sh.normal, view=sh.view,
+                world_pos=sh.world_pos, throughput=batch["throughput"],
+                seed=batch["seed"], entering=sh.entering, hit=sh.hit,
+                active=batch["active"])
+
+
+def test_bounce_kernel_matches_plain_on_frame_batches(cuda):
+    """K7 on every bounce depth of a 64x48 path_tracing frame (sorted,
+    depth 5: roulette off at depth 0, on from depth 1; most lanes of the
+    late depths retired), its material planes strided rows of the
+    attribute gather, bit for bit."""
+    cfg = _path_cfg(64, 48)
+    scene = bench_scene().build(cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cams = renderer.camera_arrays(Camera(**BENCH_CAM), cfg, cuda)
+    batches = []
+    renderer.render_rows(scene, accel, cams, 0, 48, cfg, frame=3,
+                         _batches=batches)
+    assert len(batches) == 5
+    for depth, batch in enumerate(batches[:4]):
+        b = _stage_inputs(batch)
+        assert b["mat"].metallic.stride(0) > 1
+        dead = ~batch["active"]
+        assert (dead.any() or depth == 0) and batch["active"].any()
+        _check_bounce(b, cfg.russian_roulette
+                      and depth + 1 >= cfg.rr_start_depth)
+
+
+@pytest.mark.parametrize("roulette", [False, True])
+def test_bounce_kernel_matches_plain_through_glass(cuda, roulette):
+    """K7 on the studio scene's depth-0 and depth-1 batches at 64x48
+    (its glass: transmission 1, ior 1.5, so refraction, total internal
+    reflection and the Fresnel choice all run; its textured floor: the
+    color a fresh product), bit for bit; glass lanes both refract and
+    reflect."""
+    import chip_smoke
+    from hrt_tpu_torch.models.scenefile import scene_from_dict
+
+    cfg = RenderConfig(width=64, height=48, max_depth=3, sky=True,
+                       indirect=True)
+    scene = scene_from_dict(chip_smoke.STUDIO_SPEC).build(cuda)
+    accel = lbvh.build_bvh_sah(scene, leaf_size=32)
+    cams = renderer.camera_arrays(Camera(**chip_smoke.STUDIO_CAM), cfg,
+                                  cuda)
+    batches = []
+    renderer.render_rows(scene, accel, cams, 0, 48, cfg, frame=2,
+                         _batches=batches)
+    into = out = 0
+    for batch in batches[:2]:
+        _, d, *_ = _check_bounce(_stage_inputs(batch), roulette)
+        sh = batch["hits"]
+        glass = sh.hit & (sh.mat.transmission > 0)
+        cos = (d.x * sh.normal.x + d.y * sh.normal.y + d.z * sh.normal.z)
+        into += int((cos[glass] < 0).sum())
+        out += int((cos[glass] > 0).sum())
+    assert into > 0 and out > 0
+
+
+@pytest.mark.parametrize("strided", [True, False])
+@pytest.mark.parametrize("roulette", [False, True])
+def test_bounce_kernel_matches_plain_on_random_batches(cuda, strided,
+                                                       roulette):
+    """K7 on 65,573 seeded lanes (a ragged last block): metals, glass,
+    anisotropic and near-zero roughness, grazing views, infinite world
+    positions, throughputs below the retirement threshold, seed words 0
+    and 0xFFFFFFFF; material planes strided or contiguous."""
+    from test_torch_bounce import bounce_batch
+
+    _check_bounce(bounce_batch(21, (1 << 16) + 37, cuda, strided=strided),
+                  roulette)
 
 
 def test_rng_bit_equal_on_card(cuda):
@@ -772,18 +873,20 @@ def test_rng_bit_equal_on_card(cuda):
 
 def _frame_vs_plain(cuda, sc, cfg, cam, want: dict):
     """A frame through the kernels, the launches it made (K1 closest, K1
-    any hit, K2) against `want`, and the same frame through the plain
-    versions; returns (frame, plain frame)."""
+    any hit, K2, K7) against `want`, and the same frame through the
+    plain versions; returns (frame, plain frame)."""
     scene = sc.build(cuda)
     accel = lbvh.build_bvh_sah(scene, leaf_size=32)
     cams = renderer.camera_arrays(Camera(**cam), cfg, cuda)
     before = (traversal_wide8.LAUNCHES["closest"],
               traversal_wide8.LAUNCHES["any_hit"],
-              shade_kernel.LAUNCHES["brdf_light_major"])
+              shade_kernel.LAUNCHES["brdf_light_major"],
+              bounce_kernel.LAUNCHES["sample_bounce"])
     img = renderer.render_frames(scene, accel, cams, 2, 1, cfg)[0]
     got = (traversal_wide8.LAUNCHES["closest"] - before[0],
            traversal_wide8.LAUNCHES["any_hit"] - before[1],
-           shade_kernel.LAUNCHES["brdf_light_major"] - before[2])
+           shade_kernel.LAUNCHES["brdf_light_major"] - before[2],
+           bounce_kernel.LAUNCHES["sample_bounce"] - before[3])
     assert got == want
     ref = renderer.render_frames(scene, accel, cams, 2, 1, cfg,
                                  plain=True)[0]
@@ -797,20 +900,21 @@ def _frame_vs_plain(cuda, sc, cfg, cam, want: dict):
 def test_sampled_nee_frame_matches_plain(cuda, sampler):
     """A 64x48 frame of many_lights_scene(40) with 2 light samples a ray
     by the flat CDF scan or the light tree: one K1 closest, one K1 any
-    hit (over the 2-sample batch) and one K2 (L = 2), and the plain
-    frame's image."""
+    hit (over the 2-sample batch), one K2 (L = 2) and no K7 (depth 1),
+    and the plain frame's image."""
     from hrt_tpu_torch.models.scene import many_lights_scene
 
     cfg = RenderConfig(width=64, height=48, max_depth=1, sky=True,
                        light_samples=2, light_sampler=sampler)
-    _frame_vs_plain(cuda, many_lights_scene(40), cfg, BENCH_CAM, (1, 1, 1))
+    _frame_vs_plain(cuda, many_lights_scene(40), cfg, BENCH_CAM,
+                    (1, 1, 1, 0))
 
 
 @pytest.mark.parametrize("brdf", ["disney", "pbr"])
 def test_studio_frame_matches_plain(cuda, brdf):
     """scenes/studio.yaml (its textured floor) at 64x48, depth 3 with
-    bounces, through the kernels against the plain frame; the pbr BSDF
-    launches no K2."""
+    bounces, through the kernels against the plain frame: three depths
+    of K1 and K2 and two bounces of K7; the pbr BSDF launches no K2."""
     import chip_smoke
     from hrt_tpu_torch.models.scenefile import scene_from_dict
 
@@ -818,7 +922,7 @@ def test_studio_frame_matches_plain(cuda, brdf):
                        indirect=True, brdf=brdf)
     img, _ = _frame_vs_plain(cuda, scene_from_dict(chip_smoke.STUDIO_SPEC),
                              cfg, chip_smoke.STUDIO_CAM,
-                             (3, 3, 0 if brdf == "pbr" else 3))
+                             (3, 3, 0 if brdf == "pbr" else 3, 2))
     assert float(img.mean()) > 0.0
 
 

@@ -1,4 +1,4 @@
-"""The bounce samplers of the port (ops/sampling.py, renderer's
+"""The bounce samplers of the port (ops/sampling.py, ops/bounce_kernel.py's
 _refract_p and _sample_bounce_p) and the new v3 functions against the
 JAX package's, on the same seeded numpy planes on the CPU: RNG states
 and masks equal; floats within rtol 1e-5 / atol 1e-6 on all but at most
@@ -19,9 +19,8 @@ from hrt_tpu import renderer as jrenderer
 from hrt_tpu.models import materials as jmaterials
 from hrt_tpu.ops import sampling as jsampling
 from hrt_tpu.ops import v3 as jv3
-from hrt_tpu_torch import renderer
 from hrt_tpu_torch.models import materials
-from hrt_tpu_torch.ops import sampling, v3
+from hrt_tpu_torch.ops import bounce_kernel, sampling, v3
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 # The ill-conditioned samples' bound, and their largest share.
@@ -142,7 +141,8 @@ def test_refract_and_tir():
     n, v, mat = _planes(4)
     ior = mat[16]
     for eta in (1.0 / ior, ior):
-        d, tir = renderer._refract_p(_tv(v), _tv(n), torch.as_tensor(eta))
+        d, tir = bounce_kernel._refract_p(_tv(v), _tv(n),
+                                          torch.as_tensor(eta))
         jd, jtir = jrenderer._refract_p(_jv(v), _jv(n), jnp.asarray(eta))
         np.testing.assert_array_equal(tir.numpy(), np.asarray(jtir))
         _close(d, jd)
@@ -159,9 +159,9 @@ def test_sample_bounce(seed):
     words = rs.randint(0, 2**32, size=N, dtype=np.uint64).astype(np.uint32)
     entering = rs.rand(N) < 0.6
     frame = v3.orthonormal_basis(_tv(n))
-    out = renderer._sample_bounce_p(tm, _tv(n), _tv(v),
-                                    torch.as_tensor(words.astype(np.int64)),
-                                    torch.as_tensor(entering), frame)
+    out = bounce_kernel._sample_bounce_p(
+        tm, _tv(n), _tv(v), torch.as_tensor(words.astype(np.int64)),
+        torch.as_tensor(entering), frame)
     jout = jrenderer._sample_bounce_p(jm, _jv(n), _jv(v),
                                       jnp.asarray(words),
                                       jnp.asarray(entering),
