@@ -33,6 +33,10 @@ as strictly as the first.
 The control (`shade_dtype=torch.bfloat16`, or `up_dtype` float8 for
 the upscaler's trunk) is the reference itself computed one precision
 lower and put in the program's place.
+
+The reference places the scene once; where the traffic moves
+instances (`animate`), each checked frame carries its poses, and the
+reference places those instances anew for it.
 """
 from __future__ import annotations
 
@@ -96,6 +100,7 @@ class Judge:
 
     def __init__(self, scene_arrays, traffic: dict, limits: dict, device):
         self.device = device
+        self.scene = scene_arrays
         self.sc = pathtrace.flatten(scene_arrays, device)
         self.rcfg = dict(traffic["render"])
         self.pixels = traffic["check"]["pixels"]
@@ -107,6 +112,13 @@ class Judge:
         w, h = self.rcfg["width"], self.rcfg["height"]
         return pathtrace.camera(view, w, h, self.device)
 
+    def _placed(self, rec):
+        """The reference's scene as the checked frame saw it."""
+        if not rec.get("poses"):
+            return self.sc
+        return pathtrace.flatten(self.scene, self.device, rec["poses"],
+                                 base=self.sc)
+
     def numbers(self, records, seed: int, shade_dtype=None,
                 up_dtype=torch.bfloat16) -> dict:
         """{number: share} over the records: the program's outputs
@@ -115,10 +127,11 @@ class Judge:
         counts: dict = {}
         control = shade_dtype is not None or up_dtype != torch.bfloat16
         for rec in records:
+            sc = self._placed(rec)
             if self.pixels == "all":
-                got = self._full(rec, shade_dtype, up_dtype, control)
+                got = self._full(sc, rec, shade_dtype, up_dtype, control)
             else:
-                got = self._sampled(rec, seed, shade_dtype, control)
+                got = self._sampled(sc, rec, seed, shade_dtype, control)
             for name, (bad, n) in got.items():
                 b0, n0 = counts.get(name, (0, 0))
                 counts[name] = (b0 + bad, n0 + n)
@@ -128,17 +141,17 @@ class Judge:
         lim = self.limits[name]
         return lim["tau"], lim["floor"]
 
-    def _sampled(self, rec, seed, shade_dtype, control) -> dict:
+    def _sampled(self, sc, rec, seed, shade_dtype, control) -> dict:
         w, h = self.rcfg["width"], self.rcfg["height"]
         g = workload.rng(seed, 1000 + rec["i"])
         flat = torch.as_tensor(g.choice(w * h, size=min(self.pixels, w * h),
                                         replace=False), device=self.device)
         px, py = flat % w, flat // w
         frame = rec["frame"]
-        ref = pathtrace.render_pixels(self.sc, rec["view"], self.rcfg, px, py,
+        ref = pathtrace.render_pixels(sc, rec["view"], self.rcfg, px, py,
                                       frame)
-        got = (pathtrace.render_pixels(self.sc, rec["view"], self.rcfg, px,
-                                       py, frame, shade_dtype) if control
+        got = (pathtrace.render_pixels(sc, rec["view"], self.rcfg, px, py,
+                                       frame, shade_dtype) if control
                else rec["out"].to(self.device)[py, px])
         ref_out, gain = ref, None
         out = {}
@@ -158,19 +171,19 @@ class Judge:
                                            gain)
         return out
 
-    def _full(self, rec, shade_dtype, up_dtype, control) -> dict:
+    def _full(self, sc, rec, shade_dtype, up_dtype, control) -> dict:
         frame = rec["frame"]
         prev = self._cam(rec["prev_view"])
         state = {"accum": rec["accum"], "up_history": rec["up_history"],
                  "svgf": post.SvgfState(*rec["dn"])}
-        img, gb = _render_full(self.sc, rec["view"], self.rcfg, frame,
+        img, gb = _render_full(sc, rec["view"], self.rcfg, frame,
                                self.device, None)
         ref_out, ref_new = post.post_frame(img, gb, frame, prev, state,
                                            self.rcfg, self.convs)
         if control:
             img_c = img
             if shade_dtype is not None:
-                img_c, _ = _render_full(self.sc, rec["view"], self.rcfg,
+                img_c, _ = _render_full(sc, rec["view"], self.rcfg,
                                         frame, self.device, shade_dtype)
             got_out, got_new = post.post_frame(img_c, gb, frame, prev,
                                                state, self.rcfg, self.convs,

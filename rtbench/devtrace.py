@@ -26,7 +26,8 @@ KERNEL_ENTRIES = {
     "warp_bilinear_kernel": "hrt_warp_bilinear",
     "warp_bilinear_backward_kernel": "hrt_warp_bilinear_backward",
 }
-WALK_ENTRIES = ("hrt_bvh8_trace", "hrt_skip_trace")
+WALK_ENTRIES = ("hrt_bvh8_trace", "hrt_skip_trace", "hrt_tlas8_trace",
+                "hrt_tlas_skip_trace")
 SHADE_ENTRIES = ("hrt_brdf_light_major",)
 WARP_ENTRIES = ("hrt_warp_bilinear",)
 # cuDNN and CUTLASS convolution kernels, and the layout transposes

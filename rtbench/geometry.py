@@ -3,6 +3,16 @@ sides: the program gets them through its public authoring calls
 (`Scene.add_mesh`, `create_material`, `create_light`,
 `create_instance`), the reference flattens them itself.
 
+A configuration places instances one by one (`instances`: mesh,
+material, position, Euler-YXZ `rotation` in radians, scale) and in
+grids (`instance_grids`), which expand after them, in order.  A grid
+holds `mesh`, `materials` ([even, odd], chosen by (i + j) % 2), `n` (n
+x n instances), `spacing`, `height`, `scale` ([lo, span]: a uniform
+scale lo + span * u), `rotation_max` (each Euler angle uniform in [0,
+rotation_max)) and `seed`: instance by instance, row i then column j,
+`numpy.random.RandomState(seed)` draws u for the scale, then the three
+angles, as `hrt_tpu_torch.models.scene.instance_grid_scene` draws them.
+
 `icosphere` is vectorised: each subdivision finds the unique edges
 with numpy and numbers their midpoints in order of first appearance,
 which gives the topology, the vertex order and the float64 arithmetic
@@ -99,10 +109,43 @@ def make_mesh(spec: dict) -> MeshArrays:
     raise ValueError(f"unknown mesh kind {spec['kind']!r}")
 
 
+def grid_instances(grid: dict) -> list:
+    """The instances of one of a configuration's `instance_grids`, drawn
+    in one call: RandomState.rand() and .uniform(0, hi, 3) both take the
+    next doubles of the stream, so four doubles an instance, reshaped,
+    are the per-instance draws."""
+    n = int(grid["n"])
+    u = np.random.RandomState(int(grid["seed"])).random_sample(
+        4 * n * n).reshape(n * n, 4)
+    lo, span = grid["scale"]
+    scale = lo + span * u[:, 0]
+    rotation = 0.0 + (grid["rotation_max"] - 0.0) * u[:, 1:4]
+    i, j = np.divmod(np.arange(n * n), n)
+    x = grid["spacing"] * (i - n / 2)
+    z = grid["spacing"] * (j - n / 2)
+    even, odd = grid["materials"]
+    y = float(grid["height"])
+    return [{"mesh": grid["mesh"], "material": odd if (a + b) % 2 else even,
+             "position": (px, y, pz), "rotation": tuple(r),
+             "scale": (s, s, s)}
+            for a, b, px, pz, r, s in zip(i.tolist(), j.tolist(),
+                                          x.tolist(), z.tolist(),
+                                          rotation.tolist(), scale.tolist())]
+
+
+def instance_list(config: dict) -> list:
+    """Every instance of a configuration: `instances`, then each of
+    `instance_grids` expanded."""
+    out = list(config["instances"])
+    for grid in config.get("instance_grids", []):
+        out += grid_instances(grid)
+    return out
+
+
 class SceneArrays(NamedTuple):
     """A configuration's scene: meshes by name, materials (name ->
     dict), lights (list of dicts) and instances (list of dicts naming a
-    mesh and a material, with a position and a scale)."""
+    mesh and a material, with a position, a rotation and a scale)."""
 
     meshes: dict
     materials: dict
@@ -113,7 +156,7 @@ class SceneArrays(NamedTuple):
 def scene_arrays(config: dict) -> SceneArrays:
     meshes = {name: make_mesh(spec) for name, spec in config["meshes"].items()}
     return SceneArrays(meshes, dict(config["materials"]),
-                       list(config["lights"]), list(config["instances"]))
+                       list(config["lights"]), instance_list(config))
 
 
 def num_triangles(scene: SceneArrays) -> int:

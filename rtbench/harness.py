@@ -2,21 +2,28 @@
 and the comparison with the reference.
 
 Set-up builds the program's frame loop (`hrt_tpu_torch.frameloop.
-FrameLoop`, culling off) over the scene the benchmark made, and warms
-it up with the traffic's own frames (the first step captures the
-frame's CUDA graph).  The window then runs `FrameLoop.step` back to
-back for `seconds`, with at most IN_FLIGHT (2) frames in flight as a
-viewer's swap chain has: before issuing frame n it waits for frame
-n - 2 to complete.  The frames in flight, the warm-up frames and
-culling off are constants of the harness, the same in every cell:
-they are part of what `frame_ms` means.  Every frame records a CUDA
+FrameLoop`, culling off) over the scene the benchmark made, on the
+acceleration structure the configuration names (`accel`: "flat", one
+SAH BVH over the world's triangles, or "two_level", a TLAS over the
+instances and a BLAS a mesh), and warms it up with the traffic's own
+frames (the first step captures the frame's CUDA graph).  The window
+then runs `FrameLoop.step` back to back for `seconds`, with at most
+IN_FLIGHT (2) frames in flight as a viewer's swap chain has: before
+issuing frame n it waits for frame n - 2 to complete.  The frames in
+flight, the warm-up frames and culling off are constants of the
+harness, the same in every cell: they are part of what `frame_ms`
+means.  Every frame records a CUDA
 event after its step; the frame's time is the interval between its
-event and the one before, which is the cadence a viewer sees.
+event and the one before, which is the cadence a viewer sees.  Where
+the traffic moves instances (`animate`), each frame first moves them
+through the program's public `FrameLoop.set_instance_transform`, one
+call an instance, in warm-up and in the window: the refit belongs to
+the frame the viewer waits for.
 
 A traced run profiles a steady stretch of the window (torch.profiler,
 CPU and CUDA activities) and brackets the benchmark's own calls with
-host spans ('rtbench.wait', 'rtbench.camera', 'rtbench.step') in the
-profile's time base.
+host spans ('rtbench.wait', 'rtbench.camera', 'rtbench.animate',
+'rtbench.step') in the profile's time base.
 
 Frames the comparison takes (the first of the window, frames drawn
 from the seed, and the last) keep references to the state the loop
@@ -109,6 +116,8 @@ def program_scene(arrays: geometry.SceneArrays):
     for inst in arrays.instances:
         sc.create_instance(mesh_ids[inst["mesh"]], mat_ids[inst["material"]],
                            tuple(inst.get("position", (0.0, 0.0, 0.0))),
+                           rotation=tuple(inst.get("rotation",
+                                                   (0.0, 0.0, 0.0))),
                            scale=tuple(inst.get("scale", (1.0, 1.0, 1.0))))
     return sc
 
@@ -138,13 +147,24 @@ def _start_loop(loop, plan) -> None:
     loop.frame = plan.frame0
 
 
+def _animate(loop, plan, i: int) -> dict:
+    """Move the plan's instances to their poses of frame i; returns the
+    poses.  Every frame of every run moves the same instances, so a
+    frame's poses replace whatever a frame before it left."""
+    poses = plan.poses(i)
+    for idx, (pos, rot, scale) in poses.items():
+        loop.set_instance_transform(idx, position=pos, rotation=rot,
+                                    scale=scale)
+    return poses
+
+
 def prepare(cell_name: str, device, overrides: dict | None = None,
             bench: dict | None = None) -> Prepared:
     """Build the cell's frame loop and warm it up with its traffic's
     frames.  `overrides` ({"config": {...}, "traffic": {...}}) resize a
     cell for the CPU tests."""
     from hrt_tpu_torch.frameloop import FrameLoop
-    from hrt_tpu_torch.ops import lbvh
+    from hrt_tpu_torch.ops import lbvh, tlas
 
     bench = manifest.load() if bench is None else bench
     cell = manifest.cell(bench, cell_name)
@@ -153,24 +173,30 @@ def prepare(cell_name: str, device, overrides: dict | None = None,
     traffic = _merge(manifest.traffic(cell["traffic"]),
                      overrides.get("traffic"))
     limits = _merge(manifest.limits(cell_name), overrides.get("limits"))
+    accel = config.get("accel", "flat")
+    if accel not in ("flat", "two_level"):
+        raise ValueError(f"accel {accel!r}: flat or two_level")
     arrays = geometry.scene_arrays(config)
     device = torch.device(device)
     build = {}
-    sah = lbvh.build_bvh_sah
+    owner, name = ((tlas, "build_two_level_flat") if accel == "two_level"
+                   else (lbvh, "build_bvh_sah"))
+    make_accel = getattr(owner, name)
 
-    def timed_sah(*args, **kwargs):
+    def timed_build(*args, **kwargs):
         t0 = time.perf_counter()
-        out = sah(*args, **kwargs)
+        out = make_accel(*args, **kwargs)
         _sync(device)
         build["s"] = time.perf_counter() - t0
         return out
 
-    lbvh.build_bvh_sah = timed_sah
+    setattr(owner, name, timed_build)
     try:
         loop = FrameLoop(program_scene(arrays), render_config(traffic, config),
-                         cull_threshold_px=CULL_THRESHOLD_PX, device=device)
+                         cull_threshold_px=CULL_THRESHOLD_PX,
+                         two_level=accel == "two_level", device=device)
     finally:
-        lbvh.build_bvh_sah = sah
+        setattr(owner, name, make_accel)
     plan = workload.Plan(traffic, config, 0)
     _start_loop(loop, plan)
     t0 = time.perf_counter()
@@ -178,6 +204,7 @@ def prepare(cell_name: str, device, overrides: dict | None = None,
         if i == WARMUP_FRAMES - 1:
             _sync(device)
             t0 = time.perf_counter()
+        _animate(loop, plan, i)
         loop.step(_camera(plan.view(i)))
     _sync(device)
     warm_ms = (time.perf_counter() - t0) * 1e3
@@ -283,9 +310,14 @@ def window(prep: Prepared, seed: int, seconds: float,
             with span("camera"):
                 view = plan.view(i)
                 cam = _camera(view)
+            poses = {}
+            if plan.moving:
+                with span("animate"):
+                    poses = _animate(loop, plan, i)
             rec = {"i": i, "frame": loop.frame, "view": view,
-                   "prev_view": prev_view or view, "accum": loop.accum,
-                   "dn": tuple(loop.dn_state), "up_history": loop.up_history}
+                   "prev_view": prev_view or view, "poses": poses,
+                   "accum": loop.accum, "dn": tuple(loop.dn_state),
+                   "up_history": loop.up_history}
             ts = time.perf_counter()
             with span("step"):
                 out = loop.step(cam)

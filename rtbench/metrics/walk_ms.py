@@ -1,5 +1,7 @@
-"""Walks: device ms a frame in the BVH walks, K1 (hrt_bvh8_trace) and
-K3 (hrt_skip_trace), closest and shadow any-hit."""
+"""Walks: device ms a frame in the BVH walks, closest and shadow
+any-hit: K1 (hrt_bvh8_trace) and K3 (hrt_skip_trace) over one BVH, K4
+(hrt_tlas8_trace) and K5 (hrt_tlas_skip_trace) over a TLAS and its
+BLASes."""
 from rtbench import devtrace
 
 

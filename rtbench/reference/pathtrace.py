@@ -12,11 +12,19 @@ VNDF, cosine or transmission) and Russian roulette.  Each pixel's path
 depends on nothing but its own seed, so a sample of pixels gives the
 same values as the whole frame.
 
-Hits: `intersect` first keeps, for each ray, the triangles whose
-bounding sphere the ray's line passes (three float32 matrix products
+The scene: `flatten` places every instance's mesh in the world by its
+own T R S matrix (Euler-YXZ rotation, worked in float64 and rounded to
+float32, as the upstream `MeshInstance` composes it), and places a
+frame's instance poses over that on request.
+
+Hits: `intersect` first keeps, for each ray, the instances whose
+bounding sphere the ray's line passes, then, among their triangles,
+those whose bounding sphere it passes (three float32 matrix products
 give the cross product of each sphere centre with the ray), then runs
 the exact test on those pairs alone.  That is brute force over every
-triangle with the arithmetic bounded, and it shares nothing with a BVH.
+placed triangle with the arithmetic bounded; the spheres, with room for
+rounding, never drop a pair the exact test could take, and nothing is
+shared with a BVH.
 
 `shade_dtype=torch.bfloat16` is the comparison's control: the BRDF
 evaluated, and the path's radiance and throughput kept, in bfloat16.
@@ -36,8 +44,10 @@ PI = 3.1415926535897
 ONE_OVER_PI = 0.3183098861837
 TWO_PI = 6.2831853071795
 ROUGHNESS_MIN = 1e-4
-# Elements of one (rays x triangles) block of the sphere test.
+# Elements of one (rays x spheres) block of the sphere test, and the
+# triangles of one block.
 BLOCK_ELEMS = 1 << 26
+TRI_CHUNK = 1 << 16
 
 
 # ---------------------------------------------------------------------------
@@ -234,103 +244,237 @@ class RefScene(NamedTuple):
     reach2: torch.Tensor    # (T,) squared radius, with margin
     lights: torch.Tensor    # (L, 12)
     sky: torch.Tensor       # (22,)
+    inst_centre: torch.Tensor   # (I, 3) each instance's bounding sphere
+    inst_reach2: torch.Tensor   # (I,)
+    inst_tri: torch.Tensor      # (I, 2) int64 first triangle, triangles
 
 
-def _instance_matrix(inst: dict) -> np.ndarray:
-    """3x4 object-to-world matrix of a translated, scaled instance (no
-    rotation: the configurations place meshes unrotated)."""
-    if any(float(a) != 0.0 for a in inst.get("rotation", (0, 0, 0))):
-        raise ValueError("the reference places instances unrotated")
-    m = np.zeros((3, 4), np.float32)
-    m[:, :3] = np.eye(3, dtype=np.float32) * np.asarray(
-        inst.get("scale", (1.0, 1.0, 1.0)), np.float32)[None, :]
-    m[:, 3] = inst.get("position", (0.0, 0.0, 0.0))
+def rotation_yxz(rotation) -> np.ndarray:
+    """(I, 3, 3) float32 Euler-YXZ rotations of (I, 3) angles (x, y, z),
+    columns (u, v, w), worked in float64."""
+    r = np.asarray(rotation, np.float64).reshape(-1, 3)
+    c3, s3 = np.cos(r[:, 2]), np.sin(r[:, 2])
+    c2, s2 = np.cos(r[:, 0]), np.sin(r[:, 0])
+    c1, s1 = np.cos(r[:, 1]), np.sin(r[:, 1])
+    u = np.stack([c1 * c3 + s1 * s2 * s3, c2 * s3, c1 * s2 * s3 - c3 * s1], 1)
+    v = np.stack([c3 * s1 * s2 - c1 * s3, c2 * c3, c1 * c3 * s2 + s1 * s3], 1)
+    w = np.stack([c2 * s1, -s2, c1 * c2], 1)
+    return np.stack([u, v, w], axis=2).astype(np.float32)
+
+
+def instance_matrices(instances, poses=None) -> np.ndarray:
+    """(I, 3, 4) float32 object-to-world matrices T R S of the instances
+    (position, Euler-YXZ rotation, scale), each instance in `poses`
+    ({index: (position, rotation, scale)}) placed there instead."""
+    trs = [(i.get("position", (0.0, 0.0, 0.0)), i.get("rotation",
+                                                       (0.0, 0.0, 0.0)),
+            i.get("scale", (1.0, 1.0, 1.0))) for i in instances]
+    for k, pose in (poses or {}).items():
+        trs[k] = pose
+    pos, rot, scale = (np.asarray([t[k] for t in trs], np.float64)
+                       for k in range(3))
+    m = np.zeros((len(trs), 3, 4), np.float32)
+    m[:, :, :3] = rotation_yxz(rot) * scale.astype(np.float32)[:, None, :]
+    m[:, :, 3] = pos
     return m
 
 
-def flatten(scene, device) -> RefScene:
-    """World-space triangles of a geometry.SceneArrays, instance by
-    instance in order, materials numbered in the order of the
-    configuration's table."""
-    mat_ids = {name: i for i, name in enumerate(scene.materials)}
-    mats = np.stack([material_record(m) for m in scene.materials.values()])
-    parts = {k: [] for k in ("v0", "e1", "e2", "n0", "n1", "n2", "uv0",
-                             "uv1", "uv2", "mat")}
-    for inst in scene.instances:
-        mesh = scene.meshes[inst["mesh"]]
-        m = _instance_matrix(inst)
-        nm = np.linalg.inv(m[:, :3]).T.astype(np.float32)
-        pos = mesh.positions @ m[:, :3].T + m[:, 3]
-        nrm = mesh.normals @ nm.T
+def _place(scene, mtx: np.ndarray, sel: np.ndarray, first: np.ndarray):
+    """Place the instances `sel` (ascending) by their matrices: for each
+    mesh, (those instances, the rows of their triangles, the rows'
+    world-space v0, e1, e2 and vertex normals n0, n1, n2, and each
+    instance's bounding sphere, centre and radius)."""
+    names = np.asarray([scene.instances[k]["mesh"] for k in sel])
+    for name, mesh in scene.meshes.items():
+        which = sel[names == name]
+        if which.size == 0:
+            continue
+        m = mtx[which]
+        nm = np.linalg.inv(m[:, :, :3]).transpose(0, 2, 1)
+        pos = np.matmul(mesh.positions, m[:, :, :3].transpose(0, 2, 1)) \
+            + m[:, None, :, 3]
+        nrm = np.matmul(mesh.normals, nm.transpose(0, 2, 1))
         nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True),
                                1e-12)
+        centre = 0.5 * (pos.min(axis=1) + pos.max(axis=1))
+        radius = np.linalg.norm(pos - centre[:, None], axis=-1).max(axis=1)
+        t = mesh.indices.shape[0]
+        rows = (first[which][:, None] + np.arange(t)).reshape(-1)
         i0, i1, i2 = (mesh.indices[:, k] for k in range(3))
-        parts["v0"].append(pos[i0])
-        parts["e1"].append(pos[i1] - pos[i0])
-        parts["e2"].append(pos[i2] - pos[i0])
-        for k, ik in zip(("n0", "n1", "n2"), (i0, i1, i2)):
-            parts[k].append(nrm[ik])
-        for k, ik in zip(("uv0", "uv1", "uv2"), (i0, i1, i2)):
-            parts[k].append(mesh.uvs[ik])
-        parts["mat"].append(np.full(mesh.indices.shape[0],
-                                    mat_ids[inst["material"]], np.int64))
-    cat = {k: np.concatenate(v) for k, v in parts.items()}
+        tri = {"v0": pos[:, i0], "e1": pos[:, i1] - pos[:, i0],
+               "e2": pos[:, i2] - pos[:, i0], "n0": nrm[:, i0],
+               "n1": nrm[:, i1], "n2": nrm[:, i2]}
+        yield which, rows, {k: v.reshape(-1, 3) for k, v in tri.items()}, \
+            centre, radius
+
+
+def _spheres(v0, e1, e2):
+    """Each triangle's bounding sphere: centroid and squared reach."""
+    centre = v0 + (e1 + e2) * (1.0 / 3.0)
+    r = torch.stack([torch.linalg.vector_norm(p - centre, dim=1)
+                     for p in (v0, v0 + e1, v0 + e2)]).amax(0)
+    return centre, _reach2(r)
+
+
+def flatten(scene, device, poses=None, base=None) -> RefScene:
+    """World-space triangles of a geometry.SceneArrays, instance by
+    instance in order, materials numbered in the order of the
+    configuration's table; `poses` ({index: (position, rotation,
+    scale)}) moves instances from where the configuration puts them.
+    With `base`, this scene flattened without poses, only the posed
+    instances are placed, over copies of its tensors."""
+    insts = scene.instances
+    mtx = instance_matrices(insts, poses)
+    ntri = np.asarray([scene.meshes[i["mesh"]].indices.shape[0]
+                       for i in insts], np.int64)
+    first = np.concatenate([[0], np.cumsum(ntri)[:-1]]).astype(np.int64)
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    if base is not None:
+        return _repose(base, _place(scene, mtx, np.asarray(
+            sorted(poses or {}), np.int64), first), f32)
+    mat_ids = {name: i for i, name in enumerate(scene.materials)}
+    mats = np.stack([material_record(m) for m in scene.materials.values()])
+    total = int(ntri.sum())
+    cat = {k: np.empty((total, 3), np.float32) for k in ("v0", "e1", "e2",
+                                                          "n0", "n1", "n2")}
+    cat.update({k: np.empty((total, 2), np.float32)
+                for k in ("uv0", "uv1", "uv2")})
+    cat["mat"] = np.empty(total, np.int64)
+    inst_centre = np.empty((len(insts), 3), np.float32)
+    inst_r = np.empty(len(insts), np.float32)
+    for which, rows, tri, centre, radius in _place(
+            scene, mtx, np.arange(len(insts)), first):
+        for k, v in tri.items():
+            cat[k][rows] = v
+        inst_centre[which], inst_r[which] = centre, radius
+        mesh = scene.meshes[insts[which[0]]["mesh"]]
+        t = mesh.indices.shape[0]
+        for k, ik in zip(("uv0", "uv1", "uv2"), mesh.indices.T):
+            cat[k][rows] = np.broadcast_to(
+                mesh.uvs[ik], (which.size, t, 2)).reshape(-1, 2)
+        cat["mat"][rows] = np.repeat(
+            [mat_ids[insts[k]["material"]] for k in which], t)
     v0, e1, e2 = f32(cat["v0"]), f32(cat["e1"]), f32(cat["e2"])
     attr = torch.cat([f32(cat[k]) for k in ("n0", "n1", "n2", "uv0", "uv1",
                                             "uv2")]
                      + [f32(cat["mat"][:, None]), f32(mats[cat["mat"]])],
                      dim=1)
-    centre = v0 + (e1 + e2) * (1.0 / 3.0)
-    r = torch.stack([torch.linalg.vector_norm(p - centre, dim=1)
-                     for p in (v0, v0 + e1, v0 + e2)]).amax(0)
-    # Room for the float32 rounding of the sphere test (terms of about
-    # the scene's size, 1e-6 each) on top of the exact radius.
-    reach2 = (r * (1.0 + 1e-5) + 1e-4) ** 2
+    centre, reach2 = _spheres(v0, e1, e2)
     lights = f32(np.stack([light_record(lt) for lt in scene.lights]))
     return RefScene(v0, e1, e2, attr, centre, reach2, lights,
-                    f32(default_sky()))
+                    f32(default_sky()), f32(inst_centre),
+                    _reach2(f32(inst_r)), torch.as_tensor(
+                        np.stack([first, ntri], 1), device=device))
+
+
+def _repose(base: RefScene, placed, f32) -> RefScene:
+    """`base` with the rows of the instances `placed` gives written over
+    copies of its tensors: positions, vertex normals, spheres."""
+    sc = base._replace(**{k: getattr(base, k).clone() for k in (
+        "v0", "e1", "e2", "attr", "centre", "reach2", "inst_centre",
+        "inst_reach2")})
+    for which, rows, tri, centre, radius in placed:
+        at = torch.as_tensor(rows, device=sc.v0.device)
+        v0, e1, e2 = f32(tri["v0"]), f32(tri["e1"]), f32(tri["e2"])
+        for k, v in (("v0", v0), ("e1", e1), ("e2", e2)):
+            getattr(sc, k)[at] = v
+        sc.attr[at, 0:9] = torch.cat([f32(tri[k]) for k in ("n0", "n1",
+                                                            "n2")], dim=1)
+        sc.centre[at], sc.reach2[at] = _spheres(v0, e1, e2)
+        ins = torch.as_tensor(which, device=sc.v0.device)
+        sc.inst_centre[ins] = f32(centre)
+        sc.inst_reach2[ins] = _reach2(f32(radius))
+    return sc
+
+
+def _reach2(r: torch.Tensor) -> torch.Tensor:
+    """Squared test radius of spheres of radius r: room for the float32
+    rounding of the sphere test (terms of about the scene's size, 1e-6
+    each) on top of the exact radius."""
+    return (r * (1.0 + 1e-5) + 1e-4) ** 2
 
 
 # ---------------------------------------------------------------------------
 # Hits.
 # ---------------------------------------------------------------------------
 
-def _pairs(sc: RefScene, o: torch.Tensor, d: torch.Tensor):
-    """(ray, triangle) pairs whose triangle's bounding sphere the ray's
-    line passes: |(c - o) x d|^2 <= reach^2 |d|^2, the cross product
-    c x d - o x d taken as three float32 matrix products."""
-    n, t = o.shape[0], sc.v0.shape[0]
-    chunk = min(t, 1 << 16)
+def _near(rays_a, dd, centre, reach2, rays=None):
+    """(ray, sphere) pairs, the ray's line passing the sphere:
+    |(c - o) x d|^2 <= reach^2 |d|^2, the cross product c x d - o x d
+    taken as three float32 matrix products of `rays_a` (3, N, 3) rows
+    (`_ray_rows`) and the spheres' columns.  `rays` (int64) limits the
+    test to those rays."""
+    s = centre.shape[0]
+    chunk = min(s, TRI_CHUNK)
+    rays = (torch.arange(rays_a.shape[1], device=centre.device)
+            if rays is None else rays)
     rb = max(1, BLOCK_ELEMS // chunk)
+    one = torch.ones_like(centre[:, 0])
+    cols = torch.stack([
+        torch.stack([centre[:, 1], centre[:, 2], one]),
+        torch.stack([centre[:, 2], centre[:, 0], one]),
+        torch.stack([centre[:, 0], centre[:, 1], one])])    # (3, 3, S)
+    out_r, out_s = [], []
+    for r0 in range(0, rays.shape[0], rb):
+        idx = rays[r0:r0 + rb]
+        a = rays_a[:, idx]
+        for s0 in range(0, s, chunk):
+            xyz = torch.bmm(a, cols[:, :, s0:s0 + chunk])
+            dist2 = (xyz * xyz).sum(0)
+            near = dist2 <= reach2[None, s0:s0 + chunk] * dd[idx, None]
+            ij = near.nonzero()
+            out_r.append(idx[ij[:, 0]])
+            out_s.append(ij[:, 1] + s0)
+    empty = torch.zeros(0, dtype=torch.int64, device=centre.device)
+    return torch.cat([empty] + out_r), torch.cat([empty] + out_s)
+
+
+def _ray_rows(o: torch.Tensor, d: torch.Tensor):
+    """The rays' rows of the sphere test (d_z, -d_y, -(o x d)_x), ...,
+    and |d|^2."""
     od = torch.linalg.cross(o, d, dim=1)
-    dd = (d * d).sum(1)
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     rays_a = torch.stack([
         torch.stack([dz, -dy, -od[:, 0]], 1),
         torch.stack([dx, -dz, -od[:, 1]], 1),
         torch.stack([dy, -dx, -od[:, 2]], 1)])          # (3, N, 3)
-    c = sc.centre
-    one = torch.ones_like(c[:, 0])
-    tris_b = torch.stack([
-        torch.stack([c[:, 1], c[:, 2], one]),
-        torch.stack([c[:, 2], c[:, 0], one]),
-        torch.stack([c[:, 0], c[:, 1], one])])          # (3, 3, T)
-    empty = torch.zeros(0, dtype=torch.int64, device=o.device)
+    return rays_a, (d * d).sum(1)
+
+
+def _pairs(sc: RefScene, o: torch.Tensor, d: torch.Tensor):
+    """(ray, triangle) pairs whose triangle's bounding sphere the ray's
+    line passes (`_near`), among the triangles of the instances whose
+    bounding sphere it passes: each block of TRI_CHUNK triangles is
+    tested against the rays that pass an instance holding one of them."""
+    n = o.shape[0]
+    dev = o.device
+    rays_a, dd = _ray_rows(o, d)
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
     rays, tris = [empty], [empty]
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for r0 in range(0, n, rb):
-            a = rays_a[:, r0:r0 + rb]
-            for t0 in range(0, t, chunk):
-                xyz = torch.bmm(a, tris_b[:, :, t0:t0 + chunk])
-                dist2 = (xyz * xyz).sum(0)
-                near = dist2 <= sc.reach2[None, t0:t0 + chunk] \
-                    * dd[r0:r0 + rb, None]
-                ij = near.nonzero()
-                rays.append(ij[:, 0] + r0)
-                tris.append(ij[:, 1] + t0)
+        ray_i, inst = _near(rays_a, dd, sc.inst_centre, sc.inst_reach2)
+        # The instances' first and last blocks of triangles.
+        first, count = sc.inst_tri[:, 0], sc.inst_tri[:, 1]
+        b0 = first // TRI_CHUNK
+        nb = (first + count - 1) // TRI_CHUNK - b0 + 1
+        per = nb[inst]
+        at = torch.arange(int(per.sum()), device=dev) - torch.repeat_interleave(
+            torch.cumsum(per, 0) - per, per)
+        block = torch.repeat_interleave(b0[inst], per) + at
+        key = torch.unique(block * n + torch.repeat_interleave(ray_i, per))
+        blocks, counts = torch.unique_consecutive(key // n,
+                                                  return_counts=True)
+        ray_of = key % n
+        at = 0
+        for b, c in zip(blocks.tolist(), counts.tolist()):
+            t0 = b * TRI_CHUNK
+            r, t = _near(rays_a, dd, sc.centre[t0:t0 + TRI_CHUNK],
+                         sc.reach2[t0:t0 + TRI_CHUNK], ray_of[at:at + c])
+            rays.append(r)
+            tris.append(t + t0)
+            at += c
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return torch.cat(rays), torch.cat(tris)

@@ -28,14 +28,26 @@ def stateful(cell: str) -> bool:
 
 
 def small(cell: str) -> dict:
+    """Overrides that bring a cell to a size the CPU holds: a 40 x 24
+    frame, 3 checked frames of 256 pixels, the big mesh at 2
+    subdivisions, instance grids of 3 x 3 with at most 2 of their
+    instances moving."""
+    w = manifest.cell(manifest.load(), cell)
+    traffic = manifest.traffic(w["traffic"])
     ov = {"traffic": {"render": {"width": 40, "height": 24},
                       "check": {"frames": 3}}}
-    if manifest.traffic(manifest.cell(manifest.load(), cell)["traffic"]) \
-            ["check"]["pixels"] != "all":
+    if traffic["check"]["pixels"] != "all":
         ov["traffic"]["check"]["pixels"] = 256
+    if "animate" in traffic:
+        ov["traffic"]["animate"] = {
+            "instances": min(int(traffic["animate"]["instances"]), 2)}
     if cell.startswith("bigmesh"):
         ov["config"] = {"meshes": {"big": {"kind": "icosphere",
                                            "subdivisions": 2}}}
+    grids = manifest.config(w["config"]).get("instance_grids")
+    if grids:
+        ov.setdefault("config", {})["instance_grids"] = [
+            dict(g, n=min(int(g["n"]), 3)) for g in grids]
     return ov
 
 
