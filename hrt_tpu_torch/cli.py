@@ -270,10 +270,17 @@ def _run(args, mesh, lead: bool):
 def trace_stats(snap: dict) -> dict:
     """The stats line's part from the program's tracing: the frames'
     stage ms (`stage_ms` on the card, `host_stage_ms` on the CPU), each
-    span's mean host ms (`span_ms`) and the live-lane share."""
+    span's mean host ms (`span_ms`), the live-lane share, and where the
+    run moved instances each clock's total ms and count (`clock_ms` on
+    the card, `host_clock_ms` on the CPU: the refits)."""
     out = {k: {name: round(v, 4) for name, v in snap[k].items()}
            for k in ("stage_ms", "host_stage_ms") if k in snap}
     out["span_ms"] = {k: round(v["total_ms"] / v["count"], 4)
                       for k, v in snap["spans"].items()}
     out["live_lane_share"] = snap["live_lane_share"]
+    for k in ("clock_ms", "host_clock_ms"):
+        if k in snap:
+            out[k] = {name: {"total_ms": round(v["total_ms"], 4),
+                             "count": v["count"]}
+                      for name, v in snap[k].items()}
     return out

@@ -254,19 +254,21 @@ class FrameLoop:
         so the captured frame program reads the refitted tables and is
         not captured again); no BLAS is rebuilt.  Raises ValueError,
         the instance left where it was, when K4 cannot walk the refitted
-        table."""
+        table.  With tracing on (utils/tracing.py) the call is the host
+        span `frameloop.move` over tlas.set_instance's spans."""
         if not self.two_level:
             raise ValueError("instance animation needs two_level=True")
-        cur = self.scene_obj.instances[idx]
-        new = MeshInstance(
-            cur.mesh_id, cur.material_id,
-            tuple(position) if position is not None else cur.position,
-            tuple(rotation) if rotation is not None else cur.rotation,
-            tuple(scale) if scale is not None else cur.scale)
-        self.accel = tlas.set_instance(
-            self.accel, idx, new.transform, new.inverse_transform,
-            new.normal_matrix, programs=self.builds)
-        self.scene_obj.instances[idx] = new
+        with tracing.span("frameloop.move"):
+            cur = self.scene_obj.instances[idx]
+            new = MeshInstance(
+                cur.mesh_id, cur.material_id,
+                tuple(position) if position is not None else cur.position,
+                tuple(rotation) if rotation is not None else cur.rotation,
+                tuple(scale) if scale is not None else cur.scale)
+            self.accel = tlas.set_instance(
+                self.accel, idx, new.transform, new.inverse_transform,
+                new.normal_matrix, programs=self.builds)
+            self.scene_obj.instances[idx] = new
 
     def _maybe_cull(self, cams, plain: bool) -> None:
         if (self.accel is None or self.cull_threshold_px <= 0

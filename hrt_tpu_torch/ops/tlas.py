@@ -38,6 +38,7 @@ from .. import graphs
 from ..config import resolve_device
 from ..models.materials import MatP
 from ..models.scene import PAD, Scene
+from ..utils import tracing
 from . import (intersect, lbvh, morton, traversal_skip, traversal_tlas8,
                traversal_tlas_skip, v3, wide, wide8)
 from .twolevel import mesh_scene_arrays
@@ -455,13 +456,14 @@ def set_instance(tl: TwoLevelFlat, idx: int, world_from_obj,
     the old matrices go back, the refit runs again (the old TLAS, bit
     for bit) and ValueError is raised, so no walk meets the deeper
     table.  Returns `tl`, or a copy with the new tlas_depth where the
-    stack K4 needs changed (a frame program over it captures again)."""
+    stack K4 needs changed (a frame program over it captures again).
+    With tracing on (utils/tracing.py) the row copy is the host span
+    `tlas.copy_in` (a copy from pageable memory, which waits for the
+    stream), the replay, the depth read and any put-back the span
+    `tlas.refit`, and each replay of the refit program the clock
+    `refit`."""
     rows = [getattr(tl, k)[idx] for k in _MATS]
     old = torch.cat([r.reshape(-1) for r in rows])
-    new = torch.from_numpy(np.concatenate(
-        [np.asarray(m, np.float32).reshape(-1)
-         for m in (world_from_obj, obj_from_world, normal_mat)])) \
-        .to(tl.device)
 
     def put(flat):
         at = 0
@@ -472,19 +474,25 @@ def set_instance(tl: TwoLevelFlat, idx: int, world_from_obj,
     key = ("tlas_refit", tl.w8_nodes is not None, graphs.signature(tl))
 
     def run():
-        return programs(key, refit_body(tl), (), tl.device, eager=plain)
+        with tracing.clock("refit", tl.device):
+            return programs(key, refit_body(tl), (), tl.device, eager=plain)
 
-    put(new)
-    out = run()
-    if tl.w8_nodes is None:
-        return tl
-    depth = int(out[0])
-    try:
-        check_depths(depth, tl.blas_depth)
-    except ValueError:
-        put(old)
-        run()
-        raise
+    with tracing.span("tlas.copy_in"):
+        put(torch.from_numpy(np.concatenate(
+            [np.asarray(m, np.float32).reshape(-1)
+             for m in (world_from_obj, obj_from_world, normal_mat)]))
+            .to(tl.device))
+    with tracing.span("tlas.refit"):
+        out = run()
+        if tl.w8_nodes is None:
+            return tl
+        depth = int(out[0])
+        try:
+            check_depths(depth, tl.blas_depth)
+        except ValueError:
+            put(old)
+            run()
+            raise
     if stack_bound(depth, tl.blas_depth) == tl.stack:
         return tl
     return dataclasses.replace(tl, tlas_depth=depth)

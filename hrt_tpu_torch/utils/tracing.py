@@ -1,5 +1,6 @@
 """The port's tracing: host spans, device stage clocks and device
-counters on the frame path, off by default.
+counters on the frame path, and device clocks around work between
+frames, off by default.
 
     from hrt_tpu_torch.utils import tracing
     tracing.enable()
@@ -8,10 +9,10 @@ counters on the frame path, off by default.
     tracing.disable()
 
 `enable()` / `disable()` switch it for the process (the render
-command's `--stats` does).  When it is off, `span` returns one shared
-no-op context, and `mark`, `count` and `frame` do nothing: nothing is
-recorded, no profiler annotation is made and no node is added to a
-captured frame.
+command's `--stats` does).  When it is off, `span` and `clock` return
+one shared no-op context, and `mark`, `count` and `frame` do nothing:
+nothing is recorded, no event or profiler annotation is made and no
+node is added to a captured frame.
 
 - `span(name)`, a host span: name, start, end (`time.perf_counter_ns`)
   and parent (the enclosing span of the same thread) go into a ring of
@@ -33,10 +34,19 @@ captured frame.
   of RING frames, outside any graph: the next replay overwrites the
   buffer, and the host, with frames in flight, never reads it in time.
   Nothing waits for the device.
+- `clock(name, device)` times work outside any frame body, such as a
+  build program's replay between frames: on the card a pair of CUDA
+  events recorded on the current stream before and after the block,
+  outside any capture, resolved once the device has passed them (a
+  later clock takes the finished pairs without waiting; `snapshot`
+  waits for the rest).  On the CPU it holds the host clock, reported
+  under `host_clock_ms`, never as a device time.  Its totals are not
+  frame stages: they never go into `stage_ms`, whose means divide by
+  the frames in the ring.
 - `snapshot()` waits for the device and reads the ring: per-span host
   ms, per-stage ms a frame over the frames in the ring, counts a frame
   and the live-lane share (`live.d<k>`: rays active on entry to depth
-  k).
+  k), and each clock's total ms and count.
 """
 from __future__ import annotations
 
@@ -98,9 +108,30 @@ class _Tracer:
         self.total: dict[str, int] = collections.defaultdict(int)
         self.self_ns: dict[str, int] = collections.defaultdict(int)
         self.count: dict[str, int] = collections.defaultdict(int)
+        # Clocks: (name, start event, end event) not yet resolved, and
+        # {"device" | "host": {name: [total ms, count]}}.
+        self.pending: collections.deque = collections.deque()
+        self.clocks: dict[str, dict[str, list]] = {"device": {}, "host": {}}
         if self.ring is not None:
             self.ring.layouts = [None] * RING
             self.ring.next = 0
+
+    def add_clock(self, kind: str, name: str, ms: float) -> None:
+        tot = self.clocks[kind].setdefault(name, [0.0, 0])
+        tot[0] += ms
+        tot[1] += 1
+
+    def settle(self, wait: bool) -> None:
+        """Resolve the pending clocks in order: those the device has
+        passed, or (`wait`) all of them, waiting for each."""
+        while self.pending:
+            name, a, b = self.pending[0]
+            if wait:
+                b.synchronize()
+            elif not b.query():
+                return
+            self.pending.popleft()
+            self.add_clock("device", name, a.elapsed_time(b))
 
     def stack(self) -> list:
         st = getattr(self.local, "stack", None)
@@ -185,6 +216,44 @@ def spans() -> list:
     return list(_T.spans)
 
 
+class _Clock:
+    __slots__ = ("name", "stream", "start", "t0")
+
+    def __init__(self, name: str, device: torch.device):
+        self.name = name
+        self.stream = (torch.cuda.current_stream(device)
+                       if device.type == "cuda" else None)
+
+    def __enter__(self):
+        if self.stream is None:
+            self.t0 = time.perf_counter_ns()
+            return self
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("tracing: a clock times work outside any "
+                               "capture")
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record(self.stream)
+        return self
+
+    def __exit__(self, *exc):
+        if self.stream is None:
+            _T.add_clock("host", self.name,
+                         (time.perf_counter_ns() - self.t0) / 1e6)
+            return False
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(self.stream)
+        _T.pending.append((self.name, self.start, end))
+        _T.settle(wait=False)
+        return False
+
+
+def clock(name: str, device):
+    """A clock around the block, which runs outside any frame body and
+    any capture (see the module's docstring); the shared no-op context
+    when tracing is off."""
+    return _Clock(name, torch.device(device)) if _T.on else _NOOP
+
+
 @contextlib.contextmanager
 def frame(device):
     """Bracket one frame body; yields the frame's record (None when
@@ -262,8 +331,9 @@ def snapshot() -> dict:
     `frames` (frames in the ring), `stage_ms` on the card or
     `host_stage_ms` on the CPU ({stage: mean ms a frame}), the frame's
     first to last mark under `frame_ms` / `host_frame_ms`, `counts`
-    ({name: mean a frame}) and `live_lane_share`.  Waits for the
-    device."""
+    ({name: mean a frame}), `live_lane_share`, and where a clock ran,
+    `clock_ms` on the card or `host_clock_ms` on the CPU ({name:
+    {total_ms, count}}).  Waits for the device."""
     out = {"spans": {k: {"total_ms": _T.total[k] / 1e6,
                          "self_ms": _T.self_ns[k] / 1e6,
                          "count": _T.count[k]} for k in _T.total}}
@@ -296,4 +366,9 @@ def snapshot() -> dict:
                                                     if n else None)
     out["counts"] = {k: v / n for k, v in counts.items()}
     out["live_lane_share"] = live_lane_share(out["counts"])
+    _T.settle(wait=True)
+    for kind, key in (("device", "clock_ms"), ("host", "host_clock_ms")):
+        if _T.clocks[kind]:
+            out[key] = {k: {"total_ms": ms, "count": n}
+                        for k, (ms, n) in _T.clocks[kind].items()}
     return out

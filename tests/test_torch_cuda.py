@@ -1651,6 +1651,52 @@ def test_refit_program_is_bit_equal_to_op_by_op(cuda, route):
     assert int(hit[2][0]) == 1
 
 
+@pytest.mark.parametrize("route", ["k4", "k5"])
+def test_a_traced_refit_is_clocked_on_the_card(cuda, route):
+    """Three moves on two copies of one table, one untraced and one
+    traced: the tables bit for bit and the refit graphs' nodes equal;
+    the traced side's `refit` clock holds three replays' device ms under
+    `clock_ms`, never a stage, and its spans count three moves."""
+    import dataclasses
+
+    from hrt_tpu_torch import graphs
+    from hrt_tpu_torch.models.instance import MeshInstance
+    from hrt_tpu_torch.utils import tracing
+
+    sc = instance_grid_scene(4)
+    bound = dict(max_wide_nodes=32) if route == "k5" else {}
+    off = tlas.build_two_level_flat(sc, 32, device=cuda, **bound)
+    on = dataclasses.replace(off, **{
+        k: getattr(off, k).clone() for k in _REFIT_FIELDS
+        if getattr(off, k) is not None})
+    p_off, p_on = graphs.Programs(1), graphs.Programs(1)
+    tracing.reset()
+    try:
+        for f, idx in enumerate((1, 5, 1)):
+            cur = sc.instances[idx]
+            new = MeshInstance(cur.mesh_id, cur.material_id,
+                               (0.3 * f, -2.0 - f, 0.5), (0.2 * f, 0.1, 0.0),
+                               cur.scale)
+            mats = (new.transform, new.inverse_transform, new.normal_matrix)
+            tracing.disable()
+            off = tlas.set_instance(off, idx, *mats, programs=p_off)
+            tracing.enable()
+            on = tlas.set_instance(on, idx, *mats, programs=p_on)
+            torch.cuda.synchronize()
+            assert _tables_equal(off, on), f
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    assert p_off.last.graph.nodes == p_on.last.graph.nodes
+    refit = snap["clock_ms"]["refit"]
+    assert refit["count"] == 3 and refit["total_ms"] > 0
+    assert "host_clock_ms" not in snap
+    assert "refit" not in snap.get("stage_ms", {})
+    for name in ("tlas.copy_in", "tlas.refit"):
+        assert snap["spans"][name]["count"] == 3
+
+
 def test_culled_loop_captures_once_over_rebuilds(cuda):
     """Four orbit steps of the culled grid at 128x96, each rebuilding:
     one frame capture and one build capture; the rebuilt accel bit for

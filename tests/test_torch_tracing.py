@@ -3,22 +3,26 @@ off are no-ops, spans on nest with totals, self times and parents; the
 live-ray counters equal the rays trace_paths holds active at each
 depth; a traced frame equals an untraced one bit for bit; and switching
 tracing captures the loop's frame program once more, the key with
-tracing off as it was.  The device stage clocks (the `hrt_timestamp`
-kernel) run on the card only: tests/test_torch_cuda.py holds them
-there."""
+tracing off as it was; an instance move is the span `frameloop.move`
+over `tlas.copy_in` and `tlas.refit`, its refit clocked, on either
+TLAS route, and a traced move writes what an untraced one does.  The
+device stage clocks (the `hrt_timestamp` kernel) and the refit's CUDA
+event clock run on the card only: tests/test_torch_cuda.py holds the
+stage clocks there."""
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 from torch.utils import _pytree as pytree
 
-from hrt_tpu_torch import graphs, renderer
+from hrt_tpu_torch import cli, graphs, renderer
 from hrt_tpu_torch.config import CONFIGS, RenderConfig
 from hrt_tpu_torch.frameloop import FrameLoop
 from hrt_tpu_torch.models.camera import Camera
-from hrt_tpu_torch.models.scene import bench_scene
-from hrt_tpu_torch.ops import lbvh
+from hrt_tpu_torch.models.scene import bench_scene, instance_grid_scene
+from hrt_tpu_torch.ops import lbvh, wide8
 from hrt_tpu_torch.utils import tracing
 
 CAM = Camera(position=(0.0, -1.0, -6.0), rotation=(-0.15, 0.0, 0.0))
@@ -27,6 +31,13 @@ PATH = dataclasses.replace(CONFIGS["path_tracing"], width=16, height=12,
 POST = RenderConfig(width=16, height=12, max_depth=2, sky=True,
                     indirect=True, jitter=True, denoise=True, upscale=2,
                     upscale_mode="temporal")
+GRID = RenderConfig(width=16, height=12, max_depth=1, sky=True)
+GRID_CAM = Camera(position=(0.0, -3.0, -5.0), rotation=(-0.5, 0.0, 0.0))
+# Poses of three grid instances of instance_grid_scene(3):
+# (position, rotation, scale).
+MOVES = {2: ((-1.0, 0.2, -1.6), (0.3, 1.1, -0.4), (0.3, 0.3, 0.3)),
+         5: ((0.1, 0.1, -0.2), (1.2, 0.0, 2.0), (0.35, 0.35, 0.35)),
+         9: ((1.4, 0.6, 0.9), (0.0, 2.5, 0.7), (0.2, 0.2, 0.2))}
 
 
 @pytest.fixture(autouse=True)
@@ -184,3 +195,99 @@ def test_switching_tracing_captures_once_more_and_keeps_the_off_key():
     loop.step(CAM)
     assert loop.captures == 3
     assert next(iter(loop.program._cache)) == off_key
+
+
+@pytest.fixture(params=["bvh8", "binary"])
+def grid_loop(request, monkeypatch):
+    """A maker of two-level loops over instance_grid_scene(3) on the
+    CPU, on the unified BVH8 table (K4's route) or, with the wide bound
+    lowered, the binary tables (K5's route, the forest's)."""
+    if request.param == "binary":
+        monkeypatch.setattr(wide8, "MAX_WIDE_NODES", 4)
+
+    def make():
+        loop = FrameLoop(instance_grid_scene(3), GRID, cull_threshold_px=0.0,
+                         two_level=True, device="cpu")
+        assert (loop.accel.w8_nodes is None) == (request.param == "binary")
+        return loop
+    return make
+
+
+def _move_all(loop):
+    for idx, (pos, rot, scale) in MOVES.items():
+        loop.set_instance_transform(idx, position=pos, rotation=rot,
+                                    scale=scale)
+
+
+def test_a_move_is_a_span_over_the_copy_and_the_clocked_refit(grid_loop):
+    loop = grid_loop()
+    tracing.enable()
+    _move_all(loop)
+    k = len(MOVES)
+    assert [(n, p) for n, _, _, p in tracing.spans()] == [
+        ("tlas.copy_in", "frameloop.move"), ("tlas.refit", "frameloop.move"),
+        ("frameloop.move", None)] * k
+    snap = tracing.snapshot()
+    for name in ("frameloop.move", "tlas.copy_in", "tlas.refit"):
+        assert snap["spans"][name]["count"] == k
+    # On the CPU the refit clock is a host clock, under its host key.
+    assert "clock_ms" not in snap
+    assert snap["host_clock_ms"]["refit"]["count"] == k
+    assert snap["host_clock_ms"]["refit"]["total_ms"] > 0
+    loop.step(GRID_CAM)
+    snap = tracing.snapshot()
+    assert "stage_ms" not in snap and "refit" not in snap["host_stage_ms"]
+    assert snap["frames"] == 1
+    assert snap["host_clock_ms"]["refit"]["count"] == k
+    stats = cli.trace_stats(snap)
+    assert stats["host_clock_ms"]["refit"]["count"] == k
+    assert "clock_ms" not in stats
+    assert stats["span_ms"]["frameloop.move"] > 0
+
+
+def test_a_move_with_tracing_off_records_nothing(grid_loop):
+    loop = grid_loop()
+    assert tracing.clock("refit", "cpu") is tracing.span("refit")
+    _move_all(loop)
+    loop.step(GRID_CAM)
+    snap = tracing.snapshot()
+    assert tracing.spans() == [] and snap["spans"] == {}
+    assert "clock_ms" not in snap and "host_clock_ms" not in snap
+    assert "host_clock_ms" not in cli.trace_stats(snap)
+
+
+def _accel_tensors(tl):
+    return {f.name: getattr(tl, f.name) for f in dataclasses.fields(tl)
+            if isinstance(getattr(tl, f.name), torch.Tensor)}
+
+
+def test_a_traced_move_writes_what_an_untraced_one_does(grid_loop):
+    """The same moves and frames, traced and not: the TLAS tables, the
+    instance records and the frames equal bit for bit."""
+    plain, traced = grid_loop(), grid_loop()
+    before = {k: v.clone() for k, v in _accel_tensors(plain.accel).items()}
+    for frame in range(2):
+        tracing.disable()
+        _move_all(plain)
+        want = plain.step(GRID_CAM)
+        tracing.enable()
+        _move_all(traced)
+        got = traced.step(GRID_CAM)
+        assert torch.equal(got, want)
+        a, b = _accel_tensors(traced.accel), _accel_tensors(plain.accel)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k].view(torch.int32),
+                               b[k].view(torch.int32)), k
+    # The moves did write the instance records and the TLAS.
+    moved = _accel_tensors(plain.accel)
+    assert not torch.equal(moved["world_from_obj"], before["world_from_obj"])
+    table = "nodes" if plain.accel.w8_nodes is None else "w8_nodes"
+    assert not torch.equal(moved[table], before[table])
+    idx = list(MOVES)
+    assert np.array_equal(
+        plain.accel.world_from_obj[idx].numpy(),
+        np.stack([plain.scene_obj.instances[i].transform
+                  for i in idx]).astype(np.float32))
+    assert tracing.snapshot()["host_clock_ms"]["refit"]["count"] == \
+        2 * len(MOVES)
